@@ -21,7 +21,26 @@ the last line:
      byte-identical; the kernel's launches are counted over this phase
      only and must equal the LOV's parity and reconstruction calls;
   6. the raid5 section of BENCH_rpc.json reproduced with parity on the
-     card.
+     card;
+  7. the flash-attention kernel against its plain version on the card
+     (2e-5 in float32, 2e-2 in bfloat16), over B, (H, Hkv), S, D, window,
+     causal and Sq != Sk;
+  8. at the prefill shapes of qwen3-4b (B=2, S=4096, and one layer of
+     prefill_32k: B=1, S=32768): the kernel against its plain version,
+     element by element within a limit scaled to each output, then its
+     times beside the operations bound, the plain version and
+     scaled_dot_product_attention (a yardstick the port never calls);
+  9. the main path, prefill: qwen3-4b at full width and depth (random f32
+     parameters from a seed, bf16 compute) through build_prefill_step
+     with attn_impl="flash" on 2 prompts of 4096 tokens; the kernel must
+     launch once per layer (36 times), the logits at 10 positions must
+     agree with the same step on attn_impl="ref", and two faults planted
+     in the flash call (causal=False, a window of 2048) must fail that
+     comparison;
+ 10. in f32 compute, the flash prefill of two 64-token prompts against the
+     decode chain's logits at position 63;
+ 11. the main path, serving: BatchedServer (on "cuda", its default)
+     answers 4 requests with prompts of 8-64 tokens, 16 new tokens each.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -200,6 +219,383 @@ def time_kernel(torch, parity, ref, ops, dev) -> dict:
     return out
 
 
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense tensor-core bf16
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py TOL
+# at the prefill shapes (bf16), element by element: see check_flash_scaled
+FLASH_REL_TOL, FLASH_ABS_TOL = 2.0 ** -7, 1e-4
+
+
+def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = (lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype))
+    return mk(B, H, Sq, D), mk(B, Hkv, Sk, D), mk(B, Hkv, Sk, D)
+
+
+def check_flash(torch, fa, ref, dev) -> dict:
+    """K3 check: the kernel against its plain version on the card, over
+    B, (H, Hkv), S, D, window, causal and dtype, plus Sq != Sk (Sq < Sk,
+    and Sq > Sk where leading rows keep no key and must be 0)."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = []
+    for B in (1, 2):
+        for H, Hkv in ((1, 1), (4, 2), (8, 1), (32, 8)):
+            for S in (64, 128, 192, 256, 1024):
+                for D in (16, 32, 64, 128, 256):
+                    cases += [(B, H, Hkv, S, S, D, w, c)
+                              for w in (0, 32, 100) for c in (True, False)]
+    for Sq, Sk in ((1, 128), (64, 256), (100, 1024), (192, 1024), (128, 64)):
+        for H, Hkv, D in ((4, 2, 64), (32, 8, 128), (8, 1, 256)):
+            cases += [(2, H, Hkv, Sq, Sk, D, w, c)
+                      for w in (0, 100) for c in (True, False)]
+    n = 0
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for i, (B, H, Hkv, Sq, Sk, D, w, c) in enumerate(cases):
+            q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, i, dev)
+            got = fa.flash_attention(q, k, v, causal=c, window=w)
+            want = ref.flash_attention_ref(q, k, v, causal=c, window=w)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= FLASH_TOL[dname]:
+                raise AssertionError(
+                    f"flash_attention {dname} B={B} H={H} Hkv={Hkv} Sq={Sq} "
+                    f"Sk={Sk} D={D} window={w} causal={c}: max abs err "
+                    f"{err} > {FLASH_TOL[dname]}")
+            if Sq > Sk and c:            # rows before the first key are 0
+                if got[:, :, :Sq - Sk].abs().max() != 0:
+                    raise AssertionError("a row that keeps no key is not 0")
+            worst[dname] = max(worst[dname], err)
+            n += 1
+    emit("kernel_check", kernel="flash_attention", shapes=n,
+         max_abs_err=worst, tolerance=FLASH_TOL)
+    return worst
+
+
+def flash_cost(B, H, Hkv, S, D, itemsize) -> tuple[float, float, float, str]:
+    """flops and bytes of causal attention at Sq == Sk == S, and the bound
+    (ms) with what sets it."""
+    flops = 4.0 * B * H * D * (S * (S + 1) / 2)    # QK^T and PV, kept pairs
+    nbytes = itemsize * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if by_ops >= by_bytes:
+        return flops, nbytes, by_ops, "operations"
+    return flops, nbytes, by_bytes, "bytes"
+
+
+def check_flash_scaled(torch, fa, ref, q, k, v) -> dict:
+    """Kernel vs plain version at a prefill shape, held element by element
+    to 2^-7 (|want| + |v|_P / 2) + 1e-4, where |v|_P is the plain version
+    run on |v| (the P-weighted mean of |v| along the row).  2^-7 |want|
+    covers the bf16 rounding of both outputs; 2^-8 |v|_P bounds the
+    kernel's rounding of P to bf16 before PV (2^-9 a weight, with slack).
+    At S=4096 a typical output is 0.03-0.04 and this limit about 3.5e-3,
+    where a fixed 2e-2 would pass a dropped or repeated KV tile."""
+    got = fa.flash_attention(q, k, v).float()
+    want = ref.flash_attention_ref(q, k, v).float()
+    weighted = ref.flash_attention_ref(q, k, v.abs()).float()
+    err = (got - want).abs()
+    mag = want.abs()
+    limit = FLASH_REL_TOL * (mag + weighted / 2) + FLASH_ABS_TOL
+    ratio = float((err / limit).max())
+    return {"max_abs_err": float(err.max()),
+            "mean_abs_want": float(mag.mean()),
+            "mean_limit": float(limit.mean()),
+            "max_err_over_mean_want": float(err.max() / mag.mean()),
+            "worst_over_limit": ratio}
+
+
+def time_flash(torch, fa, ref, dev) -> dict:
+    """K3 at the prefill shapes of qwen3-4b (bf16, causal): the main path's
+    (B=2, S=4096) and one layer of prefill_32k (B=1, S=32768).  At each
+    shape the kernel's output is held against the plain version's on the
+    same inputs (check_flash_scaled), then both are timed.  The library
+    call (scaled_dot_product_attention) is a yardstick only."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, B, S, reps in (("main", 2, 4096, 9), ("prefill_32k", 1, 32768,
+                                                     3)):
+        H, Hkv, D = 32, 8, 128
+        q, k, v = qkv(torch, B, H, Hkv, S, S, D, torch.bfloat16, 7, dev)
+        check = check_flash_scaled(torch, fa, ref, q, k, v)
+        emit("kernel_check", kernel="flash_attention", shape=name, B=B, S=S,
+             **check)
+        if not check["worst_over_limit"] <= 1.0:
+            raise AssertionError(f"flash_attention at {name} (B={B}, S={S})"
+                                 f" differs from its plain version: {check}")
+        pool = [(q, k, v)]
+        flops, nbytes, b, by = flash_cost(B, H, Hkv, S, D, 2)
+        kern = time_on_card(torch, lambda t: fa.flash_attention(*t), pool,
+                            reps)
+        plain = time_on_card(torch, lambda t: ref.flash_attention_ref(*t),
+                             pool, reps)
+        lib = time_on_card(torch, lambda t: sdpa(*t, is_causal=True,
+                                                 enable_gqa=True), pool, reps)
+        out[name] = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
+                     "dtype": "bfloat16", "check": check,
+                     "flops": flops, "bytes": nbytes,
+                     "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
+                     "plain_ms": plain["graph_ms"],
+                     "library_ms": lib["graph_ms"], "bound_ms": b,
+                     "bound_by": by, "bound_share": b / kern["graph_ms"],
+                     "tflops": flops / kern["graph_ms"] / 1e9}
+        del q, k, v, pool
+        torch.cuda.empty_cache()
+    emit("kernel_time", kernel="flash_attention", **out)
+    return out
+
+
+MODEL = "qwen3-4b"
+PREFILL_B, PREFILL_S = 2, 4096
+# positions whose logits the flash and "ref" prefills must agree on: early
+# rows see few keys, so a fault in the causal mask shows there first
+POSITIONS = (0, 1, 15, 127, 511, 1023, 2047, 3071, 4094, 4095)
+# flash vs "ref" prefill, bf16 compute, largest gap at a position over its
+# largest "ref" logit: both round P to bf16 before PV and differ in where
+# the rest is rounded, over 36 layers
+PREFILL_REL_TOL = 5e-2
+# faults planted in the flash call; the check must fail on each
+PLANTED = {"causal_false": {"causal": False},
+           "window_half": {"window": PREFILL_S // 2}}
+# flash prefill vs the decode chain, f32 compute (tests/test_archs.py holds
+# the reference to 1e-3 at smoke size)
+CONSISTENCY_REL_TOL = 1e-3
+
+
+class Spy:
+    """Wrap `mod.name` for the duration of a `with`: keeps `keep` of what
+    it returned, and the device time between CUDA events around each call.
+    `force` overrides keyword arguments of every call (a planted fault)."""
+
+    def __init__(self, torch, mod, name, timed=False, keep=lambda out: out,
+                 force=None):
+        self.torch, self.mod, self.name, self.timed = torch, mod, name, timed
+        self.keep, self.force = keep, force or {}
+        self.real = getattr(mod, name)
+        self.returned, self.events = [], []
+
+    def __enter__(self):
+        def spy(*a, **kw):
+            if self.timed:
+                ev = [self.torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+            out = self.real(*a, **{**kw, **self.force})
+            if self.timed:
+                ev[1].record()
+                self.events.append(ev)
+            self.returned.append(self.keep(out))
+            return out
+        setattr(self.mod, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+    def device_s(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+def model_params(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, registry
+
+    cfg = get_config(MODEL)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = layers.tree_init(registry.param_defs(cfg), gen)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in layers.tree_items(params))
+    emit("model_init", model=MODEL, params=n, bytes=4 * n,
+         wall_s=time.perf_counter() - t0)
+    return cfg, params
+
+
+def prefill_tokens(torch, cfg, dev):
+    """The prefill's B=2 prompts of 4096 tokens, made from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    return torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+
+def serve_requests(cfg, lens=(8, 23, 41, 64), max_new=16):
+    """The serving wave's requests, prompts made from the seed."""
+    import numpy as np
+
+    from repro_torch.train.serve import Request
+
+    rng = np.random.default_rng(SEED)
+    return [Request(i, rng.integers(0, cfg.vocab, n).tolist(),
+                    max_new=max_new) for i, n in enumerate(lens)]
+
+
+def logit_gaps(torch, registry, cfg, params, rc, x, x_ref) -> list[float]:
+    """At each of POSITIONS: the largest logit gap between two final hidden
+    states (B, S, d) over the largest |logit| of `x_ref`."""
+    pos = torch.tensor(POSITIONS, device=x.device)
+    got = registry.unembed(cfg, params, x[:, pos], rc).float()
+    want = registry.unembed(cfg, params, x_ref[:, pos], rc).float()
+    err = (got - want).abs().amax(dim=(0, 2))
+    return (err / want.abs().amax(dim=(0, 2))).tolist()
+
+
+def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
+    """Main path, prefill: build_prefill_step with attn_impl="flash" on B=2
+    prompts of 4096 tokens, bf16 compute over f32 parameters.  Each of the
+    two calls (the second one warm) must launch the flash kernel once per
+    layer and the XOR kernel never.  Its logits at POSITIONS must agree
+    with the same step on attn_impl="ref", and the same check must fail
+    when a fault is planted in the flash call (PLANTED)."""
+    from repro_torch.models import registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import build_prefill_step
+
+    tokens = prefill_tokens(torch, cfg, dev)
+    rc = RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B,
+                   kind="prefill", attn_impl="flash")
+    step = build_prefill_step(cfg, rc, device=dev)
+    hidden = (lambda out: out[0])            # forward's final hidden states
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES = parity.LAUNCHES = 0
+        with Spy(torch, fa, "flash_attention", timed=True) as flash, \
+                Spy(torch, registry, "forward", keep=hidden) as fwd:
+            t = time.perf_counter()
+            tok, cache = step(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        runs.append({"wall_s": wall, "launches": fa.LAUNCHES,
+                     "xor_launches": parity.LAUNCHES,
+                     "flash_device_s": flash.device_s(),
+                     "flash_share": flash.device_s() / wall,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if fa.LAUNCHES != cfg.n_layers or parity.LAUNCHES:
+            raise AssertionError(f"{fa.LAUNCHES} flash and {parity.LAUNCHES}"
+                                 f" XOR launches in the prefill, want "
+                                 f"{cfg.n_layers} and 0")
+    x = fwd.returned[0]
+    launches = runs[0]["launches"]
+    shape_ok = (tuple(tok.shape) == (PREFILL_B, 1) and tuple(
+        cache["k"].shape) == (cfg.n_layers, PREFILL_B, PREFILL_S,
+                              cfg.n_kv_heads, cfg.head_dim))
+    if not shape_ok or not bool(torch.isfinite(x).all()):
+        raise AssertionError("prefill: wrong shapes or non-finite states")
+    del cache
+
+    # the same step with the plain attention of the reference ("ref")
+    ref_step = build_prefill_step(
+        cfg, RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B,
+                       kind="prefill", attn_impl="ref"), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with Spy(torch, registry, "forward", keep=hidden) as ref_fwd:
+        t = time.perf_counter()
+        ref_tok, ref_cache = ref_step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    del ref_cache
+    x_ref = ref_fwd.returned[0]
+    gaps = logit_gaps(torch, registry, cfg, params, rc, x, x_ref)
+
+    # the check against planted faults: each must break it
+    planted = {}
+    for name, force in PLANTED.items():
+        with Spy(torch, fa, "flash_attention", force=force), \
+                Spy(torch, registry, "forward", keep=hidden) as bad:
+            step(params, {"tokens": tokens})
+        planted[name] = logit_gaps(torch, registry, cfg, params, rc,
+                                   bad.returned[0], x_ref)
+    out = {"model": MODEL, "B": PREFILL_B, "S": PREFILL_S,
+           "compute": "bfloat16", "launches": launches, "runs": runs,
+           "next_tokens": tok.reshape(-1).tolist(),
+           "ref_next_tokens": ref_tok.reshape(-1).tolist(),
+           "positions": POSITIONS, "rel_gaps": gaps,
+           "tolerance_rel": PREFILL_REL_TOL, "planted_rel_gaps": planted,
+           "ref_wall_s": ref_wall, "ref_peak_gib": ref_peak}
+    emit("prefill", **out)
+    if not max(gaps) <= PREFILL_REL_TOL:
+        raise AssertionError(f"flash prefill logits differ from ref: "
+                             f"{gaps} > {PREFILL_REL_TOL}")
+    for name, bad in planted.items():
+        if max(bad) <= PREFILL_REL_TOL:
+            raise AssertionError(f"the prefill check passes the planted "
+                                 f"fault {name}: {bad}")
+    return out
+
+
+def consistency_check(torch, cfg, params, dev) -> dict:
+    """f32 compute: the flash prefill's last-position logits of two
+    64-token prompts against the decode chain's logits at position 63."""
+    from repro_torch.models import registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import build_prefill_step
+
+    S = 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab, (2, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    rc = RunConfig(seq_len=S, global_batch=2, kind="prefill",
+                   attn_impl="flash", compute_dtype="float32")
+    with Spy(torch, registry, "unembed") as head:
+        build_prefill_step(cfg, rc, device=dev)(params, {"tokens": tokens})
+    want = head.returned[0][:, 0].float()
+    drc = RunConfig(seq_len=S, global_batch=2, kind="decode",
+                    attn_impl="ref", compute_dtype="float32")
+    spec = registry.init_cache(cfg, 2, S, torch.float32)
+    cache = {k: torch.zeros(s, dtype=dt, device=dev)
+             for k, (s, dt) in spec.items()}
+    with torch.no_grad():
+        for t in range(S):
+            got, cache = registry.decode(cfg, params, cache,
+                                         tokens[:, t:t + 1], t, drc)
+    got = got[:, 0].float()
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    out = {"S": S, "compute": "float32", "max_abs_err": err,
+           "logits_max_abs": float(want.abs().max()),
+           "tolerance": CONSISTENCY_REL_TOL * scale,
+           "argmax_equal": bool(torch.equal(got.argmax(-1),
+                                            want.argmax(-1)))}
+    emit("prefill_decode_consistency", **out)
+    if not err <= CONSISTENCY_REL_TOL * scale:
+        raise AssertionError(f"decode chain differs from the flash prefill: "
+                             f"{err}")
+    return out
+
+
+def serve_path(torch, fa, parity, cfg, params) -> dict:
+    """Main path, serving: BatchedServer on the card answers 4 requests
+    with prompts of 8-64 tokens, 16 new tokens each."""
+    from repro_torch.train.serve import BatchedServer
+
+    reqs = serve_requests(cfg)
+    lens = [len(r.prompt) for r in reqs]
+    srv = BatchedServer(cfg, params, max_seq=256)          # device "cuda"
+    fa.LAUNCHES = parity.LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = srv.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    steps = max(lens) + 16 - 1        # lockstep prompt + 15 decode steps
+    res = {"requests": len(out), "prompt_lens": lens,
+           "tokens_out": sum(len(r.out) for r in out), "decode_steps": steps,
+           "wall_s": wall, "wall_ms_per_step": wall / steps * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "flash_launches": fa.LAUNCHES, "xor_launches": parity.LAUNCHES,
+           "outs": [r.out for r in out]}
+    emit("serve", **res)
+    if [len(r.out) for r in out] != [16] * 4 or not all(
+            0 <= t < cfg.vocab for r in out for t in r.out):
+        raise AssertionError("serve: a request did not get 16 valid tokens")
+    if fa.LAUNCHES or parity.LAUNCHES:        # decode runs on "ref"
+        raise AssertionError("serve: a kernel launched on the serving path")
+    return res
+
+
 def main_path(device, mib: int, ops, parity) -> dict:
     """Phase 5 (and its rehearsal on the CPU at a small `mib`)."""
     import numpy as np
@@ -347,6 +743,7 @@ def run() -> int:
               "false)", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, ops, parity, ref
+    from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -355,7 +752,7 @@ def run() -> int:
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    built = _build.build(["xor_parity"])
+    built = _build.build(["xor_parity", "flash_attention"])
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
                         "ptxas": [ln for ln in v["log"].splitlines()
@@ -365,16 +762,24 @@ def run() -> int:
     worst = check_kernel(torch, parity, ref, dev)
     times = time_kernel(torch, parity, ref, ops, dev)
 
-    parity.LAUNCHES = 0
+    parity.LAUNCHES = fa.LAUNCHES = 0
     main = main_path("cuda", MAIN_MIB, ops, parity)
     launches = parity.LAUNCHES
-    if launches == 0 or launches != main["lov_calls"]:
+    if launches == 0 or launches != main["lov_calls"] or fa.LAUNCHES:
         raise AssertionError(f"{launches} kernel launches on the main path "
-                             f"for {main['lov_calls']} LOV parity calls")
+                             f"for {main['lov_calls']} LOV parity calls, "
+                             f"{fa.LAUNCHES} flash launches")
 
     bench_raid5("cuda", parity)
 
-    k4 = times[4]
+    flash_err = check_flash(torch, fa, ref, dev)
+    flash_times = time_flash(torch, fa, ref, dev)
+    cfg, params = model_params(torch, dev)
+    prefill = prefill_path(torch, fa, parity, cfg, params, dev)
+    consistency_check(torch, cfg, params, dev)
+    serve_path(torch, fa, parity, cfg, params)
+
+    k4, fm = times[4], flash_times["main"]
     print(json.dumps({"kernels": [{
         "name": "xor_parity", "route": "cuda",
         "source": "src/repro_torch/csrc/xor_parity.cu",
@@ -382,7 +787,15 @@ def run() -> int:
         "launches": launches, "max_abs_err": worst,
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": prefill["launches"],
+        "max_abs_err": max(flash_err.values()),
+        "ms": fm["ms"], "plain_ms": fm["plain_ms"],
+        "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
+        "library_ms": fm["library_ms"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

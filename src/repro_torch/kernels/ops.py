@@ -1,4 +1,7 @@
-"""Byte-level entry points to the parity kernel, as the LOV uses them.
+"""Entry points to the port's kernels, as their callers use them.
+
+`flash_attention` is the model's way to the attention kernel, with the
+reference's block clamping and divisibility contract.
 
 Stripe units are byte strings of unequal length.  `parity_bytes` lays
 them out as the zero-padded rows of an int32 (K, N) array (0 is the XOR
@@ -12,7 +15,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import parity as _par
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
+                    block_q=128, block_k=128):
+    """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D).  The blocks are
+    clamped to the sequence lengths and must then divide them, as the
+    reference's Pallas grid requires; the kernel's own tiles do not
+    depend on them."""
+    block_q = min(block_q, q.shape[2])
+    block_k = min(block_k, k.shape[2])
+    if q.shape[2] % block_q or k.shape[2] % block_k:
+        raise ValueError(f"flash_attention: blocks ({block_q}, {block_k}) "
+                         f"do not divide Sq={q.shape[2]}, Sk={k.shape[2]}")
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
 
 
 def resolve_device(device) -> torch.device:

@@ -1,9 +1,10 @@
-"""Drift test: the port's simulator modules are copies of the reference.
+"""Drift test: the port's pure-Python modules are copies of the reference.
 
-The simulator under `repro.core` / `repro.fsio` holds no JAX and no
-kernel, so `repro_torch` keeps its own copy of every module its raid5
-data path reaches instead of importing the reference (importing any
-`repro` module from the port is forbidden).  A copy equals its reference
+The simulator under `repro.core` / `repro.fsio`, the model and run
+configurations (`models/config.py`) and the architecture table
+(`configs/`) hold no JAX and no kernel, so `repro_torch` keeps its own
+copy of every such module its paths reach instead of importing the
+reference (importing any `repro` module from the port is forbidden).  A copy equals its reference
 source after `port_source`, which
 
   * renames the package (`repro.` -> `repro_torch.`), and
@@ -18,7 +19,18 @@ Allowed to differ, and therefore not listed in COPIED:
   * `core/cluster.py` - `LustreCluster(..., device="cuda")` checks the
     device up front and hands it to every LOV through `make_lov`;
   * `core/__init__.py`, `fsio/__init__.py` - export only what the port
-    has (`fsio.namespace` is not ported yet).
+    has (`fsio.namespace` is not ported yet);
+  * `models/layers.py`, `models/transformer.py`, `models/registry.py` -
+    written anew in PyTorch: parameters are nested dicts of tensors from a
+    torch.Generator, the layer scan is a loop, the decode cache is written
+    in place, the flash path calls the port's kernel, the sharding
+    constraints (identity without a mesh) are dropped, and MoE,
+    encoder-decoder, patch-prefix, windowed-cache decode and the rwkv6 /
+    zamba2 families raise NotImplementedError;
+  * `train/steps.py`, `train/serve.py` - the prefill and serve steps as
+    plain callables on an explicit device (no StepBundle, no shardings;
+    the train step is not ported), and a server with a `device` argument;
+  * `kernels/` - hand-written CUDA kernels beside their plain versions.
 """
 import pathlib
 import re
@@ -35,6 +47,10 @@ COPIED = [
     "core/mds.py", "core/mdc.py",
     "tools/monitor.py",
     "fsio/client.py",
+    "models/config.py",
+    "configs/__init__.py",
+    *sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob(
+        "*.py") if p.name != "__init__.py"),
 ]
 
 _HISTORY_TAGS = [

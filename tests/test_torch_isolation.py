@@ -1,5 +1,6 @@
-"""The port stands alone: importing and running `repro_torch` loads no
-JAX and no module of the reference package `repro`."""
+"""The port stands alone: importing and running `repro_torch` (the raid5
+data path, a flash prefill and the batched server) loads no JAX and no
+module of the reference package `repro`."""
 import json
 import os
 import pathlib
@@ -37,6 +38,22 @@ assert r.read(f, len(data), offset=0) == data
 assert c.stats.counters["lov.reconstruct_unit"] > 0
 c.lctl("rebuild", "OST0001", c.spare_uuids[0])     # function-local imports
 assert c.lctl("mon_snapshot")["cluster"]
+import torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import layers, registry
+from repro_torch.models.config import RunConfig
+from repro_torch.train.serve import BatchedServer, Request
+from repro_torch.train.steps import build_prefill_step
+cfg = get_smoke_config("qwen3-4b")
+params = layers.tree_init(registry.param_defs(cfg),
+                          torch.Generator().manual_seed(0))
+rc = RunConfig(seq_len=32, global_batch=2, kind="prefill", attn_impl="flash")
+tok, cache = build_prefill_step(cfg, rc, device="cpu")(
+    params, {"tokens": np.ones((2, 32), np.int32)})
+assert tuple(tok.shape) == (2, 1) and tuple(cache["k"].shape)[:3] == (2, 2, 32)
+out = BatchedServer(cfg, params, max_seq=16, device="cpu").generate(
+    [Request(1, [3, 4, 5], max_new=3), Request(2, [7], max_new=2)])
+assert [len(r.out) for r in out] == [3, 2]
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
 """
@@ -66,7 +83,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    [*(REPO / "src" / "repro_torch").rglob("*.py"), REPO / "chip_smoke.py"]))
+    [*(REPO / "src" / "repro_torch").rglob("*.py"), REPO / "chip_smoke.py",
+     REPO / "profile_model.py"]))
 def test_port_source_imports_no_jax_and_no_reference_module(path):
     text = (REPO / path).read_text()
     bad = [m.group(0).strip() for m in _FORBIDDEN.finditer(text)]
