@@ -22,18 +22,20 @@ the last line:
      only and must equal the LOV's parity and reconstruction calls;
   6. the raid5 section of BENCH_rpc.json reproduced with parity on the
      card;
-  7. the flash-attention kernel against its plain version on the card
-     (2e-5 in float32, 2e-2 in bfloat16), over B, (H, Hkv), S, D, window,
-     causal and Sq != Sk;
+  7. the flash-attention kernel, every variant (wgmma, mma, simt), against
+     its plain version on the card (2e-5 in float32, 2e-2 in bfloat16),
+     over B, (H, Hkv), S, D, window, causal, Sq != Sk, FLASH_EDGES and
+     strided (B,S,H,D) views;
   8. at the prefill shapes of qwen3-4b (B=2, S=4096, and one layer of
-     prefill_32k: B=1, S=32768): the kernel against its plain version,
-     element by element within a limit scaled to each output, then its
-     times beside the operations bound, the plain version and
+     prefill_32k: B=1, S=32768) and a gemma3-12b global layer (D=256,
+     B=2, S=4096): the kernel against its plain version, element by
+     element within a limit scaled to each output, then its times beside
+     the operations bound, the plain version and
      scaled_dot_product_attention (a yardstick the port never calls);
   9. the main path, prefill: qwen3-4b at full width and depth (random f32
      parameters from a seed, bf16 compute) through build_prefill_step
-     with attn_impl="flash" on 2 prompts of 4096 tokens; the kernel must
-     launch once per layer (36 times), the logits at 10 positions must
+     with attn_impl="flash" on 2 prompts of 4096 tokens; the wgmma kernel
+     must launch once per layer (36 times), the logits at 10 positions must
      agree with the same step on attn_impl="ref", and two faults planted
      in the flash call (causal=False, a window of 2048) must fail that
      comparison;
@@ -45,6 +47,14 @@ the last line:
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 CUDA card is usable or the port's sources are missing.
+
+    python3 chip_smoke.py --flash-only
+
+is the quick check of the flash-attention kernel alone (phases 1, 2, 7, 8,
+after one short call of each wgmma instantiation); it prints no result
+line.  Run it under `timeout` after a change to the kernel: a fault of
+its mbarrier pipeline traps after seconds, and the timeout bounds the
+rest.
 """
 from __future__ import annotations
 
@@ -225,49 +235,78 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py TOL
 FLASH_REL_TOL, FLASH_ABS_TOL = 2.0 ** -7, 1e-4
 
 
-def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev):
+def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev, strided=False):
+    """q (B,H,Sq,D), k, v (B,Hkv,Sk,D) from `seed`; `strided` gives the
+    (B,H,S,D) views of (B,S,H,D) tensors, as the model passes them."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    mk = (lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype))
-    return mk(B, H, Sq, D), mk(B, Hkv, Sk, D), mk(B, Hkv, Sk, D)
+
+    def mk(heads, S):
+        if strided:
+            return torch.randn(B, S, heads, D, generator=g, device=dev).to(
+                dtype).transpose(1, 2)
+        return torch.randn(B, heads, S, D, generator=g, device=dev).to(dtype)
+    return mk(H, Sq), mk(Hkv, Sk), mk(Hkv, Sk)
+
+
+# K3's edges beyond the grid of check_flash, (B, H, Hkv, Sq, Sk, D, window,
+# causal): sequences that are not a multiple of the wgmma kernel's 128-row
+# tiles, Sq < Sk, a window of 1024 at S=4096 and gemma3's D=256 at S=4096
+FLASH_EDGES = [(1, 4, 2, 100, 100, 128, 0, True),
+               (1, 32, 8, 4000, 4000, 128, 0, True),
+               (2, 32, 8, 1000, 4096, 128, 0, True),
+               (1, 8, 2, 128, 4000, 256, 100, True),
+               (1, 32, 8, 4096, 4096, 128, 1024, True),
+               (1, 16, 8, 4096, 4096, 256, 0, True),
+               (1, 8, 8, 4000, 4000, 64, 1024, False)]
 
 
 def check_flash(torch, fa, ref, dev) -> dict:
-    """K3 check: the kernel against its plain version on the card, over
-    B, (H, Hkv), S, D, window, causal and dtype, plus Sq != Sk (Sq < Sk,
-    and Sq > Sk where leading rows keep no key and must be 0)."""
+    """K3 check: every variant of the kernel against its plain version on
+    the card, over B, (H, Hkv), S, D, window, causal and dtype, plus
+    Sq != Sk (Sq < Sk, and Sq > Sk where leading rows keep no key and must
+    be 0), FLASH_EDGES, and strided (B,S,H,D) views in and out."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = []
     for B in (1, 2):
         for H, Hkv in ((1, 1), (4, 2), (8, 1), (32, 8)):
             for S in (64, 128, 192, 256, 1024):
                 for D in (16, 32, 64, 128, 256):
-                    cases += [(B, H, Hkv, S, S, D, w, c)
+                    cases += [(B, H, Hkv, S, S, D, w, c, False)
                               for w in (0, 32, 100) for c in (True, False)]
     for Sq, Sk in ((1, 128), (64, 256), (100, 1024), (192, 1024), (128, 64)):
         for H, Hkv, D in ((4, 2, 64), (32, 8, 128), (8, 1, 256)):
-            cases += [(2, H, Hkv, Sq, Sk, D, w, c)
+            cases += [(2, H, Hkv, Sq, Sk, D, w, c, False)
                       for w in (0, 100) for c in (True, False)]
+    cases += [(*e, strided) for e in FLASH_EDGES for strided in (False, True)]
+    cases += [(2, 4, 2, S, S, D, 0, True, True)
+              for S in (100, 192) for D in (16, 32, 64, 128, 256)]
     n = 0
+    before = dict(fa.VARIANT_LAUNCHES)
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
-        for i, (B, H, Hkv, Sq, Sk, D, w, c) in enumerate(cases):
-            q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, i, dev)
-            got = fa.flash_attention(q, k, v, causal=c, window=w)
+        for i, (B, H, Hkv, Sq, Sk, D, w, c, strided) in enumerate(cases):
+            q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, i, dev, strided)
+            got = fa.flash_attention(q, k, v, causal=c, window=w,
+                                     out_layout="bshd" if strided else "bhsd")
             want = ref.flash_attention_ref(q, k, v, causal=c, window=w)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             if not err <= FLASH_TOL[dname]:
                 raise AssertionError(
                     f"flash_attention {dname} B={B} H={H} Hkv={Hkv} Sq={Sq} "
-                    f"Sk={Sk} D={D} window={w} causal={c}: max abs err "
-                    f"{err} > {FLASH_TOL[dname]}")
+                    f"Sk={Sk} D={D} window={w} causal={c} strided={strided}"
+                    f" ({fa.variant(dtype, D)}): max abs err {err} > "
+                    f"{FLASH_TOL[dname]}")
             if Sq > Sk and c:            # rows before the first key are 0
                 if got[:, :, :Sq - Sk].abs().max() != 0:
                     raise AssertionError("a row that keeps no key is not 0")
             worst[dname] = max(worst[dname], err)
             n += 1
+    ran = {k: v - before[k] for k, v in fa.VARIANT_LAUNCHES.items()}
     emit("kernel_check", kernel="flash_attention", shapes=n,
-         max_abs_err=worst, tolerance=FLASH_TOL)
+         max_abs_err=worst, tolerance=FLASH_TOL, variant_launches=ran)
+    if not all(ran.values()):
+        raise AssertionError(f"a flash variant was never checked: {ran}")
     return worst
 
 
@@ -305,41 +344,54 @@ def check_flash_scaled(torch, fa, ref, q, k, v) -> dict:
             "worst_over_limit": ratio}
 
 
+# K3's timed shapes, bf16 causal: the qwen3-4b prefill of the main path,
+# one layer of qwen3-4b's prefill_32k, and a global layer of gemma3-12b
+# (D=256) at the main path's B and S: (name, B, H, Hkv, S, D, reps)
+FLASH_TIMED = (("main", 2, 32, 8, 4096, 128, 9),
+               ("prefill_32k", 1, 32, 8, 32768, 128, 3),
+               ("gemma3_d256", 2, 16, 8, 4096, 256, 9))
+FLASH_EARLIER_MS = 2.026       # K3 at "main" on mma.sync, before the wgmma kernel
+
+
 def time_flash(torch, fa, ref, dev) -> dict:
-    """K3 at the prefill shapes of qwen3-4b (bf16, causal): the main path's
-    (B=2, S=4096) and one layer of prefill_32k (B=1, S=32768).  At each
-    shape the kernel's output is held against the plain version's on the
-    same inputs (check_flash_scaled), then both are timed.  The library
-    call (scaled_dot_product_attention) is a yardstick only."""
+    """K3 at FLASH_TIMED's shapes.  At each shape the kernel's output is
+    held against the plain version's on the same inputs
+    (check_flash_scaled), then the kernel (on contiguous inputs, and on
+    the strided (B,S,H,D) views the model passes), the plain version and
+    the library call (scaled_dot_product_attention, a yardstick only) are
+    timed."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for name, B, S, reps in (("main", 2, 4096, 9), ("prefill_32k", 1, 32768,
-                                                     3)):
-        H, Hkv, D = 32, 8, 128
+    for name, B, H, Hkv, S, D, reps in FLASH_TIMED:
         q, k, v = qkv(torch, B, H, Hkv, S, S, D, torch.bfloat16, 7, dev)
         check = check_flash_scaled(torch, fa, ref, q, k, v)
         emit("kernel_check", kernel="flash_attention", shape=name, B=B, S=S,
-             **check)
+             D=D, **check)
         if not check["worst_over_limit"] <= 1.0:
             raise AssertionError(f"flash_attention at {name} (B={B}, S={S})"
                                  f" differs from its plain version: {check}")
         pool = [(q, k, v)]
+        views = [tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in (q, k, v))]
         flops, nbytes, b, by = flash_cost(B, H, Hkv, S, D, 2)
         kern = time_on_card(torch, lambda t: fa.flash_attention(*t), pool,
                             reps)
+        strided = time_on_card(torch, lambda t: fa.flash_attention(
+            *t, out_layout="bshd"), views, reps)
         plain = time_on_card(torch, lambda t: ref.flash_attention_ref(*t),
                              pool, reps)
         lib = time_on_card(torch, lambda t: sdpa(*t, is_causal=True,
                                                  enable_gqa=True), pool, reps)
         out[name] = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
-                     "dtype": "bfloat16", "check": check,
-                     "flops": flops, "bytes": nbytes,
+                     "dtype": "bfloat16", "variant": fa.variant(q.dtype, D),
+                     "check": check, "flops": flops, "bytes": nbytes,
                      "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
+                     "strided_ms": strided["graph_ms"],
                      "plain_ms": plain["graph_ms"],
                      "library_ms": lib["graph_ms"], "bound_ms": b,
                      "bound_by": by, "bound_share": b / kern["graph_ms"],
                      "tflops": flops / kern["graph_ms"] / 1e9}
-        del q, k, v, pool
+        del q, k, v, pool, views
         torch.cuda.empty_cache()
     emit("kernel_time", kernel="flash_attention", **out)
     return out
@@ -460,6 +512,7 @@ def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.LAUNCHES = parity.LAUNCHES = 0
+        fa.VARIANT_LAUNCHES = dict.fromkeys(fa.VARIANTS, 0)
         with Spy(torch, fa, "flash_attention", timed=True) as flash, \
                 Spy(torch, registry, "forward", keep=hidden) as fwd:
             t = time.perf_counter()
@@ -467,16 +520,19 @@ def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         runs.append({"wall_s": wall, "launches": fa.LAUNCHES,
+                     "variant_launches": dict(fa.VARIANT_LAUNCHES),
                      "xor_launches": parity.LAUNCHES,
                      "flash_device_s": flash.device_s(),
                      "flash_share": flash.device_s() / wall,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
-        if fa.LAUNCHES != cfg.n_layers or parity.LAUNCHES:
-            raise AssertionError(f"{fa.LAUNCHES} flash and {parity.LAUNCHES}"
-                                 f" XOR launches in the prefill, want "
-                                 f"{cfg.n_layers} and 0")
+        if fa.LAUNCHES != cfg.n_layers or parity.LAUNCHES or \
+                fa.VARIANT_LAUNCHES["wgmma"] != cfg.n_layers:
+            raise AssertionError(f"{fa.VARIANT_LAUNCHES} flash and "
+                                 f"{parity.LAUNCHES} XOR launches in the "
+                                 f"prefill, want {cfg.n_layers} wgmma and 0")
     x = fwd.returned[0]
     launches = runs[0]["launches"]
+    variant_launches = runs[0]["variant_launches"]
     shape_ok = (tuple(tok.shape) == (PREFILL_B, 1) and tuple(
         cache["k"].shape) == (cfg.n_layers, PREFILL_B, PREFILL_S,
                               cfg.n_kv_heads, cfg.head_dim))
@@ -508,7 +564,8 @@ def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
         planted[name] = logit_gaps(torch, registry, cfg, params, rc,
                                    bad.returned[0], x_ref)
     out = {"model": MODEL, "B": PREFILL_B, "S": PREFILL_S,
-           "compute": "bfloat16", "launches": launches, "runs": runs,
+           "compute": "bfloat16", "launches": launches,
+           "variant_launches": variant_launches, "runs": runs,
            "next_tokens": tok.reshape(-1).tolist(),
            "ref_next_tokens": ref_tok.reshape(-1).tolist(),
            "positions": POSITIONS, "rel_gaps": gaps,
@@ -735,7 +792,22 @@ def bench_raid5(device, parity) -> dict:
     return got
 
 
-def run() -> int:
+def first_flash_calls(torch, fa, ref, dev):
+    """One short call of each wgmma instantiation, checked before anything
+    heavier runs: a fault of the pipeline shows here in seconds."""
+    for D in (64, 128, 256):
+        q, k, v = qkv(torch, 1, 2, 1, 300, 300, D, torch.bfloat16, D, dev)
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.flash_attention_ref(q, k, v).float())
+                    .abs().max())
+        emit("kernel_first_call", kernel="flash_attention", D=D,
+             variant=fa.variant(q.dtype, D), max_abs_err=err)
+        if not err <= FLASH_TOL["bfloat16"]:
+            raise AssertionError(f"wgmma kernel at D={D}: max abs err {err}")
+
+
+def run(flash_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -752,13 +824,20 @@ def run() -> int:
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    built = _build.build(["xor_parity", "flash_attention"])
+    built = _build.build(["flash_attention"] if flash_only
+                         else ["xor_parity", "flash_attention"])
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
                         "ptxas": [ln for ln in v["log"].splitlines()
-                                  if "registers" in ln or "spill" in ln]}
+                                  if "registers" in ln or "spill" in ln
+                                  or "arning" in ln or "(C7" in ln]}
                     for k, v in built.items()})
 
+    if flash_only:
+        first_flash_calls(torch, fa, ref, dev)
+        check_flash(torch, fa, ref, dev)
+        time_flash(torch, fa, ref, dev)
+        return 0
     worst = check_kernel(torch, parity, ref, dev)
     times = time_kernel(torch, parity, ref, ops, dev)
 
@@ -792,8 +871,10 @@ def run() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": prefill["launches"],
+        "variant_launches": prefill["variant_launches"],
         "max_abs_err": max(flash_err.values()),
-        "ms": fm["ms"], "plain_ms": fm["plain_ms"],
+        "ms": fm["ms"], "earlier_ms": FLASH_EARLIER_MS,
+        "plain_ms": fm["plain_ms"],
         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
         "library_ms": fm["library_ms"]}]}), flush=True)
     print(smi, flush=True)
@@ -805,7 +886,7 @@ def run() -> int:
 
 if __name__ == "__main__":
     try:
-        code = run()
+        code = run(flash_only=sys.argv[1:] == ["--flash-only"])
     except Exception:                         # report, never print a result
         traceback.print_exc()
         code = 1

@@ -25,7 +25,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aligned bottom-right); a key is kept when it is not in the future
     (causal) and `qpos - kpos < window` (window > 0, causal or not).  A
     row that keeps no key is 0.  Query head h reads key/value head
-    h // (H // Hkv)."""
+    h // (H // Hkv).  q, k, v may be any strided views (the kernel's
+    (B,S,H,D)-transposed inputs among them); the result is contiguous."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv

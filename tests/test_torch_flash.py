@@ -175,6 +175,143 @@ def test_wrapper_checks_and_routes_only_cpu_tensors_to_plain(monkeypatch):
     assert fa.LAUNCHES == launches        # the CPU route launches nothing
 
 
+def _bshd_views(arrays, dtype):
+    """The (B,H,S,D) views of (B,S,H,D) copies of `arrays`, as the model's
+    attention passes them: not contiguous, last dimension dense."""
+    td = getattr(torch, dtype)
+    return [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+            .to(td).transpose(1, 2) for a in arrays]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,window", [
+    (2, 4, 2, 128, 64, 0),
+    (1, 8, 2, 192, 32, 100),
+    (2, 4, 4, 64, 128, 0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_strided_views_match_pallas(pallas, dtype, B, H, Hkv,
+                                                    S, D, window):
+    """(B,S,H,D)-transposed inputs and a (B,S,H,D) output, no copies."""
+    arrays = _inputs((B, H, S, D), (B, Hkv, S, D), 7 * S + D)
+    want = _reference(pallas, arrays, dtype, causal=True, window=window,
+                      block_q=64, block_k=64)
+    q, k, v = _bshd_views(arrays, dtype)
+    assert not q.is_contiguous()
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              block_q=64, block_k=64, out_layout="bshd")
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.transpose(1, 2).is_contiguous()
+    assert np.abs(out.float().numpy() - want).max() < TOL[dtype]
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_variant_is_the_designed_kernel(dtype, D):
+    want = {"float32": "simt", "bfloat16": "wgmma" if D >= 64 else "mma"}
+    assert fa.variant(getattr(torch, dtype), D) == want[dtype]
+    assert fa.variant(getattr(torch, dtype), D) in fa.VARIANTS
+
+
+@pytest.mark.parametrize("dtype,D,error", [
+    ("float16", 128, TypeError), ("float64", 64, TypeError),
+    ("int32", 128, TypeError), ("bfloat16", 48, ValueError),
+    ("float32", 8, ValueError), ("bfloat16", 512, ValueError),
+])
+def test_variant_raises_on_other_inputs(dtype, D, error):
+    with pytest.raises(error):
+        fa.variant(getattr(torch, dtype), D)
+
+
+def _strided(kind):
+    """A q of shape (1, 4, 64, 32) laid out as `kind`."""
+    if kind == "last_dim_strided":
+        return torch.zeros((1, 4, 64, 64))[..., ::2]
+    if kind == "row_stride_72_bytes":          # bf16 rows 36 apart
+        return torch.zeros((1, 4, 64, 36), dtype=torch.bfloat16)[..., :32]
+    if kind == "start_off_16_bytes":
+        return torch.zeros(4 * 64 * 32 + 1)[1:].view(1, 4, 64, 32)
+    if kind == "row_stride_80_bytes":          # bf16 rows 40 apart
+        return torch.zeros((1, 4, 64, 40), dtype=torch.bfloat16)[..., :32]
+    if kind == "bshd_view":
+        return torch.zeros((1, 64, 4, 32)).transpose(1, 2)
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind,ok", [
+    ("last_dim_strided", False), ("row_stride_72_bytes", False),
+    ("start_off_16_bytes", False), ("row_stride_80_bytes", True),
+    ("bshd_view", True),
+])
+def test_wrapper_refuses_strides_the_tma_cannot_take(kind, ok):
+    """The card's TMA needs a dense last dimension, strides of 16-byte
+    multiples and a 16-byte aligned start; the wrapper holds CPU tensors
+    to the same rules, so the CPU tests show what the card refuses."""
+    q = _strided(kind)
+    kv = torch.randn((1, 2, 64, 32)).to(q.dtype)
+    if not ok:
+        with pytest.raises(ValueError):
+            fa.layout_strides(q, "q")
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, kv, kv)
+        return
+    assert fa.layout_strides(q, "q") == [32] + list(q.stride()[1:3])
+    q.copy_(torch.randn(q.shape).to(q.dtype))
+    want = fa.flash_attention(q.contiguous(), kv, kv).float()
+    got = fa.flash_attention(q, kv, kv).float()
+    assert (got - want).abs().max() < TOL[str(q.dtype).split(".")[1]]
+
+
+def test_size_one_dims_take_any_stride_and_bad_layout_names_raise():
+    q = torch.randn((1, 4, 1, 32)).as_strided((1, 4, 1, 32), (3, 32, 5, 1))
+    kv = torch.randn((1, 2, 8, 32))
+    assert fa.layout_strides(q, "q") == [32, 32, 32]
+    assert fa.flash_attention(q, kv, kv).shape == q.shape
+    with pytest.raises(ValueError, match="out_layout"):
+        fa.flash_attention(q, kv, kv, out_layout="sbhd")
+
+
+def test_qwen3_flash_forward_passes_views_and_equals_the_reference(
+        pallas, monkeypatch):
+    """qwen3's smoke config on attn_impl="flash": each layer's flash call
+    gets the (B,S,H,D) activations' transposed views and returns a
+    (B,S,H,D) output (no copy on either side), and the forward equals
+    the JAX reference's flash forward in f32."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config
+    from repro.models import layers as JL
+    from repro.models import registry as JR
+    from repro.models.config import RunConfig
+    from repro_torch.configs import get_smoke_config as port_smoke
+    from repro_torch.models import config as port_config
+    from repro_torch.models import convert
+    from repro_torch.models import registry as TR
+
+    cfg = get_smoke_config("qwen3-4b")
+    jp = JL.tree_init(JR.param_defs(cfg), jax.random.PRNGKey(3))
+    tp = convert.from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    kw = dict(seq_len=64, global_batch=2, kind="prefill", attn_impl="flash",
+              compute_dtype="float32", remat="none")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 64),
+                                             dtype=np.int32)
+    x, *_ = JR.forward(cfg, jp, {"tokens": jnp.asarray(toks)},
+                       RunConfig(**kw))
+    seen = []
+    real = fa.flash_attention
+
+    def spy(q, k, v, **kws):
+        out = real(q, k, v, **kws)
+        seen.append((q.is_contiguous(), k.is_contiguous(),
+                     out.transpose(1, 2).is_contiguous()))
+        return out
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    tx, *_ = TR.forward(port_smoke("qwen3-4b"), tp,
+                        {"tokens": torch.from_numpy(toks)},
+                        port_config.RunConfig(**kw))
+    assert seen == [(False, False, True)] * cfg.n_layers
+    assert np.abs(tx.numpy() - np.asarray(x)).max() < 1e-5
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -182,22 +319,46 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,window,causal", [
+CARD_CASES = [
     (1, 1, 1, 64, 64, 16, 0, True),
     (2, 4, 2, 192, 192, 64, 100, True),
     (2, 8, 1, 128, 128, 256, 32, False),
     (2, 32, 8, 100, 1024, 128, 0, True),
     (1, 4, 2, 256, 256, 32, 0, False),
-])
+    # the wgmma kernel's edges: S not a multiple of its 128-row tiles,
+    # Sq < Sk, a window of 1024 at S=4096, D=256 at S=4096
+    (1, 4, 2, 100, 100, 128, 0, True),
+    (2, 4, 2, 192, 192, 256, 0, True),
+    (1, 8, 2, 4000, 4000, 128, 0, True),
+    (1, 8, 2, 1000, 4096, 64, 0, True),
+    (1, 8, 2, 4096, 4096, 128, 1024, True),
+    (1, 4, 2, 4096, 4096, 256, 0, True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,window,causal", CARD_CASES)
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, B, H, Hkv,
                                             Sq, Sk, D, window, causal):
     td = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(cuda_device, td) for a in
                _inputs((B, H, Sq, D), (B, Hkv, Sk, D), Sq * D))
-    launches = fa.LAUNCHES
+    launches = dict(fa.VARIANT_LAUNCHES)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == launches + 1
+    name = fa.variant(td, D)
+    assert fa.VARIANT_LAUNCHES[name] == launches[name] + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert (got.float() - want.float()).abs().max() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 128, 256])
+def test_flash_kernel_strided_views_on_card(cuda_device, dtype, D):
+    arrays = _inputs((2, 8, 300, D), (2, 2, 300, D), D)
+    q, k, v = (t.to(cuda_device) for t in _bshd_views(arrays, dtype))
+    got = fa.flash_attention(q, k, v, window=100, out_layout="bshd")
+    want = ref.flash_attention_ref(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
     assert (got.float() - want.float()).abs().max() < TOL[dtype]
