@@ -1065,13 +1065,16 @@ int launch_d(const Params& p, int variant, cudaStream_t stream) {
     return run(flash_fwd_simt<D>, attr, simt::smem_bytes<D>(), simt::kBQ, p,
                stream);
   }
-  if (variant == 1) {
+  // bfloat16: mma.sync below D = 64, TMA + wgmma from 64 up
+  if constexpr (D < 64) {
+    if (variant != 1) return (int)cudaErrorInvalidValue;
     static bool attr = false;
     return run(flash_fwd_mma<D>, attr, tc::smem_bytes<D>(), tc::kBQ, p,
                stream);
+  } else {
+    if (variant != 2) return (int)cudaErrorInvalidValue;
+    return launch_wgmma<D>(p, stream);
   }
-  if constexpr (D >= 64) return launch_wgmma<D>(p, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1079,8 +1082,8 @@ int launch_d(const Params& p, int variant, cudaStream_t stream) {
 // q (B,H,Sq,D), k and v (B,Hkv,Sk,D), o (B,H,Sq,D), each addressed by its
 // element strides (batch, head, row; `strides` holds 12 of them in the
 // order q, k, v, o) with a dense last dimension; 16-byte aligned, on the
-// current device.  variant 0 = float32 FMA, 1 = bfloat16 mma.sync, 2 =
-// bfloat16 TMA + wgmma (D >= 64).  Launches on `stream` and returns
+// current device.  variant 0 = float32 FMA, 1 = bfloat16 mma.sync (D < 64),
+// 2 = bfloat16 TMA + wgmma (D >= 64).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
 // arguments the kernel does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,

@@ -5,9 +5,9 @@ returns (B,H,Sq,D) in q's dtype.  The inputs may be strided views (the
 transposed (B,S,H,D) activations of a model) as long as the last dimension
 is contiguous and every stride is a multiple of 16 bytes from a 16-byte
 aligned start, which is what the card's tensor memory accelerator (TMA)
-takes; anything else raises, on the CPU too, and nothing is copied.  With
-`out_layout="bshd"` the output is allocated as (B,S,H,D) and its
-(B,H,S,D) view is returned.
+takes; anything else raises, on the CPU too, and nothing is copied.  The
+output has q's memory order (`torch.empty_like(q)`): the (B,H,S,D) view of
+a (B,S,H,D) q gets the (B,H,S,D) view of a (B,S,H,D) output.
 
 On CUDA tensors it launches a hand-written kernel of
 `csrc/flash_attention.cu` (on the current stream, without synchronising),
@@ -32,7 +32,6 @@ from repro_torch.kernels import ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 VARIANTS = ("simt", "mma", "wgmma")      # their codes in the C launcher
-OUT_LAYOUTS = ("bhsd", "bshd")
 
 LAUNCHES = 0
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
@@ -114,36 +113,21 @@ def layout_strides(t: torch.Tensor, name: str = "tensor") -> list[int]:
     return out
 
 
-def _empty_out(q: torch.Tensor, out_layout: str) -> torch.Tensor:
-    B, H, Sq, D = q.shape
-    if out_layout == "bshd":
-        return torch.empty((B, Sq, H, D), dtype=q.dtype,
-                           device=q.device).transpose(1, 2)
-    return torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: float | None = None,
-                    out_layout: str = "bhsd") -> torch.Tensor:
-    """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D); the kernel picks its
-    own tiles.  `out_layout` is the memory order of the result: "bhsd"
-    (contiguous) or "bshd" (a transposed view of a (B,S,H,D) tensor)."""
+                    scale: float | None = None) -> torch.Tensor:
+    """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in q's memory order;
+    the kernel picks its own tiles."""
     global LAUNCHES
     window = int(window)
     strides = _check(q, k, v, window)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else 1.0 / math.sqrt(D))
-    if out_layout not in OUT_LAYOUTS:
-        raise ValueError(f"flash_attention: out_layout {out_layout!r} not in "
-                         f"{OUT_LAYOUTS}")
+    out = torch.empty_like(q)
     if q.device.type == "cpu":
-        plain = ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window, scale=scale)
-        return plain if out_layout == "bhsd" else _empty_out(
-            q, out_layout).copy_(plain)
-    out = _empty_out(q, out_layout)
+        return out.copy_(ref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window, scale=scale))
     name = variant(q.dtype, D)
     if name != "wgmma" and B * H > 65535:
         raise ValueError(f"flash_attention: B*H = {B * H} > 65535")

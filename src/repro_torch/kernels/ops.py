@@ -20,19 +20,19 @@ from repro_torch.kernels import parity as _par
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
-                    block_q=128, block_k=128, out_layout="bhsd"):
+                    block_q=128, block_k=128):
     """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D).  The blocks are
     clamped to the sequence lengths and must then divide them, as the
     reference's Pallas grid requires; the kernel's own tiles do not
-    depend on them.  q, k, v may be strided views and `out_layout` picks
-    the output's memory order (see `kernels.flash_attention`)."""
+    depend on them.  q, k, v may be strided views; the output has q's
+    memory order (see `kernels.flash_attention`)."""
     block_q = min(block_q, q.shape[2])
     block_k = min(block_k, k.shape[2])
     if q.shape[2] % block_q or k.shape[2] % block_k:
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_k}) "
                          f"do not divide Sq={q.shape[2]}, Sk={k.shape[2]}")
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale, out_layout=out_layout)
+                               scale=scale)
 
 
 def resolve_device(device) -> torch.device:

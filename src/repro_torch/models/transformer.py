@@ -190,11 +190,11 @@ def attn_block(cfg, p, x, window: int, prefix_len, rc, positions=None,
         k = L.rope(k, positions, cfg.rope_theta)
     if rc.attn_impl == "flash" and not prefix_len and uniform_window:
         # the hand-written kernel (kernels/flash_attention.py) reads the
-        # (B,S,H,D) activations through their (B,H,S,D) views and writes a
-        # (B,S,H,D) output: no copy on either side
+        # (B,S,H,D) activations through their (B,H,S,D) views and writes
+        # its output in q's order, (B,S,H,D): no copy on either side
         out = kops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window, out_layout="bshd")
+            causal=True, window=window)
         out = out.transpose(1, 2).to(cdt)
     elif rc.attn_impl == "chunked" or (rc.attn_impl == "auto" and S > 2048):
         chunk = next((c for c in (rc.attn_chunk, 512, 256, 128, 64)

@@ -191,14 +191,14 @@ def _bshd_views(arrays, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_strided_views_match_pallas(pallas, dtype, B, H, Hkv,
                                                     S, D, window):
-    """(B,S,H,D)-transposed inputs and a (B,S,H,D) output, no copies."""
+    """(B,S,H,D)-transposed inputs give a (B,S,H,D) output, no copies."""
     arrays = _inputs((B, H, S, D), (B, Hkv, S, D), 7 * S + D)
     want = _reference(pallas, arrays, dtype, causal=True, window=window,
                       block_q=64, block_k=64)
     q, k, v = _bshd_views(arrays, dtype)
     assert not q.is_contiguous()
     out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              block_q=64, block_k=64, out_layout="bshd")
+                              block_q=64, block_k=64)
     assert out.shape == q.shape and out.dtype == q.dtype
     assert out.transpose(1, 2).is_contiguous()
     assert np.abs(out.float().numpy() - want).max() < TOL[dtype]
@@ -261,13 +261,29 @@ def test_wrapper_refuses_strides_the_tma_cannot_take(kind, ok):
     assert (got - want).abs().max() < TOL[str(q.dtype).split(".")[1]]
 
 
-def test_size_one_dims_take_any_stride_and_bad_layout_names_raise():
+def test_size_one_dims_take_any_stride():
     q = torch.randn((1, 4, 1, 32)).as_strided((1, 4, 1, 32), (3, 32, 5, 1))
     kv = torch.randn((1, 2, 8, 32))
     assert fa.layout_strides(q, "q") == [32, 32, 32]
     assert fa.flash_attention(q, kv, kv).shape == q.shape
-    with pytest.raises(ValueError, match="out_layout"):
-        fa.flash_attention(q, kv, kv, out_layout="sbhd")
+
+
+@pytest.mark.parametrize("kind,strides", [
+    ("contiguous", (8192, 2048, 32, 1)),
+    ("bshd_view", (8192, 32, 128, 1)),
+    ("row_stride_80_bytes", (8192, 2048, 32, 1)),   # not dense: contiguous
+])
+def test_output_takes_q_memory_order(kind, strides):
+    """The output is `empty_like(q)`: a dense q's strides, else
+    contiguous; the model's (B,S,H,D) views get a (B,S,H,D) output."""
+    q = (torch.zeros((1, 4, 64, 32)) if kind == "contiguous"
+         else _strided(kind))
+    q.copy_(torch.randn(q.shape).to(q.dtype))
+    kv = torch.randn((1, 2, 64, 32)).to(q.dtype)
+    out = fa.flash_attention(q, kv, kv)
+    assert out.stride() == strides and out.dtype == q.dtype
+    want = fa.flash_attention(q.contiguous(), kv, kv)
+    assert (out.float() - want.float()).abs().max() == 0
 
 
 def test_qwen3_flash_forward_passes_views_and_equals_the_reference(
@@ -357,7 +373,7 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, B, H, Hkv,
 def test_flash_kernel_strided_views_on_card(cuda_device, dtype, D):
     arrays = _inputs((2, 8, 300, D), (2, 2, 300, D), D)
     q, k, v = (t.to(cuda_device) for t in _bshd_views(arrays, dtype))
-    got = fa.flash_attention(q, k, v, window=100, out_layout="bshd")
+    got = fa.flash_attention(q, k, v, window=100)
     want = ref.flash_attention_ref(q, k, v, window=100)
     torch.cuda.synchronize()
     assert got.transpose(1, 2).is_contiguous()
