@@ -8,12 +8,17 @@ the last line:
 
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel from `src/repro_torch/csrc` (nvcc, sm_90a);
-  3. the XOR parity kernel against its plain PyTorch version on the card,
-     bit-exact, over K in {1..16} rows and N from 1 to 4194304 lanes,
-     with every missing row reconstructed;
+  3. the XOR parity kernel, after one short call of each of its designs,
+     against its plain PyTorch version on the card, bit-exact, over K in
+     {1..5, 8, 16, 17, 24} rows and N from 1 to 4194304 lanes, with every
+     missing row reconstructed from row views (no concatenation), rows
+     strided inside a larger tensor, and rows off a 16-byte boundary;
   4. kernel times at the shapes of the main path (CUDA events, median;
      replayed from a CUDA graph for the card's own time, and issued from
-     Python), beside the memory bound and the plain version;
+     Python), each design beside the memory bound, the copy floor (a
+     device-to-device copy of the same bytes), the plain version and a
+     chain of torch.bitwise_xor; then one LOV parity call of 4 x 1 MiB
+     from bytes to bytes, whole and split into its pieces;
   5. the main path: a raid5 file of 512 MiB at 1 MiB stripes, 4 data +
      1 parity, written, read clean, read degraded with ost1 dead,
      rebuilt onto a spare through lctl and truncated, all through
@@ -55,6 +60,10 @@ after one short call of each wgmma instantiation); it prints no result
 line.  Run it under `timeout` after a change to the kernel: a fault of
 its mbarrier pipeline traps after seconds, and the timeout bounds the
 rest.
+
+    python3 chip_smoke.py --parity-only
+
+is the same for the XOR parity kernel (phases 1-4); no result line.
 """
 from __future__ import annotations
 
@@ -103,38 +112,81 @@ def max_abs_err(torch, a, b) -> int:
 
 
 def check_kernel(torch, parity, ref, dev) -> int:
-    """Phase 3: kernel == plain version, bit for bit; returns the largest
-    absolute difference seen (0)."""
+    """Phase 3: kernel == plain version, bit for bit, in each design
+    (`parity.DESIGNS`; the bulk design takes 16-byte lanes and K <= 16
+    only); returns the largest absolute difference seen (0).  Every
+    missing row is reconstructed from row views of the input, with no
+    concatenation; survivors that are strided rows of a larger tensor and
+    rows that do not start on a 16-byte boundary are checked too."""
     worst, shapes = 0, 0
-    for k in (1, 2, 3, 4, 5, 8, 16):
+    launches = dict.fromkeys(parity.DESIGNS, 0)
+
+    def same(got, want, what):
+        nonlocal worst
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(torch, got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} differs from the plain version")
+
+    def designs(k, n):
+        return [d for d in parity.DESIGNS
+                if d == "registers" or (n % 4 == 0 and k <= 16)]
+
+    for k in (1, 2, 3, 4, 5, 8, 16, 17, 24):
         for n in (1, 37, 1000, 4097, 262144, 262145, 4194304):
             x = rows(torch, k, n, k * 1000003 + n, dev)
-            p = parity.xor_parity(x)
             want = ref.xor_parity_ref(x)
-            torch.cuda.synchronize()
-            worst = max(worst, max_abs_err(torch, p, want))
-            if not torch.equal(p, want):
-                raise AssertionError(f"xor_parity K={k} N={n} differs")
-            for miss in range(k):
-                surv = torch.cat([x[:miss], x[miss + 1:]], 0)
-                rec = parity.reconstruct(surv, p)
-                if not torch.equal(rec, x[miss]):
-                    raise AssertionError(
-                        f"reconstruct K={k} N={n} row {miss} differs")
+            for d in designs(k, n):
+                before = parity.LAUNCHES
+                p = parity.xor_parity(x, design=d)
+                launches[d] += parity.LAUNCHES - before
+                same(p, want, f"xor_parity {d} K={k} N={n}")
+                for miss in range(k):
+                    surv = [x[i] for i in range(k) if i != miss]
+                    same(parity.reconstruct(surv, p, design=d), x[miss],
+                         f"reconstruct {d} K={k} N={n} row {miss}")
             shapes += 1
-    # rows that do not start on a 16-byte boundary: the 4-byte path
-    for k, n in ((3, 37), (4, 262144), (5, 262145)):
+    # survivors that are every other row of a larger tensor (one launch
+    # reads them in place)
+    for k, n in ((4, 262144), (5, 262144), (17, 4097), (24, 262144)):
+        big = rows(torch, 2 * k, n, 3 * n + k, dev)
+        x = big[::2]
+        want = ref.xor_parity_ref(x)
+        for d in designs(k, n):
+            p = parity.xor_parity(x, design=d)
+            same(p, want, f"strided rows {d} K={k} N={n}")
+            same(parity.reconstruct(x[1:], p, design=d), x[0],
+                 f"reconstruct from strided rows {d} K={k} N={n}")
+        shapes += 1
+    # rows that do not start on a 16-byte boundary: the 4-byte lanes
+    for k, n in ((3, 37), (4, 262144), (5, 262145), (17, 4097),
+                 (24, 262144)):
         x = rows(torch, k, n, 7 * n + k, dev)
         buf = torch.empty(k * n + 1, dtype=torch.int32, device=dev)
         buf[1:].copy_(x.reshape(-1))
         shifted = buf[1:].view(k, n)
-        if not torch.equal(parity.xor_parity(shifted), ref.xor_parity_ref(x)):
-            raise AssertionError(f"misaligned K={k} N={n} differs")
+        same(parity.xor_parity(shifted), ref.xor_parity_ref(x),
+             f"misaligned K={k} N={n}")
+        same(parity.reconstruct(shifted[1:], ref.xor_parity_ref(x)),
+             x[0], f"misaligned reconstruct K={k} N={n}")
         shapes += 1
-    torch.cuda.synchronize()
     emit("kernel_check", kernel="xor_parity", shapes=shapes,
-         max_abs_err=worst, bit_exact=True)
+         max_abs_err=worst, bit_exact=True, design_launches=launches)
     return worst
+
+
+def first_parity_calls(torch, parity, ref, dev):
+    """One short call of each design, checked before anything heavier
+    runs: a fault of the bulk design's mbarrier shows here in seconds."""
+    for d in parity.DESIGNS:
+        for k, n in ((1, 4), (4, 262144), (16, 4100)):
+            x = rows(torch, k, n, 11 * k + n, dev)
+            got = parity.xor_parity(x, design=d)
+            torch.cuda.synchronize()
+            emit("kernel_first_call", kernel="xor_parity", design=d, K=k,
+                 N=n, equal=bool(torch.equal(got, ref.xor_parity_ref(x))))
+            if not torch.equal(got, ref.xor_parity_ref(x)):
+                raise AssertionError(f"xor_parity {d} K={k} N={n} differs")
 
 
 def time_on_card(torch, fn, pool, reps=15) -> dict:
@@ -187,8 +239,13 @@ def bound_ms(k, n) -> tuple[float, str]:
 
 
 def time_kernel(torch, parity, ref, ops, dev) -> dict:
-    """Phase 4: kernel, plain version and the chain of K-1
-    torch.bitwise_xor calls at the main path's shapes."""
+    """Phase 4 at the main path's shapes (K=4 and 5 rows of 1 MiB): the
+    kernel in each design, the plain version, the chain of K-1
+    torch.bitwise_xor calls, and the copy floor: a device-to-device
+    Tensor.copy_ that moves the same (K+1)*N*4 bytes (it reads and writes
+    (K+1)*N*2), a yardstick of what the card moves at this size, which
+    the port never calls.  Then one whole parity call of the LOV, and its
+    split (`split_call`)."""
     def chain(x):
         acc = torch.bitwise_xor(x[0], x[1]) if x.shape[0] > 1 else x[0]
         for i in range(2, x.shape[0]):
@@ -201,19 +258,30 @@ def time_kernel(torch, parity, ref, ops, dev) -> dict:
         count = -(-(96 << 20) // (k * n * 4))     # > 96 MiB of inputs
         pool = [rows(torch, k, n, 31 * i + k, dev) for i in range(count)]
         b, by = bound_ms(k, n)
-        kern = time_on_card(torch, parity.xor_parity, pool)
+        kern = {d: time_on_card(torch, lambda x, d=d: parity.xor_parity(
+            x, design=d), pool) for d in parity.DESIGNS}
         plain = time_on_card(torch, ref.xor_parity_ref, pool)
         chained = time_on_card(torch, chain, pool)
-        out[k] = {"K": k, "N": n,
-                  "ms": kern["graph_ms"], "plain_ms": plain["graph_ms"],
-                  "chain_bitwise_xor_ms": chained["graph_ms"],
-                  "stream_ms": kern["stream_ms"],
-                  "plain_stream_ms": plain["stream_ms"],
-                  "bound_ms": b, "bound_by": by,
-                  "bound_share": b / kern["graph_ms"]}
         del pool
+        half = (k + 1) * n * 2                     # bytes read, and written
+        copies = [(torch.empty(half, dtype=torch.uint8, device=dev),
+                   torch.empty(half, dtype=torch.uint8, device=dev))
+                  for _ in range(-(-(96 << 20) // half))]
+        floor = time_on_card(torch, lambda c: c[1].copy_(c[0]), copies)
+        del copies
+        main = kern[parity.DESIGNS[0]]
+        out[k] = {"K": k, "N": n,
+                  "ms": main["graph_ms"], "stream_ms": main["stream_ms"],
+                  "design_ms": {d: t["graph_ms"] for d, t in kern.items()},
+                  "plain_ms": plain["graph_ms"],
+                  "plain_stream_ms": plain["stream_ms"],
+                  "chain_bitwise_xor_ms": chained["graph_ms"],
+                  "copy_floor_ms": floor["graph_ms"],
+                  "bound_ms": b, "bound_by": by,
+                  "bound_share": b / main["graph_ms"],
+                  "copy_floor_share": b / floor["graph_ms"]}
     # one whole parity call of the LOV: 4 units of 1 MiB from host bytes
-    # to parity bytes (marshal, copy in, kernel, copy out)
+    # to parity bytes (marshal, copy in, kernel, copy out, unmarshal)
     g = torch.Generator().manual_seed(SEED)
     units = [torch.randint(0, 256, (STRIPE,), dtype=torch.uint8,
                            generator=g).numpy().tobytes() for _ in range(4)]
@@ -225,8 +293,57 @@ def time_kernel(torch, parity, ref, ops, dev) -> dict:
         ops.parity_bytes(units, device=dev)
         wall.append((time.perf_counter() - t0) * 1e3)
     out["parity_bytes_call_ms"] = statistics.median(wall)
+    out["parity_bytes_split_ms"] = split_call(torch, ops, parity, units, dev)
     emit("kernel_time", **{str(k): v for k, v in out.items()})
     return out
+
+
+def split_call(torch, ops, parity, units, dev, reps=30) -> dict:
+    """Median ms of each piece of one `ops.parity_bytes` call on the host
+    clock, the pieces run as the call runs them but separated by
+    synchronisations: marshal (the units into the pinned rows), to_card
+    (one copy), kernel (launch and run), from_card (one copy back and the
+    call's own synchronisation), unmarshal (the returned bytes); beside
+    them, the marshal copies done by numpy on one core instead."""
+    import numpy as np
+
+    st = ops._staging(ops.resolve_device(dev))
+    pieces = ("marshal", "to_card", "kernel", "from_card", "unmarshal")
+    times = {p: [] for p in pieces}
+    numpy_ms = []
+    want = ops.parity_bytes(units, device=dev)
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        host, n = ops._marshal(st, units)
+        t.append(time.perf_counter())
+        blocks = ops._to_card(st, host)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        p = parity.xor_parity(blocks.view(torch.int32))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = ops._from_card(st, p)
+        t.append(time.perf_counter())
+        got = ops._unmarshal(out, n)
+        t.append(time.perf_counter())
+        if got != want:
+            raise AssertionError("the split parity call differs from "
+                                 "parity_bytes")
+        # yardstick, not a piece: the same rows copied by numpy, one core
+        t0 = time.perf_counter()
+        arr = host.numpy()
+        for j, c in enumerate(units):
+            arr[j, :len(c)] = np.frombuffer(c, np.uint8)
+        t.append(time.perf_counter())
+        if i >= 3:                                 # warm
+            for j, name in enumerate(pieces):
+                times[name].append((t[j + 1] - t[j]) * 1e3)
+            numpy_ms.append((t[-1] - t0) * 1e3)
+    split = {name: statistics.median(v) for name, v in times.items()}
+    split["sum"] = sum(split.values())
+    split["marshal_by_numpy_one_core"] = statistics.median(numpy_ms)
+    return split
 
 
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense tensor-core bf16
@@ -724,6 +841,7 @@ def main_path(device, mib: int, ops, parity) -> dict:
         want = expect_calls(delta)
         rec = {"step": name, "ok": ok, "wall_s": wall,
                "parity_call_s": calls["s"] - before_s,
+               "ms_per_call": (calls["s"] - before_s) / max(made, 1) * 1e3,
                "vtime_s": c.now - vt0, "lov_calls": made,
                "expected_lov_calls": want, "launches": launched,
                "lov_counters": delta}
@@ -825,7 +943,7 @@ def first_flash_calls(torch, fa, ref, dev):
             raise AssertionError(f"wgmma kernel at D={D}: max abs err {err}")
 
 
-def run(flash_only: bool = False) -> int:
+def run(mode: str = "") -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -842,8 +960,9 @@ def run(flash_only: bool = False) -> int:
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    built = _build.build(["flash_attention"] if flash_only
-                         else ["xor_parity", "flash_attention"])
+    built = _build.build({"--flash-only": ["flash_attention"],
+                          "--parity-only": ["xor_parity"]}.get(
+                              mode, ["xor_parity", "flash_attention"]))
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
                         "ptxas": [ln for ln in v["log"].splitlines()
@@ -851,13 +970,16 @@ def run(flash_only: bool = False) -> int:
                                   or "arning" in ln or "(C7" in ln]}
                     for k, v in built.items()})
 
-    if flash_only:
+    if mode == "--flash-only":
         first_flash_calls(torch, fa, ref, dev)
         check_flash(torch, fa, ref, dev)
         time_flash(torch, fa, ref, dev)
         return 0
+    first_parity_calls(torch, parity, ref, dev)
     worst = check_kernel(torch, parity, ref, dev)
     times = time_kernel(torch, parity, ref, ops, dev)
+    if mode == "--parity-only":
+        return 0
 
     parity.LAUNCHES = fa.LAUNCHES = 0
     main = main_path("cuda", MAIN_MIB, ops, parity)
@@ -883,6 +1005,8 @@ def run(flash_only: bool = False) -> int:
         "replaces": "src/repro/kernels/parity.py:23",
         "launches": launches, "max_abs_err": worst,
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "chain_bitwise_xor_ms": k4["chain_bitwise_xor_ms"],
+        "copy_floor_ms": k4["copy_floor_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
@@ -903,8 +1027,11 @@ def run(flash_only: bool = False) -> int:
 
 
 if __name__ == "__main__":
+    modes = ("--flash-only", "--parity-only")
+    if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
+        sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:
-        code = run(flash_only=sys.argv[1:] == ["--flash-only"])
+        code = run(sys.argv[1] if sys.argv[1:] else "")
     except Exception:                         # report, never print a result
         traceback.print_exc()
         code = 1

@@ -2,90 +2,381 @@
 //
 // Replaces the Pallas TPU kernel `_xor_kernel` of
 // src/repro/kernels/parity.py (reached through `xor_parity` and
-// `reconstruct`): (K, N) int32 -> (N,) int32, out[j] = x[0][j] ^ ... ^
-// x[K-1][j].  raid5 parity is this function over a stripe round's data
-// units; a lost unit is this function over the survivors and the parity.
+// `reconstruct`): K rows of N int32 -> (N,) int32, out[j] = x[0][j] ^ ...
+// ^ x[K-1][j], bit-exact, for any K >= 1 and N >= 1.  raid5 parity is this
+// function over a stripe round's data units; a lost unit is this function
+// over the survivors and the parity.
 //
-// Bound: memory.  The kernel reads K*N*4 bytes and writes N*4 bytes and
-// does (K-1)*N integer XORs, far below one operation per byte, so the
-// least time is (K+1)*N*4 bytes over 3.35 TB/s: about 1.6 us for K=4,
-// N=262144 (one 1 MiB stripe unit per row).  At that size the copy of the
-// units between host and card, not this kernel, is expected to dominate
-// a parity call.
+// Bound: memory.  The kernel reads K*N*4 bytes, writes N*4 bytes and does
+// (K-1)*N integer XORs, far below one operation per byte, so the least
+// time is (K+1)*N*4 bytes over 3.35 TB/s: 1.565 us for K=4, N=262144 (one
+// 1 MiB stripe unit a row), the main path's call.  At 5 MiB a call the
+// fixed cost of a launch and the latency of the first loads are a large
+// part of that, so the design puts every byte of the call in flight at
+// once, in one wave of equal blocks:
 //
-// Design: no tiles and no shared memory; each thread owns 16-byte
-// columns and XORs the K rows of a column in registers, walking the
-// columns with a grid-stride loop.  K is a runtime argument.  The
-// 16-byte path needs every row to start on a 16-byte boundary (N % 4 ==
-// 0 and aligned base pointers); anything else takes the 4-byte path.
-// The loop bound masks the tail, so N needs no padding.
+//   * equal work, one wave: the columns are cut into contiguous spans of
+//     equal size, one span a block, at most as many blocks as the SMs hold
+//     at once (and a multiple of the SM count), so no SM gets twice the
+//     work of another and no block waits for a second wave;
+//   * the rows are passed as pointers (up to kMaxRows in the parameter
+//     struct, by value), so `reconstruct` XORs the survivors and the
+//     parity where they lie, with no concatenation, and any row stride
+//     works.  More rows than kMaxRows take a generic loop over a pointer
+//     array in device memory;
+//   * two designs of the same function, chosen by the launcher's `design`:
+//       0, registers: K is a template parameter (1..kMaxRows), each thread
+//          owns kCols 16-byte columns of its block's span and issues all
+//          K*kCols loads (ld.global.nc, no L1 allocation) before the first
+//          XOR; the output leaves with streaming stores;
+//       1, bulk copies: one thread issues K 1-d `cp.async.bulk` loads (the
+//          TMA's bulk path) of a chunk of each row into shared memory,
+//          completed on one mbarrier by byte count; the warps XOR from
+//          shared memory into an output chunk that leaves by
+//          `cp.async.bulk` to device memory.  A ring of 2 stages serves
+//          spans longer than one chunk;
+//   * rows that do not start on a 16-byte boundary, or N not a multiple of
+//     4 lanes, take the registers design with 4-byte lanes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void xor_rows_vec4(const int4* __restrict__ x,
-                              int4* __restrict__ out, int k, int64_t n4) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n4;
-       j += stride) {
-    int4 acc = __ldg(x + j);
-#pragma unroll 4
-    for (int r = 1; r < k; ++r) {
-      const int4 v = __ldg(x + (int64_t)r * n4 + j);
-      acc.x ^= v.x;
-      acc.y ^= v.y;
-      acc.z ^= v.z;
-      acc.w ^= v.w;
-    }
-    out[j] = acc;
-  }
-}
-
-__global__ void xor_rows_scalar(const int32_t* __restrict__ x,
-                                int32_t* __restrict__ out, int k,
-                                int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += stride) {
-    int32_t acc = __ldg(x + j);
-#pragma unroll 4
-    for (int r = 1; r < k; ++r) acc ^= __ldg(x + (int64_t)r * n + j);
-    out[j] = acc;
-  }
-}
-
+constexpr int kMaxRows = 16;
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;  // 2048 resident threads per SM
+constexpr int kCols = 2;                  // 16-byte columns a thread a pass
+constexpr int kMaxBlocksPerSm = 2;
+constexpr int kBulkSmem = 200 * 1024;     // the bulk design's two stages
 
-}  // namespace
+struct Args {
+  const void* row[kMaxRows];     // rows 0..k-1 when k <= kMaxRows
+  const void* const* rows_dev;   // all k rows, in device memory, k > kMaxRows
+  void* out;
+  int64_t n;                     // lanes (int4 or int32) a row
+  int64_t span;                  // lanes a block
+  int k;
+  int chunk;                     // bulk design: lanes a row a stage
+};
 
-// x: K*N contiguous int32 rows on the current device; out: N int32.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int xor_parity_launch(const void* x, void* out, int k, int64_t n,
-                                 void* stream) {
-  if (k < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const bool vec = n % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)out % 16 == 0;
-  const int64_t work = vec ? n / 4 : n;
+template <typename V>
+__device__ __forceinline__ V ld_stream(const V* p);
+
+template <>
+__device__ __forceinline__ int4 ld_stream(const int4* p) {
+  int4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+template <>
+__device__ __forceinline__ int ld_stream(const int* p) {
+  int v;
+  asm("ld.global.nc.L1::no_allocate.s32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__host__ __device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ void xor_into(int4& a, const int4& b) {
+  a.x ^= b.x;
+  a.y ^= b.y;
+  a.z ^= b.z;
+  a.w ^= b.w;
+}
+
+__device__ __forceinline__ void xor_into(int& a, int b) { a ^= b; }
+
+// Design 0, K rows from the parameter struct.  Each pass of the loop
+// loads kCols columns of every row, all before the first XOR.
+template <int K, typename V>
+__global__ void __launch_bounds__(kThreads) xor_regs(const Args a) {
+  const int64_t lo = (int64_t)blockIdx.x * a.span;
+  const int64_t hi = lmin(lo + a.span, a.n);
+  V* out = static_cast<V*>(a.out);
+  for (int64_t j0 = lo + threadIdx.x; j0 < hi; j0 += kThreads * kCols) {
+    V v[K][kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int64_t j = j0 + (int64_t)c * kThreads;
+      if (j < hi) {
+#pragma unroll
+        for (int r = 0; r < K; ++r)
+          v[r][c] = ld_stream(static_cast<const V*>(a.row[r]) + j);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int64_t j = j0 + (int64_t)c * kThreads;
+      if (j < hi) {
+        V acc = v[0][c];
+#pragma unroll
+        for (int r = 1; r < K; ++r) xor_into(acc, v[r][c]);
+        __stcs(out + j, acc);
+      }
+    }
+  }
+}
+
+// Design 0 for k > kMaxRows: the row pointers come from device memory and
+// the rows are walked in a loop, 4 rows of kCols columns in flight.
+template <typename V>
+__global__ void __launch_bounds__(kThreads) xor_regs_many(const Args a) {
+  const int64_t lo = (int64_t)blockIdx.x * a.span;
+  const int64_t hi = lmin(lo + a.span, a.n);
+  V* out = static_cast<V*>(a.out);
+  for (int64_t j0 = lo + threadIdx.x; j0 < hi; j0 += kThreads * kCols) {
+    const V* first = static_cast<const V*>(a.rows_dev[0]);
+    V acc[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int64_t j = j0 + (int64_t)c * kThreads;
+      if (j < hi) acc[c] = ld_stream(first + j);
+    }
+#pragma unroll 4
+    for (int r = 1; r < a.k; ++r) {
+      const V* row = static_cast<const V*>(a.rows_dev[r]);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int64_t j = j0 + (int64_t)c * kThreads;
+        if (j < hi) xor_into(acc[c], ld_stream(row + j));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int64_t j = j0 + (int64_t)c * kThreads;
+      if (j < hi) __stcs(out + j, acc[c]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`.  A
+// wait that never ends is a fault of the pipeline: after 2^22 polls
+// (seconds) the block traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 22)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Design 1 (16-byte lanes, k <= kMaxRows).  Shared memory: stage s holds
+// k input chunks and one output chunk of a.chunk lanes each, then the two
+// stages' mbarriers.  Chunk c of the block's span uses stage c % 2.
+__global__ void __launch_bounds__(kThreads) xor_bulk(const Args a) {
+  extern __shared__ __align__(128) int4 smem[];
+  const int k = a.k;
+  const int64_t lo = (int64_t)blockIdx.x * a.span;
+  const int64_t hi = lmin(lo + a.span, a.n);
+  if (lo >= hi) return;
+  const int chunk = a.chunk;
+  const int nchunks = (int)((hi - lo + chunk - 1) / chunk);
+  const int stages = nchunks > 1 ? 2 : 1;
+  int4* const stage0 = smem;
+  const int64_t stage_lanes = (int64_t)(k + 1) * chunk;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * stage_lanes);
+  auto in = [&](int s, int r) { return stage0 + s * stage_lanes + r * chunk; };
+  auto issue = [&](int c) {                  // thread 0: chunk c's loads
+    const int s = c & 1;
+    const int64_t j = lo + (int64_t)c * chunk;
+    const uint32_t bytes = (uint32_t)(lmin(chunk, hi - j) * 16);
+    mbar_expect_tx(&full[s], bytes * k);
+    for (int r = 0; r < k; ++r)
+      bulk_load(in(s, r), static_cast<const int4*>(a.row[r]) + j, bytes,
+                &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < stages; ++c) issue(c);
+  }
+  __syncthreads();
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c & 1;
+    const int64_t j = lo + (int64_t)c * chunk;
+    const int len = (int)lmin(chunk, hi - j);
+    mbar_wait(&full[s], (c >> 1) & 1);
+    int4* o = in(s, k);
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      int4 acc = in(s, 0)[i];
+      for (int r = 1; r < k; ++r) xor_into(acc, in(s, r)[i]);
+      o[i] = acc;
+    }
+    // the output chunk is read by the bulk copy (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // the store of chunk c-1 has read its output chunk, which chunk c+1
+    // writes next
+    if (threadIdx.x == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      bulk_store(static_cast<int4*>(a.out) + j, o, (uint32_t)len * 16);
+      // every thread has passed the barrier, so stage s's inputs are free
+      if (c + 2 < nchunks) issue(c + 2);
+    }
+  }
+  // the stores must have read the block's shared memory before it goes
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+int sm_count() {
   static int sms = 0;  // read once, outside any CUDA graph capture
   if (sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-        cudaSuccess || sms < 1)
+            cudaSuccess ||
+        sms < 1)
       sms = 132;
   }
-  const int64_t want = (work + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)sms * kBlocksPerSm;
-  const int blocks = (int)(want < cap ? want : cap);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vec) {
-    xor_rows_vec4<<<blocks, kThreads, 0, s>>>(
-        (const int4*)x, (int4*)out, k, work);
-  } else {
-    xor_rows_scalar<<<blocks, kThreads, 0, s>>>(
-        (const int32_t*)x, (int32_t*)out, k, n);
+  return sms;
+}
+
+// One wave of equal spans: at most `per_sm` blocks on every SM, a
+// multiple of the SM count once there is work for more than one block an
+// SM, each block at least one pass of its threads.
+void split(Args& a, int per_sm, int* blocks) {
+  const int sms = sm_count();
+  const int64_t want = (a.n + kThreads - 1) / kThreads;
+  int64_t g = want < (int64_t)sms * per_sm ? want : (int64_t)sms * per_sm;
+  if (g > sms) g -= g % sms;
+  a.span = (a.n + g - 1) / g;
+  *blocks = (int)g;
+}
+
+template <void (*Kernel)(const Args)>
+int launch_regs(Args a, cudaStream_t s) {
+  static int per_sm = 0;  // read once, outside any CUDA graph capture
+  if (per_sm == 0) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                      kThreads, 0) !=
+            cudaSuccess ||
+        per_sm < 1)
+      per_sm = 1;
+    if (per_sm > kMaxBlocksPerSm) per_sm = kMaxBlocksPerSm;
   }
+  int blocks = 0;
+  split(a, per_sm, &blocks);
+  Kernel<<<blocks, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_lanes(const Args& a, cudaStream_t s) {
+  switch (a.k) {
+#define XOR_CASE(K) \
+  case K:           \
+    return launch_regs<xor_regs<K, V>>(a, s);
+    XOR_CASE(1) XOR_CASE(2) XOR_CASE(3) XOR_CASE(4) XOR_CASE(5) XOR_CASE(6)
+    XOR_CASE(7) XOR_CASE(8) XOR_CASE(9) XOR_CASE(10) XOR_CASE(11)
+    XOR_CASE(12) XOR_CASE(13) XOR_CASE(14) XOR_CASE(15) XOR_CASE(16)
+#undef XOR_CASE
+    default:
+      return launch_regs<xor_regs_many<V>>(a, s);
+  }
+}
+
+int launch_bulk(Args a, int per_sm, cudaStream_t s) {
+  static bool sized = false;  // set once, outside any CUDA graph capture
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        xor_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBulkSmem + 64);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  int blocks = 0;
+  split(a, per_sm, &blocks);
+  const int64_t fit = kBulkSmem / (2 * (a.k + 1) * 16);   // lanes a row
+  const int64_t half = (a.span + 1) / 2;
+  a.chunk = (int)(half < fit ? half : fit);
+  const int64_t nchunks = (a.span + a.chunk - 1) / a.chunk;
+  const size_t smem = (size_t)(nchunks > 1 ? 2 : 1) * (a.k + 1) * a.chunk *
+                          16 + 16;
+  xor_bulk<<<blocks, kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rows: k pointers (host array) to rows of n int32 each on the current
+// device; rows_dev: the same k pointers in device memory, read only when
+// k > 16 (may be null otherwise); out: n int32.  design 0 = registers,
+// 1 = bulk copies (16-byte lanes and k <= 16 only).  Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
+extern "C" int xor_rows_launch(const void* const* rows, int k,
+                               const void* const* rows_dev, void* out,
+                               int64_t n, int design, void* stream) {
+  if (k < 1 || n < 1 || design < 0 || design > 2 || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (k > kMaxRows && rows_dev == nullptr) return (int)cudaErrorInvalidValue;
+  Args a{};
+  bool vec = n % 4 == 0 && (uintptr_t)out % 16 == 0;
+  for (int r = 0; r < k; ++r) {
+    if (rows[r] == nullptr) return (int)cudaErrorInvalidValue;
+    vec = vec && (uintptr_t)rows[r] % 16 == 0;
+    if (r < kMaxRows) a.row[r] = rows[r];
+  }
+  a.rows_dev = rows_dev;
+  a.out = out;
+  a.k = k;
+  a.n = vec ? n / 4 : n;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (design >= 1) {
+    if (!vec || k > kMaxRows) return (int)cudaErrorInvalidValue;
+    return launch_bulk(a, design, s);
+  }
+  return vec ? launch_lanes<int4>(a, s) : launch_lanes<int>(a, s);
 }
