@@ -24,19 +24,16 @@
 //     parity where they lie, with no concatenation, and any row stride
 //     works.  More rows than kMaxRows take a generic loop over a pointer
 //     array in device memory;
-//   * two designs of the same function, chosen by the launcher's `design`:
-//       0, registers: K is a template parameter (1..kMaxRows), each thread
-//          owns kCols 16-byte columns of its block's span and issues all
-//          K*kCols loads (ld.global.nc, no L1 allocation) before the first
-//          XOR; the output leaves with streaming stores;
-//       1, bulk copies: one thread issues K 1-d `cp.async.bulk` loads (the
-//          TMA's bulk path) of a chunk of each row into shared memory,
-//          completed on one mbarrier by byte count; the warps XOR from
-//          shared memory into an output chunk that leaves by
-//          `cp.async.bulk` to device memory.  A ring of 2 stages serves
-//          spans longer than one chunk;
+//   * registers, with nothing between loads and XORs: K is a template
+//     parameter (1..kMaxRows), each thread owns kCols 16-byte columns of
+//     its block's span and issues all K*kCols loads (ld.global.nc, no L1
+//     allocation) before the first XOR; the output leaves with streaming
+//     stores.  A design that brings each row's span into shared memory by
+//     1-d bulk asynchronous copies (TMA) under an mbarrier, XORs it there
+//     and stores it by bulk copy was built beside this one and measured
+//     1 us slower at the main path's shape (PERF.md), so it is not kept;
 //   * rows that do not start on a 16-byte boundary, or N not a multiple of
-//     4 lanes, take the registers design with 4-byte lanes.
+//     4 lanes, take the same kernel with 4-byte lanes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,7 +43,6 @@ constexpr int kMaxRows = 16;
 constexpr int kThreads = 256;
 constexpr int kCols = 2;                  // 16-byte columns a thread a pass
 constexpr int kMaxBlocksPerSm = 2;
-constexpr int kBulkSmem = 200 * 1024;     // the bulk design's two stages
 
 struct Args {
   const void* row[kMaxRows];     // rows 0..k-1 when k <= kMaxRows
@@ -55,7 +51,6 @@ struct Args {
   int64_t n;                     // lanes (int4 or int32) a row
   int64_t span;                  // lanes a block
   int k;
-  int chunk;                     // bulk design: lanes a row a stage
 };
 
 template <typename V>
@@ -77,7 +72,7 @@ __device__ __forceinline__ int ld_stream(const int* p) {
   return v;
 }
 
-__host__ __device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
@@ -90,10 +85,10 @@ __device__ __forceinline__ void xor_into(int4& a, const int4& b) {
 
 __device__ __forceinline__ void xor_into(int& a, int b) { a ^= b; }
 
-// Design 0, K rows from the parameter struct.  Each pass of the loop
-// loads kCols columns of every row, all before the first XOR.
+// K rows from the parameter struct.  Each pass of the loop loads kCols
+// columns of every row, all before the first XOR.
 template <int K, typename V>
-__global__ void __launch_bounds__(kThreads) xor_regs(const Args a) {
+__global__ void __launch_bounds__(kThreads) xor_rows(const Args a) {
   const int64_t lo = (int64_t)blockIdx.x * a.span;
   const int64_t hi = lmin(lo + a.span, a.n);
   V* out = static_cast<V*>(a.out);
@@ -121,10 +116,10 @@ __global__ void __launch_bounds__(kThreads) xor_regs(const Args a) {
   }
 }
 
-// Design 0 for k > kMaxRows: the row pointers come from device memory and
-// the rows are walked in a loop, 4 rows of kCols columns in flight.
+// k > kMaxRows: the row pointers come from device memory and the rows are
+// walked in a loop, 4 rows of kCols columns in flight.
 template <typename V>
-__global__ void __launch_bounds__(kThreads) xor_regs_many(const Args a) {
+__global__ void __launch_bounds__(kThreads) xor_rows_many(const Args a) {
   const int64_t lo = (int64_t)blockIdx.x * a.span;
   const int64_t hi = lmin(lo + a.span, a.n);
   V* out = static_cast<V*>(a.out);
@@ -153,124 +148,6 @@ __global__ void __launch_bounds__(kThreads) xor_regs_many(const Args a) {
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`.  A
-// wait that never ends is a fault of the pipeline: after 2^22 polls
-// (seconds) the block traps, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 22)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          dst),
-      "r"(smem_u32(src)), "r"(bytes)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Design 1 (16-byte lanes, k <= kMaxRows).  Shared memory: stage s holds
-// k input chunks and one output chunk of a.chunk lanes each, then the two
-// stages' mbarriers.  Chunk c of the block's span uses stage c % 2.
-__global__ void __launch_bounds__(kThreads) xor_bulk(const Args a) {
-  extern __shared__ __align__(128) int4 smem[];
-  const int k = a.k;
-  const int64_t lo = (int64_t)blockIdx.x * a.span;
-  const int64_t hi = lmin(lo + a.span, a.n);
-  if (lo >= hi) return;
-  const int chunk = a.chunk;
-  const int nchunks = (int)((hi - lo + chunk - 1) / chunk);
-  const int stages = nchunks > 1 ? 2 : 1;
-  int4* const stage0 = smem;
-  const int64_t stage_lanes = (int64_t)(k + 1) * chunk;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * stage_lanes);
-  auto in = [&](int s, int r) { return stage0 + s * stage_lanes + r * chunk; };
-  auto issue = [&](int c) {                  // thread 0: chunk c's loads
-    const int s = c & 1;
-    const int64_t j = lo + (int64_t)c * chunk;
-    const uint32_t bytes = (uint32_t)(lmin(chunk, hi - j) * 16);
-    mbar_expect_tx(&full[s], bytes * k);
-    for (int r = 0; r < k; ++r)
-      bulk_load(in(s, r), static_cast<const int4*>(a.row[r]) + j, bytes,
-                &full[s]);
-  };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int c = 0; c < stages; ++c) issue(c);
-  }
-  __syncthreads();
-  for (int c = 0; c < nchunks; ++c) {
-    const int s = c & 1;
-    const int64_t j = lo + (int64_t)c * chunk;
-    const int len = (int)lmin(chunk, hi - j);
-    mbar_wait(&full[s], (c >> 1) & 1);
-    int4* o = in(s, k);
-    for (int i = threadIdx.x; i < len; i += kThreads) {
-      int4 acc = in(s, 0)[i];
-      for (int r = 1; r < k; ++r) xor_into(acc, in(s, r)[i]);
-      o[i] = acc;
-    }
-    // the output chunk is read by the bulk copy (the async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    // the store of chunk c-1 has read its output chunk, which chunk c+1
-    // writes next
-    if (threadIdx.x == 0)
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      bulk_store(static_cast<int4*>(a.out) + j, o, (uint32_t)len * 16);
-      // every thread has passed the barrier, so stage s's inputs are free
-      if (c + 2 < nchunks) issue(c + 2);
-    }
-  }
-  // the stores must have read the block's shared memory before it goes
-  if (threadIdx.x == 0)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
 int sm_count() {
   static int sms = 0;  // read once, outside any CUDA graph capture
   if (sms == 0) {
@@ -297,7 +174,7 @@ void split(Args& a, int per_sm, int* blocks) {
 }
 
 template <void (*Kernel)(const Args)>
-int launch_regs(Args a, cudaStream_t s) {
+int launch(Args a, cudaStream_t s) {
   static int per_sm = 0;  // read once, outside any CUDA graph capture
   if (per_sm == 0) {
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
@@ -318,50 +195,28 @@ int launch_lanes(const Args& a, cudaStream_t s) {
   switch (a.k) {
 #define XOR_CASE(K) \
   case K:           \
-    return launch_regs<xor_regs<K, V>>(a, s);
+    return launch<xor_rows<K, V>>(a, s);
     XOR_CASE(1) XOR_CASE(2) XOR_CASE(3) XOR_CASE(4) XOR_CASE(5) XOR_CASE(6)
     XOR_CASE(7) XOR_CASE(8) XOR_CASE(9) XOR_CASE(10) XOR_CASE(11)
     XOR_CASE(12) XOR_CASE(13) XOR_CASE(14) XOR_CASE(15) XOR_CASE(16)
 #undef XOR_CASE
     default:
-      return launch_regs<xor_regs_many<V>>(a, s);
+      return launch<xor_rows_many<V>>(a, s);
   }
-}
-
-int launch_bulk(Args a, int per_sm, cudaStream_t s) {
-  static bool sized = false;  // set once, outside any CUDA graph capture
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        xor_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kBulkSmem + 64);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
-  int blocks = 0;
-  split(a, per_sm, &blocks);
-  const int64_t fit = kBulkSmem / (2 * (a.k + 1) * 16);   // lanes a row
-  const int64_t half = (a.span + 1) / 2;
-  a.chunk = (int)(half < fit ? half : fit);
-  const int64_t nchunks = (a.span + a.chunk - 1) / a.chunk;
-  const size_t smem = (size_t)(nchunks > 1 ? 2 : 1) * (a.k + 1) * a.chunk *
-                          16 + 16;
-  xor_bulk<<<blocks, kThreads, smem, s>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // rows: k pointers (host array) to rows of n int32 each on the current
 // device; rows_dev: the same k pointers in device memory, read only when
-// k > 16 (may be null otherwise); out: n int32.  design 0 = registers,
-// 1 = bulk copies (16-byte lanes and k <= 16 only).  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// k > 16 (may be null otherwise); out: n int32.  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int xor_rows_launch(const void* const* rows, int k,
                                const void* const* rows_dev, void* out,
-                               int64_t n, int design, void* stream) {
-  if (k < 1 || n < 1 || design < 0 || design > 2 || out == nullptr)
+                               int64_t n, void* stream) {
+  if (k < 1 || n < 1 || out == nullptr ||
+      (k > kMaxRows && rows_dev == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (k > kMaxRows && rows_dev == nullptr) return (int)cudaErrorInvalidValue;
   Args a{};
   bool vec = n % 4 == 0 && (uintptr_t)out % 16 == 0;
   for (int r = 0; r < k; ++r) {
@@ -374,9 +229,5 @@ extern "C" int xor_rows_launch(const void* const* rows, int k,
   a.k = k;
   a.n = vec ? n / 4 : n;
   cudaStream_t s = (cudaStream_t)stream;
-  if (design >= 1) {
-    if (!vec || k > kMaxRows) return (int)cudaErrorInvalidValue;
-    return launch_bulk(a, design, s);
-  }
   return vec ? launch_lanes<int4>(a, s) : launch_lanes<int>(a, s);
 }

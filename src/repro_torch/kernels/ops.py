@@ -22,8 +22,7 @@ code runs on unpinned buffers, with the kernel's plain version.
 """
 from __future__ import annotations
 
-import warnings
-
+import numpy as np
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
@@ -96,19 +95,17 @@ def _staging(dev: torch.device) -> _Staging:
 
 def _marshal(st: _Staging, chunks: list[bytes]) -> tuple[torch.Tensor, int]:
     """The chunks as the zero-padded rows of the host buffer, (K, row)
-    uint8 with row a multiple of 16 bytes; and max(len).  Each chunk is
-    read in place (a tensor over its buffer, never written) and copied by
-    PyTorch's intra-op threads, several times the rate of one core's
-    memcpy at a stripe unit of 1 MiB."""
+    uint8 with row a multiple of 16 bytes; and max(len).  One core copies
+    each chunk through a numpy view: PyTorch's intra-op threads copy
+    faster on an idle host but stall for many times as long on a busy
+    one (PERF.md)."""
     n = max(len(c) for c in chunks)
     row = -(-n // 16) * 16
     host = st.get("host_in", len(chunks) * row, "cpu").view(len(chunks), row)
-    with warnings.catch_warnings():    # bytes are read-only; only read here
-        warnings.simplefilter("ignore", UserWarning)
-        for i, c in enumerate(chunks):
-            if c:
-                host[i, :len(c)].copy_(torch.frombuffer(c, dtype=torch.uint8))
-            host[i, len(c):].zero_()   # a longer chunk of an earlier call
+    arr = host.numpy()
+    for i, c in enumerate(chunks):
+        arr[i, :len(c)] = np.frombuffer(c, np.uint8)
+        arr[i, len(c):] = 0     # a longer chunk of an earlier call was here
     return host, n
 
 

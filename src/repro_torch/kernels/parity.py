@@ -11,9 +11,7 @@ plain version of `ref.py`.  There is no other route: a CUDA tensor that
 the kernel cannot take raises.
 
 LAUNCHES counts the kernel launches, so a run can show that its data
-path went through the kernel.  DESIGNS names the kernel's two designs
-(`csrc/xor_parity.cu`); `design=` picks one, for measuring them side by
-side.
+path went through the kernel.
 """
 from __future__ import annotations
 
@@ -25,7 +23,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 LAUNCHES = 0
-DESIGNS = ("registers", "bulk", "bulk_2_per_sm")
 MAX_ROWS_BY_VALUE = 16        # more rows pass their pointers in card memory
 _launch = None
 
@@ -36,7 +33,7 @@ def _launcher():
         fn = _build.load("xor_parity").xor_rows_launch
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
@@ -54,8 +51,8 @@ def _check(t: torch.Tensor, dim: int):
         raise ValueError("xor_parity wants the lanes of a row contiguous")
 
 
-def _launch_rows(ptrs: list[int], n: int, dev: torch.device,
-                 design: str) -> torch.Tensor:
+def _launch_rows(ptrs: list[int], n: int,
+                 dev: torch.device) -> torch.Tensor:
     """One launch over the rows at `ptrs`, each N int32 lanes on `dev`."""
     global LAUNCHES
     k = len(ptrs)
@@ -68,16 +65,15 @@ def _launch_rows(ptrs: list[int], n: int, dev: torch.device,
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()((ctypes.c_void_p * k)(*ptrs), k,
                           None if many is None else many.data_ptr(),
-                          out.data_ptr(), n, DESIGNS.index(design), stream)
+                          out.data_ptr(), n, stream)
     if err != 0:
-        raise RuntimeError(f"xor_parity kernel launch failed ({design}, "
-                           f"K={k}, N={n}): CUDA error {err}")
+        raise RuntimeError(f"xor_parity kernel launch failed (K={k}, "
+                           f"N={n}): CUDA error {err}")
     LAUNCHES += 1
     return out
 
 
-def xor_parity(blocks: torch.Tensor, *,
-               design: str = "registers") -> torch.Tensor:
+def xor_parity(blocks: torch.Tensor) -> torch.Tensor:
     """blocks (K, N) int32 -> parity (N,) int32, for any K, N >= 1.  On
     the card the rows may have any stride; the lanes of a row must be
     contiguous."""
@@ -87,11 +83,10 @@ def xor_parity(blocks: torch.Tensor, *,
     k, n = blocks.shape
     step = blocks.stride(0) * 4
     return _launch_rows([blocks.data_ptr() + i * step for i in range(k)], n,
-                        blocks.device, design)
+                        blocks.device)
 
 
-def reconstruct(survivors, parity: torch.Tensor, *,
-                design: str = "registers") -> torch.Tensor:
+def reconstruct(survivors, parity: torch.Tensor) -> torch.Tensor:
     """Recover the one missing row: XOR(survivors, parity (N,)).
     `survivors` is a (K-1, N) tensor or a sequence of (N,) rows; on the
     card one launch reads each row where it lies."""
@@ -110,5 +105,4 @@ def reconstruct(survivors, parity: torch.Tensor, *,
     if parity.device.type == "cpu":
         return ref.reconstruct_ref(survivors, parity)
     return _launch_rows([r.data_ptr() for r in survivors] +
-                        [parity.data_ptr()], parity.shape[0], parity.device,
-                        design)
+                        [parity.data_ptr()], parity.shape[0], parity.device)

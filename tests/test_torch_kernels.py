@@ -250,11 +250,6 @@ def test_kernel_matches_plain_on_card(cuda_device, K, N):
     assert torch.equal(parity.xor_parity(shifted), ref.xor_parity_ref(blocks))
 
 
-def _design_cases(K, N):
-    return [d for d in parity.DESIGNS
-            if d == "registers" or (N % 4 == 0 and K <= 16)]
-
-
 @pytest.mark.parametrize("K,N", [(17, 1), (17, 4096), (17, 262147),
                                  (24, 37), (24, 262144)])
 def test_kernel_many_rows_on_card(cuda_device, K, N):
@@ -273,28 +268,24 @@ def test_kernel_many_rows_on_card(cuda_device, K, N):
                                  (17, 4096), (24, 65536)])
 def test_reconstruct_from_row_views_on_card(cuda_device, K, N):
     """Survivors that are every other row of a larger tensor, or a list
-    of rows of it, are read in place by one launch in each design."""
+    of rows of it, are read in place by one launch."""
     big = torch.from_numpy(_rows(2 * K, N, K + 7 * N)).to(cuda_device)
     x = big[::2]
-    want = ref.xor_parity_ref(x)
-    for design in _design_cases(K, N):
-        p = parity.xor_parity(x, design=design)
-        assert torch.equal(p, want), design
-        for miss in (0, K - 1):
-            surv = [x[i] for i in range(K) if i != miss]
-            launches = parity.LAUNCHES
-            rec = parity.reconstruct(surv, p, design=design)
-            assert parity.LAUNCHES == launches + 1
-            torch.cuda.synchronize()
-            assert torch.equal(rec, x[miss]), (design, miss)
-        assert torch.equal(parity.reconstruct(x[1:], p, design=design),
-                           x[0]), design
+    p = parity.xor_parity(x)
+    assert torch.equal(p, ref.xor_parity_ref(x))
+    for miss in (0, K - 1):
+        surv = [x[i] for i in range(K) if i != miss]
+        launches = parity.LAUNCHES
+        rec = parity.reconstruct(surv, p)
+        assert parity.LAUNCHES == launches + 1
+        torch.cuda.synchronize()
+        assert torch.equal(rec, x[miss]), miss
+    assert torch.equal(parity.reconstruct(x[1:], p), x[0])
 
 
 @pytest.mark.parametrize("K,N", [(4, 262144), (17, 4097), (24, 1000)])
 def test_misaligned_rows_on_card(cuda_device, K, N):
-    """Rows off a 16-byte boundary take 4-byte lanes; the bulk design,
-    which needs 16-byte lanes, refuses them."""
+    """Rows off a 16-byte boundary take 4-byte lanes."""
     blocks = torch.from_numpy(_rows(K, N, 11 * K + N)).to(cuda_device)
     buf = torch.empty(K * N + 1, dtype=torch.int32, device=cuda_device)
     buf[1:].copy_(blocks.reshape(-1))
@@ -302,9 +293,6 @@ def test_misaligned_rows_on_card(cuda_device, K, N):
     want = ref.xor_parity_ref(blocks)
     assert torch.equal(parity.xor_parity(shifted), want)
     assert torch.equal(parity.reconstruct(shifted[1:], want), blocks[0])
-    if K <= 16:
-        with pytest.raises(RuntimeError, match="launch failed"):
-            parity.xor_parity(shifted, design=parity.DESIGNS[1])
 
 
 def test_parity_bytes_on_card_matches_cpu(cuda_device):
