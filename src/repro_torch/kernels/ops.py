@@ -61,7 +61,7 @@ class _Staging:
     """The buffers of the parity calls on one device.  A call returns only
     after it has synchronised with the card (`_from_card`), so the next
     call may overwrite them.  That holds because the simulator is
-    single-threaded: `core.sim.Sim.parallel` runs its thunks in turn,
+    single-threaded: `core.sim.Simulator.parallel` runs its thunks in turn,
     never two parity calls at once."""
 
     def __init__(self, dev: torch.device):
