@@ -12,7 +12,8 @@ the last line:
      bit-exact, over K in {1..5, 8, 16, 17, 24} rows and N from 1 to
      4194304 lanes, with every missing row reconstructed from row views
      (no concatenation), rows strided inside a larger tensor, and rows
-     off a 16-byte boundary;
+     off a 16-byte boundary; then the largest call of phase 12, K=3 rows
+     of 518,782,976 bytes (N = 129,695,744 lanes), checked and timed;
   4. kernel times at the shapes of the main path (CUDA events, median;
      replayed from a CUDA graph for the card's own time, and issued from
      Python), beside the memory bound, the copy floor (a device-to-device
@@ -49,7 +50,19 @@ the last line:
  10. in f32 compute, the flash prefill of two 64-token prompts against the
      decode chain's logits at position 63;
  11. the main path, serving: BatchedServer (on "cuda", its default)
-     answers 4 requests with prompts of 8-64 tokens, 16 new tokens each.
+     answers 4 requests with prompts of 8-64 tokens, 16 new tokens each;
+ 12. the main path, training: qwen3-4b at full width and vocabulary, 2
+     layers, the train_4k shape cut to 4 sequences of 4096 tokens (4
+     microbatches), f32 parameters, bf16 compute, remat, attn_impl
+     "auto"; Trainer(cluster, cfg).run(3) on LustreCluster(osts=4,
+     ost_failover=True, max_cached_mb=0, device="cuda") with ost1 failing
+     before the third step, finite losses, no flash launch, and the
+     parity-coded checkpoint at step 3 (one XOR launch a leaf); one
+     stripe object of params.embed lost, then Trainer.resume rebuilds it
+     on the card (one launch), the restored state equals the saved one
+     byte for byte, and one more step of each trainer gives bit-equal
+     losses; then the same two f32 train steps (B=1, S=64) on the card
+     and on the CPU agree within 1e-4.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -67,10 +80,16 @@ rest.
 
 is the same for the XOR parity kernel (phases 1-4 and `write_split`); no
 result line.
+
+    python3 chip_smoke.py --train-only
+
+runs phases 1, 2, phase 3's largest shape and phase 12; no result line.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -843,6 +862,347 @@ def serve_path(torch, fa, parity, cfg, params) -> dict:
     return res
 
 
+# ------------------------------------------------------------- training
+
+# phase 12: qwen3-4b at full width and vocabulary, depth cut 36 -> 2 (4.41 G
+# parameters would need 70.6 GB of f32 parameters, gradients and moments);
+# the repo's train_4k shape with its global batch cut 256 -> 4 and its 4
+# microbatches kept (one 4096-token sequence each)
+TRAIN_LAYERS = 2
+TRAIN_BATCH = 4
+TRAIN_STEPS = 3
+TRAIN_FAIL_AT = 2            # ost1 fails before the third step
+# the Trainer stripes each checkpoint leaf over min(3, osts) OSTs in
+# 256 KiB units; the parity call of a leaf XORs one row per OST
+TRAIN_STRIPES, TRAIN_STRIPE_SIZE = 3, 1 << 18
+# card vs CPU: the same two f32 train steps of B=1 x 64 tokens
+TRAIN_CONSISTENCY_S = 64
+TRAIN_CONSISTENCY_REL = 1e-4
+
+
+def train_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SHAPES
+    from repro_torch.train.trainer import TrainerConfig
+
+    return TrainerConfig(
+        model=get_config(MODEL).scaled(n_layers=TRAIN_LAYERS),
+        rc=dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH),
+        n_writers=2, parity=True, dataset_seqs=64, ckpt_every=3, seed=SEED)
+
+
+def leaf_row_lanes(nbytes: int) -> int:
+    """N of the parity call of a checkpoint leaf of `nbytes`: its longest
+    row (stripe 0's columns) in int32 lanes, padded to 16 bytes as
+    ops.parity_bytes pads it."""
+    cols = -(-nbytes // TRAIN_STRIPE_SIZE)
+    row = sum(min(TRAIN_STRIPE_SIZE, nbytes - c * TRAIN_STRIPE_SIZE)
+              for c in range(0, cols, TRAIN_STRIPES))
+    return -(-row // 16) * 4
+
+
+def check_large_rows(torch, parity, ref, dev) -> dict:
+    """Phase 3's largest shape, the parity call of the biggest leaf of the
+    phase-12 checkpoint (the (vocab, d) embedding and its moments): K=3
+    rows of 518,782,976 bytes.  The kernel against its plain version bit
+    for bit, every row reconstructed from the other two and the parity;
+    then both timed, beside the bound."""
+    cfg = train_config().model
+    n = leaf_row_lanes(cfg.vocab * cfg.d_model * 4)
+    x = rows(torch, TRAIN_STRIPES, n, 99, dev)
+    p = parity.xor_parity(x)
+    want = ref.xor_parity_ref(x)
+    torch.cuda.synchronize()
+    worst = max_abs_err(torch, p, want)
+    if not torch.equal(p, want):
+        raise AssertionError(f"xor_parity K=3 N={n} differs from the plain "
+                             "version")
+    for miss in range(TRAIN_STRIPES):
+        got = parity.reconstruct([x[i] for i in range(TRAIN_STRIPES)
+                                  if i != miss], p)
+        torch.cuda.synchronize()
+        if not torch.equal(got, x[miss]):
+            raise AssertionError(f"reconstruct K=3 N={n} row {miss} differs")
+    del want, got
+    kern = time_on_card(torch, parity.xor_parity, [x], reps=5)
+    plain = time_on_card(torch, ref.xor_parity_ref, [x], reps=5)
+    b, by = bound_ms(TRAIN_STRIPES, n)
+    out = {"K": TRAIN_STRIPES, "N": n, "max_abs_err": worst,
+           "bit_exact": True, "ms": kern["graph_ms"],
+           "plain_ms": plain["graph_ms"], "bound_ms": b, "bound_by": by,
+           "bound_share": b / kern["graph_ms"]}
+    emit("kernel_check_large", kernel="xor_parity", **out)
+    del x, p
+    torch.cuda.empty_cache()
+    return out
+
+
+class ParityCalls:
+    """Wrap ops.parity_bytes for a `with` (the checkpoint's only way to
+    the kernel: reconstruct_bytes calls it too): K, N lanes and host ms
+    of each call."""
+
+    def __init__(self, ops):
+        self.ops, self.real, self.calls = ops, ops.parity_bytes, []
+
+    def __enter__(self):
+        def timed(chunks, *, device):
+            t = time.perf_counter()
+            out = self.real(chunks, device=device)
+            self.calls.append({
+                "K": len(chunks), "N": -(-max(map(len, chunks)) // 16) * 4,
+                "ms": (time.perf_counter() - t) * 1e3, "bytes": len(out)})
+            return out
+        self.ops.parity_bytes = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.parity_bytes = self.real
+
+    def summary(self) -> dict:
+        return {"calls": len(self.calls),
+                "s": sum(c["ms"] for c in self.calls) / 1e3,
+                "largest": max(self.calls, key=lambda c: (c["K"] * c["N"],
+                                                          c["ms"]),
+                               default=None)}
+
+
+def drop_stripe(cluster, fs, path, slot):
+    """Lose one stripe object of `path` (a dead OST disk), as
+    tests/test_ckpt.py does."""
+    ea = fs.lmv.getattr(fs.resolve(path), want_ea=True)["ea"]["lov"]
+    victim = ea["objects"][slot]
+    tgt = next(x for x in cluster.ost_targets if x.uuid == victim["ost"])
+    tgt.obd.objects.pop((victim["group"], victim["oid"]))
+    return victim["ost"]
+
+
+def host_peak_gib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
+    """Phase 12, the main path of training: Trainer(cluster, cfg).run(3)
+    with ost1 failing before the third step, the parity-coded checkpoint
+    at step 3 (one kernel launch a leaf), one stripe object of
+    params.embed lost, Trainer.resume (one more launch, the stripe rebuilt
+    on the card), the restored state equal to the saved one byte for byte,
+    and one more step of each trainer with bit-equal losses (the loss
+    depends only on the restored bytes and the batch; later steps are not
+    compared, since the embedding's backward sums with atomics)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import LustreCluster
+    from repro_torch.models.layers import tree_items
+    from repro_torch.train.trainer import Trainer
+
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rc = tcfg.rc
+    # the reference's own knob: no OSC clean cache (ROADMAP R8)
+    cluster = LustreCluster(osts=4, mdses=1, clients=2, ost_failover=True,
+                            commit_interval=64, device=dev, max_cached_mb=0)
+    t0 = time.perf_counter()
+    tr = Trainer(cluster, tcfg)
+    tr.init_state()
+    sync()
+    n_params = sum(t.numel() for _, t in tree_items(tr.params))
+    emit("train_setup", model=tcfg.model.name, layers=tcfg.model.n_layers,
+         params=n_params, seq_len=rc.seq_len, global_batch=rc.global_batch,
+         num_microbatches=rc.num_microbatches, remat=rc.remat,
+         compute=rc.compute_dtype, attn_impl=rc.attn_impl,
+         wall_s=time.perf_counter() - t0)
+
+    step_s, saves = [], []
+    real_step, real_save = tr.step_fn, tr.ckpt.save
+
+    def timed_step(*a):
+        sync()
+        t = time.perf_counter()
+        out = real_step(*a)
+        sync()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    def timed_save(step, tree, **kw):
+        launched, t = parity.LAUNCHES, time.perf_counter()
+        with ParityCalls(ops) as calls:
+            m = real_save(step, tree, **kw)
+        saves.append({"wall_s": time.perf_counter() - t,
+                      "launches": parity.LAUNCHES - launched,
+                      "manifest": m, "parity": calls.summary(),
+                      "parity_bytes": sum(c["bytes"] for c in calls.calls)})
+        return m
+
+    tr.step_fn, tr.ckpt.save = timed_step, timed_save
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    parity.LAUNCHES = fa.LAUNCHES = 0
+    t = time.perf_counter()
+    metrics = tr.run(TRAIN_STEPS, fail_at={
+        TRAIN_FAIL_AT: lambda c: c.fail_node("ost1")})
+    run_s = time.perf_counter() - t
+    run_launches, run_flash = parity.LAUNCHES, fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    vtime_run = cluster.now
+    save = saves[0] if len(saves) == 1 else None
+    leaves = save["manifest"]["leaves"] if save else {}
+    with_parity = sum(1 for e in leaves.values() if e.get("parity"))
+    warm = statistics.median(step_s[1:])
+    tokens = rc.global_batch * rc.seq_len
+    out = {"metrics": metrics, "step_s": step_s, "warm_step_s": warm,
+           "tokens_per_step": tokens, "tokens_per_s": tokens / warm,
+           "peak_gib": peak, "run_wall_s": run_s, "launches": run_launches,
+           "flash_launches": run_flash, "vtime_s": vtime_run,
+           "ckpt_steps": tr.ckpt.steps(), "leaves": len(leaves),
+           "leaves_with_parity": with_parity,
+           "host_peak_gib_so_far": host_peak_gib()}
+    if save:
+        out["save"] = {"wall_s": save["wall_s"],
+                       "launches": save["launches"],
+                       "data_bytes": sum(e["bytes"] for e in leaves.values()),
+                       "parity_bytes": save["parity_bytes"],
+                       "parity_call_s": save["parity"]["s"],
+                       "parity_calls": save["parity"]["calls"],
+                       "largest_call": save["parity"]["largest"]}
+    emit("train_run", **out)
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics) or len(metrics) != TRAIN_STEPS:
+        raise AssertionError(f"train: non-finite or missing metrics "
+                             f"{metrics}")
+    if run_flash:
+        raise AssertionError(f"train: {run_flash} flash launches")
+    if out["ckpt_steps"] != [TRAIN_STEPS] or save is None:
+        raise AssertionError(f"train: checkpoints {out['ckpt_steps']}, "
+                             f"{len(saves)} saves")
+    if cuda and not (run_launches == save["launches"] == with_parity
+                     == save["parity"]["calls"] > 0):
+        raise AssertionError(f"train: {run_launches} launches in the run, "
+                             f"{save['launches']} in the save, for "
+                             f"{with_parity} leaves with parity")
+
+    # one stripe object of the embedding's file is lost
+    base = f"{tcfg.ckpt_base}/step_{TRAIN_STEPS:08d}"
+    lost_on = drop_stripe(cluster, tr.fs, f"{base}/params.embed.bin", 1)
+    rebuilt0 = cluster.stats.counters.get("ckpt.stripe_reconstructed", 0)
+    restore_s = []
+    real_restore = CheckpointManager.restore
+
+    def timed_restore(self, *a, **kw):
+        t1 = time.perf_counter()
+        try:
+            return real_restore(self, *a, **kw)
+        finally:
+            restore_s.append(time.perf_counter() - t1)
+
+    parity.LAUNCHES = fa.LAUNCHES = 0
+    t = time.perf_counter()
+    CheckpointManager.restore = timed_restore
+    try:
+        with ParityCalls(ops) as calls:
+            tr2 = Trainer.resume(cluster, tcfg)
+            sync()
+    finally:
+        CheckpointManager.restore = real_restore
+    resume_s = time.perf_counter() - t
+    resume_launches = parity.LAUNCHES
+    rebuilt = cluster.stats.counters.get("ckpt.stripe_reconstructed",
+                                         0) - rebuilt0
+    saved = dict(tree_items({"params": tr.params, "opt": tr.opt_state}))
+    restored = dict(tree_items({"params": tr2.params,
+                                "opt": tr2.opt_state}))
+    differ = [".".join(k) for k in saved if k not in restored
+              or saved[k].dtype != restored[k].dtype
+              or saved[k].shape != restored[k].shape
+              or not torch.equal(saved[k], restored[k])]
+    differ += [".".join(k) for k in restored if k not in saved]
+    res = {"wall_s": resume_s, "restore_s": restore_s[0],
+           "launches": resume_launches, "stripe_reconstructed": rebuilt,
+           "lost_stripe_on": lost_on, "parity": calls.summary(),
+           "leaves_compared": len(saved), "leaves_differ": differ,
+           "step": tr2.step, "vtime_s": cluster.now - vtime_run,
+           "host_peak_gib_so_far": host_peak_gib()}
+    emit("train_resume", **res)
+    if rebuilt != 1 or differ or tr2.step != TRAIN_STEPS or (
+            cuda and resume_launches != 1) or calls.summary()["calls"] != 1:
+        raise AssertionError(f"train resume: {res}")
+
+    # each trainer takes one more step on the same batch
+    losses = []
+    for trainer in (tr, tr2):
+        _, _, m = trainer.step_fn(trainer.params, trainer.opt_state,
+                                  trainer._batch(trainer.step))
+        losses.append(float(m["loss"]))
+    after = {"losses": losses, "equal": losses[0] == losses[1]}
+    emit("train_after_resume", **after)
+    if losses[0] != losses[1]:
+        raise AssertionError(f"train: losses after resume differ {losses}")
+    out.update(resume=res, after_resume=after, host_peak_gib=host_peak_gib())
+    return out
+
+
+def train_consistency(torch, tcfg, dev) -> dict:
+    """The same two train steps at phase 12's full width on the card and
+    on the CPU (the named reference of this check), f32 compute, on B=1 x
+    64 tokens from the seed, from one initial state made on the card:
+    loss and grad_norm of each step within TRAIN_CONSISTENCY_REL
+    relative."""
+    import numpy as np
+
+    from repro_torch.models import layers, registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_train_step
+
+    S = TRAIN_CONSISTENCY_S
+    rc = RunConfig(seq_len=S, global_batch=1, kind="train",
+                   compute_dtype="float32")
+    rng = np.random.default_rng(SEED + 3)
+    batches = []
+    for _ in range(2):
+        toks = rng.integers(0, tcfg.model.vocab, (1, S), dtype=np.int32)
+        lab = np.roll(toks, -1, axis=-1)
+        lab[:, -1] = 0
+        batches.append({"tokens": toks, "labels": lab})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    card = layers.tree_init(registry.param_defs(tcfg.model), gen)
+    host = layers.tree_map(lambda t: t.to("cpu", copy=True), card)
+    runs = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        params = card if name == "card" else host
+        step = build_train_step(tcfg.model, rc, device=where)
+        state = adamw.init_state(params)
+        t = time.perf_counter()
+        rows = []
+        for b in batches:
+            params, state, m = step(params, state, {
+                k: torch.from_numpy(v) for k, v in b.items()})
+            rows.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"])})
+        runs[name] = {"steps": rows, "wall_s": time.perf_counter() - t}
+        del params, state
+    # after the two updates (in place): each leaf's largest gap over its
+    # largest value, as a yardstick of how far the two devices' sums part
+    param_gaps = {".".join(k): float((a.cpu() - host_t).abs().max()
+                                     / host_t.abs().max().clamp_min(1e-30))
+                  for (k, a), (_, host_t) in zip(layers.tree_items(card),
+                                                 layers.tree_items(host))}
+    card = host = None
+    gaps = [max(abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm"))
+            for a, b in zip(runs["card"]["steps"], runs["cpu"]["steps"])]
+    out = {"S": S, "B": 1, "compute": "float32", "runs": runs,
+           "rel_gaps": gaps, "tolerance_rel": TRAIN_CONSISTENCY_REL,
+           "param_rel_gaps": param_gaps,
+           "host_peak_gib_so_far": host_peak_gib()}
+    emit("train_consistency", **out)
+    if not max(gaps) <= TRAIN_CONSISTENCY_REL:
+        raise AssertionError(f"train step on the card differs from the CPU:"
+                             f" {gaps}")
+    return out
+
+
 def main_path(device, mib: int, ops, parity) -> dict:
     """Phase 5 (and its rehearsal on the CPU at a small `mib`)."""
     import numpy as np
@@ -998,6 +1358,25 @@ def first_flash_calls(torch, fa, ref, dev):
             raise AssertionError(f"wgmma kernel at D={D}: max abs err {err}")
 
 
+def train(torch, fa, parity, ops, dev) -> dict:
+    """Phase 12 on the card, then its card/CPU consistency check once the
+    trainers and the cluster are gone."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = train_config()
+    out = train_path(torch, fa, parity, ops, dev, tcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["consistency"] = train_consistency(torch, tcfg, dev)
+    emit("train", warm_step_s=out["warm_step_s"],
+         tokens_per_s=out["tokens_per_s"], peak_gib=out["peak_gib"],
+         save_s=out["save"]["wall_s"], resume_s=out["resume"]["wall_s"],
+         restore_s=out["resume"]["restore_s"],
+         host_peak_gib=host_peak_gib(), vtime_s=out["vtime_s"],
+         launches=out["launches"] + out["resume"]["launches"])
+    return out
+
+
 def run(mode: str = "") -> int:
     import torch
 
@@ -1016,7 +1395,8 @@ def run(mode: str = "") -> int:
 
     t0 = time.perf_counter()
     built = _build.build({"--flash-only": ["flash_attention"],
-                          "--parity-only": ["xor_parity"]}.get(
+                          "--parity-only": ["xor_parity"],
+                          "--train-only": ["xor_parity"]}.get(
                               mode, ["xor_parity", "flash_attention"]))
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
@@ -1030,7 +1410,12 @@ def run(mode: str = "") -> int:
         check_flash(torch, fa, ref, dev)
         time_flash(torch, fa, ref, dev)
         return 0
+    if mode == "--train-only":
+        check_large_rows(torch, parity, ref, dev)
+        train(torch, fa, parity, ops, dev)
+        return 0
     worst = check_kernel(torch, parity, ref, dev)
+    large = check_large_rows(torch, parity, ref, dev)
     times = time_kernel(torch, parity, ref, ops, dev)
     if mode == "--parity-only":
         write_split(torch, ops, parity, dev)
@@ -1053,16 +1438,24 @@ def run(mode: str = "") -> int:
     prefill = prefill_path(torch, fa, parity, cfg, params, dev)
     consistency_check(torch, cfg, params, dev)
     serve_path(torch, fa, parity, cfg, params)
+    del params
+    trained = train(torch, fa, parity, ops, dev)
 
     k4, fm = times[4], flash_times["main"]
     print(json.dumps({"kernels": [{
         "name": "xor_parity", "route": "cuda",
         "source": "src/repro_torch/csrc/xor_parity.cu",
         "replaces": "src/repro/kernels/parity.py:23",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches, "max_abs_err": max(worst,
+                                                 large["max_abs_err"]),
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "train_launches": trained["launches"] + trained["resume"][
+            "launches"],
+        "train_largest_call": trained["save"]["largest_call"],
+        "train_shape": {k: large[k] for k in (
+            "K", "N", "ms", "plain_ms", "bound_ms", "bound_by")}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
@@ -1081,7 +1474,7 @@ def run(mode: str = "") -> int:
 
 
 if __name__ == "__main__":
-    modes = ("--flash-only", "--parity-only")
+    modes = ("--flash-only", "--parity-only", "--train-only")
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
         sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of the port's qwen3-4b prefill and serving goes, on a card.
+"""Where the time of the port's qwen3-4b prefill, serving and train step
+goes, on a card.
 
     python3 profile_model.py
 
@@ -10,7 +11,10 @@ torch.profiler:
 
   prefill - one build_prefill_step call, attn_impl="flash", B=2 x 4096;
   serve   - one BatchedServer wave of chip_smoke's 4 requests (prompts of
-            8-64 tokens, 16 new tokens each: 79 lockstep decode steps).
+            8-64 tokens, 16 new tokens each: 79 lockstep decode steps);
+  train   - one build_train_step call at chip_smoke's phase-12 shape
+            (qwen3-4b at full width, 2 layers; 4 x 4096 tokens in 4
+            microbatches, remat, chunked attention, AdamW in place).
 
 For each it prints one JSON line: the wall time with and without the
 profiler, the device's busy time (the union of its kernels' and copies'
@@ -32,6 +36,7 @@ GROUPS = (("flash_attention", ("flash_fwd",)),
           ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
           ("copy_cast", ("copy", "Memcpy", "Memset")),
           ("softmax", ("softmax",)),
+          ("index", ("index", "gather", "scatter")),
           ("reduce", ("reduce",)),
           ("elementwise", ("elementwise",)))
 _LAUNCH = {"cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
@@ -99,6 +104,32 @@ def trace(torch, fn) -> dict:
     return summarize(torch, prof, wall, plain)
 
 
+def trace_train(torch, dev) -> dict:
+    """One train step at phase 12's shape, on random tokens from the
+    seed (each of trace's three calls updates the state in place)."""
+    from repro_torch.models import layers, registry
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_train_step
+
+    tcfg = chip_smoke.train_config()
+    rc = tcfg.rc
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    params = layers.tree_init(registry.param_defs(tcfg.model), gen)
+    state = adamw.init_state(params)
+    nmb = rc.num_microbatches
+    toks = torch.randint(0, tcfg.model.vocab, (nmb, rc.global_batch // nmb,
+                                               rc.seq_len), generator=gen,
+                         device=dev, dtype=torch.int32)
+    labels = toks.roll(-1, dims=-1)
+    labels[..., -1] = 0
+    step = build_train_step(tcfg.model, rc, device=dev)
+    out = trace(torch, lambda: step(params, state, {"tokens": toks,
+                                                    "labels": labels}))
+    tokens = rc.global_batch * rc.seq_len
+    return {**out, "layers": tcfg.model.n_layers, "tokens": tokens,
+            "tokens_per_s_unprofiled": tokens / out["wall_s_unprofiled"]}
+
+
 def main() -> int:
     import torch
 
@@ -126,6 +157,9 @@ def main() -> int:
               "wall_ms_per_step_unprofiled":
                   serve["wall_s_unprofiled"] / steps * 1e3}
     out["serve"] = serve
+    del params, srv, step
+    torch.cuda.empty_cache()
+    out["train"] = trace_train(torch, dev)
     for phase, rec in out.items():
         print(json.dumps({"phase": phase, "model": cfg.name,
                           "card": torch.cuda.get_device_name(0),

@@ -1,0 +1,2 @@
+"""Distributed striped checkpointing, port of `repro.ckpt`."""
+from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: F401

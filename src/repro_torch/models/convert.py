@@ -1,11 +1,13 @@
-"""Parameter bridge between the two packages.
+"""Parameter and trainer-state bridge between the two packages.
 
 Both keep parameters as a nested dict keyed like `param_defs`, with the
 layers stacked on a leading axis.  The reference's tree, after
-`np.asarray` on each leaf, is a nested dict of numpy arrays; these two
-functions carry it to the port's tensors and back.  bfloat16 arrays
-(numpy has no such type of its own) cross as float32, which holds every
-bfloat16 value exactly.
+`np.asarray` on each leaf, is a nested dict of numpy arrays;
+`from_numpy` / `to_numpy` carry it to the port's tensors and back.
+bfloat16 arrays (numpy has no such type of its own) cross as float32,
+which holds every bfloat16 value exactly.  `state_from_numpy` /
+`state_to_numpy` carry a whole trainer state, {"params": ..., "opt":
+{"step", "m", "v"}}, with the step as an int32 scalar.
 """
 from __future__ import annotations
 
@@ -40,3 +42,24 @@ def to_numpy(tree):
         return t.numpy()
 
     return tree_map(leaf, tree)
+
+
+def state_from_numpy(state, device="cuda"):
+    """{"params", "opt": {"step", "m", "v"}} of numpy arrays -> (params,
+    opt_state) of tensors on `device`: params and moments in float32, the
+    step an int32 0-d tensor."""
+    opt = state["opt"]
+    step = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                        device=resolve_device(device))
+    return (from_numpy(state["params"], device),
+            {"step": step, "m": from_numpy(opt["m"], device),
+             "v": from_numpy(opt["v"], device)})
+
+
+def state_to_numpy(params, opt_state):
+    """(params, opt_state) of tensors -> {"params", "opt": {"step", "m",
+    "v"}} of numpy arrays, the step an int32 0-d array."""
+    return {"params": to_numpy(params),
+            "opt": {"step": np.asarray(int(opt_state["step"]), np.int32),
+                    "m": to_numpy(opt_state["m"]),
+                    "v": to_numpy(opt_state["v"])}}

@@ -43,6 +43,20 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_get(tree, path):
+    """The leaf at key path `path`."""
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def tree_set(tree: dict, path, value):
+    """Put `value` at key path `path`, making the dicts on the way."""
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
 def tree_init(defs, generator: torch.Generator, dtype=torch.float32):
     """Real tensors for `defs` on the generator's device: zeros / ones, or
     normal with std scale / sqrt(fan_in), drawn in float32 in the sorted
@@ -59,10 +73,7 @@ def tree_init(defs, generator: torch.Generator, dtype=torch.float32):
             std = d.scale / math.sqrt(max(1, fan_in))
             a = torch.randn(d.shape, generator=generator, device=device,
                             dtype=torch.float32).mul_(std).to(dtype)
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = a
+        tree_set(out, path, a)
     return out
 
 

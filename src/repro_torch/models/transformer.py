@@ -4,9 +4,13 @@ Covers yi-9b, gemma3-12b (5:1 local:global), qwen3-4b (qk_norm) and
 qwen2-7b (qkv bias).  Parameters are a nested dict of tensors keyed like
 `param_defs`, each layer's weights stacked on a leading axis, so the two
 packages exchange them (`models/convert.py`).  The reference's layer scan
-is a Python loop over that axis.  Each layer gets its window as an int;
+is a Python loop over that axis; with `rc.remat == "full"` each layer
+is recomputed in the backward pass (`torch.utils.checkpoint`), as the
+reference's `_maybe_remat` does.  Each layer gets its window as an int;
 the flash kernel is taken only when every layer has the same window, as
-in the reference, where a per-layer window is traced.
+in the reference, where a per-layer window is traced.  The kernel is
+forward only, as the reference's is: attention that needs a gradient
+raises on the flash path.
 
 Not ported yet (they raise NotImplementedError): MoE layers, the
 encoder-decoder and patch-prefix models, and the ring-buffered windowed
@@ -18,6 +22,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
@@ -189,6 +194,11 @@ def attn_block(cfg, p, x, window: int, prefix_len, rc, positions=None,
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
     if rc.attn_impl == "flash" and not prefix_len and uniform_window:
+        if torch.is_grad_enabled() and q.requires_grad:
+            raise NotImplementedError(
+                "the flash-attention kernel is forward only, as the "
+                "reference's is: train with attn_impl 'ref', 'chunked' or "
+                "'auto'")
         # the hand-written kernel (kernels/flash_attention.py) reads the
         # (B,S,H,D) activations through their (B,H,S,D) views and writes
         # its output in q's order, (B,S,H,D): no copy on either side
@@ -258,11 +268,21 @@ def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
     w_arr = windows(cfg)
     uniform = bool((w_arr == w_arr[0]).all())   # enables the flash kernel
     ks, vs, aux = [], [], []
+
+    def body(x, pl, window):
+        x, (k, v) = attn_block(cfg, pl["attn"], x, window, prefix_len, rc,
+                               uniform_window=uniform)
+        x, a = mlp_block(cfg, pl["mlp"], x, rc)
+        return x, k, v, a
+
+    remat = rc.remat == "full" and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         pl = _layer(params["layers"], i)
-        x, (k, v) = attn_block(cfg, pl["attn"], x, int(w_arr[i]), prefix_len,
-                               rc, uniform_window=uniform)
-        x, a = mlp_block(cfg, pl["mlp"], x, rc)
+        if remat:           # keep only the layer's input for the backward
+            x, k, v, a = checkpoint(body, x, pl, int(w_arr[i]),
+                                    use_reentrant=False)
+        else:
+            x, k, v, a = body(x, pl, int(w_arr[i]))
         aux.append(a)
         if return_cache:
             ks.append(k)

@@ -1,11 +1,12 @@
 """Drift test: the port's pure-Python modules are copies of the reference.
 
-The simulator under `repro.core` / `repro.fsio`, the model and run
-configurations (`models/config.py`) and the architecture table
-(`configs/`) hold no JAX and no kernel, so `repro_torch` keeps its own
-copy of every such module its paths reach instead of importing the
-reference (importing any `repro` module from the port is forbidden).  A copy equals its reference
-source after `port_source`, which
+The simulator under `repro.core` / `repro.fsio`, the token pipeline
+(`data/`), the model and run configurations (`models/config.py`) and
+the architecture table (`configs/`) hold no JAX and no kernel, so
+`repro_torch` keeps its own copy of every such module its paths reach
+instead of importing the reference (importing any `repro` module from
+the port is forbidden).  A copy equals its reference source after
+`port_source`, which
 
   * renames the package (`repro.` -> `repro_torch.`), and
   * drops the change-history tags of the reference comments
@@ -27,9 +28,24 @@ Allowed to differ, and therefore not listed in COPIED:
     constraints (identity without a mesh) are dropped, and MoE,
     encoder-decoder, patch-prefix, windowed-cache decode and the rwkv6 /
     zamba2 families raise NotImplementedError;
-  * `train/steps.py`, `train/serve.py` - the prefill and serve steps as
-    plain callables on an explicit device (no StepBundle, no shardings;
-    the train step is not ported), and a server with a `device` argument;
+  * `models/convert.py` - the numpy bridge for parameter trees and whole
+    trainer states (the reference has no such module);
+  * `train/steps.py`, `train/serve.py` - the train, prefill and serve
+    steps as plain callables on an explicit device (no StepBundle, no
+    shardings, no jit: the train step takes gradients with
+    torch.autograd, remat is torch.utils.checkpoint), and a server with
+    a `device` argument;
+  * `ckpt/` - written anew: the reference imports `repro.kernels.ops`,
+    and with it JAX, at module top; the port's manager computes parity
+    with the port's kernel on an explicit `device`, takes torch tensors
+    as leaves (bfloat16 by its raw bytes), restores bfloat16 leaves as
+    tensors, and rebuilds a lost stripe of a large leaf from BRW-sized
+    reads (the reference's one-RPC reads time out there: ROADMAP R9);
+  * `optim/` - AdamW written anew in PyTorch (the reference is JAX):
+    the same arithmetic, updating parameters and moments in place;
+  * `train/trainer.py` - written anew: no mesh and no jit, a
+    torch.Generator for the initial state, tensors on an explicit device,
+    and `resume` rebuilds the state from the manifest's leaves;
   * `kernels/` - hand-written CUDA kernels beside their plain versions.
 """
 import pathlib
@@ -47,6 +63,7 @@ COPIED = [
     "core/mds.py", "core/mdc.py",
     "tools/monitor.py",
     "fsio/client.py",
+    "data/__init__.py", "data/pipeline.py",
     "models/config.py",
     "configs/__init__.py",
     *sorted(f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob(

@@ -1,6 +1,7 @@
 """The port stands alone: importing and running `repro_torch` (the raid5
-data path, a flash prefill and the batched server) loads no JAX and no
-module of the reference package `repro`."""
+data path, a flash prefill, the batched server, a checkpoint save and
+restore and a Trainer's train step) loads no JAX and no module of the
+reference package `repro`."""
 import json
 import os
 import pathlib
@@ -54,6 +55,18 @@ assert tuple(tok.shape) == (2, 1) and tuple(cache["k"].shape)[:3] == (2, 2, 32)
 out = BatchedServer(cfg, params, max_seq=16, device="cpu").generate(
     [Request(1, [3, 4, 5], max_new=3), Request(2, [7], max_new=2)])
 assert [len(r.out) for r in out] == [3, 2]
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.train.trainer import Trainer, TrainerConfig
+c = LustreCluster(osts=3, mdses=1, clients=1, device="cpu")
+cm = CheckpointManager([LustreClient(c, 0).mount()], base="/ck",
+                       stripe_count=3, stripe_size=4096, parity=True)
+cm.save(1, {"w": torch.ones(3000), "step": torch.tensor(1, dtype=torch.int32)})
+assert cm.restore(1)[0]["w"].sum() == 3000
+tr = Trainer(c, TrainerConfig(
+    model=cfg, rc=RunConfig(seq_len=16, global_batch=2, kind="train",
+                            attn_impl="ref"),
+    ckpt_every=1, dataset_seqs=8, n_writers=1, parity=True))
+assert tr.run(1)[0]["step"] == 1 and tr.ckpt.steps() == [1]
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
 """
