@@ -1,5 +1,5 @@
 """Fault-tolerant trainer: the training loop of `repro.train.trainer` over
-the Lustre substrate, in PyTorch on an explicit device.
+the Lustre substrate, in PyTorch on the cluster's device.
 
   * data: the deterministic TokenPipeline reading a striped corpus;
   * checkpoints: CheckpointManager (striped, parity-coded on the card,
@@ -25,7 +25,6 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.core.cluster import LustreCluster
 from repro_torch.data import TokenDataset, TokenPipeline
 from repro_torch.fsio import LustreClient
-from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig, RunConfig
@@ -48,17 +47,16 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cluster: LustreCluster, cfg: TrainerConfig,
-                 device=None):
-        """`device` defaults to the cluster's (the card, by default)."""
+    def __init__(self, cluster: LustreCluster, cfg: TrainerConfig):
+        """The trainer runs on the cluster's device (the card, by
+        default)."""
         if cfg.model.enc_layers or cfg.model.n_patches:
             raise NotImplementedError(
                 "encoder frames and patch prefixes are not ported yet "
                 "(ROADMAP Queue 1 item 13)")
         self.cluster = cluster
         self.cfg = cfg
-        self.device = resolve_device(cluster.device if device is None
-                                     else device)
+        self.device = cluster.device
         self.step_fn = steps_mod.build_train_step(cfg.model, cfg.rc,
                                                   device=self.device)
         # storage clients: writer 0 is also the data-plane reader
@@ -69,7 +67,7 @@ class Trainer:
         self.ckpt = CheckpointManager(
             self.writers, cfg.ckpt_base, parity=cfg.parity,
             stripe_count=min(3, len(cluster.ost_targets)),
-            stripe_size=1 << 18, device=self.device)
+            stripe_size=1 << 18)
         self.dataset = TokenDataset(
             self.fs, cfg.data_path, vocab=cfg.model.vocab,
             seq_len=cfg.rc.seq_len, n_seqs=cfg.dataset_seqs,
@@ -141,12 +139,12 @@ class Trainer:
                        extra_meta={"arch": self.cfg.model.name})
 
     @classmethod
-    def resume(cls, cluster: LustreCluster, cfg: TrainerConfig,
-               device=None) -> "Trainer":
+    def resume(cls, cluster: LustreCluster, cfg: TrainerConfig
+               ) -> "Trainer":
         """Fresh trainer restored from the latest complete checkpoint.
         Shapes come from the manifest; each leaf is rebuilt on the
         trainer's device, parameters in the run's param dtype."""
-        t = cls(cluster, cfg, device)
+        t = cls(cluster, cfg)
         t.ckpt.cleanup_incomplete()
         flat, manifest = t.ckpt.restore()
         t.step = manifest["step"]
