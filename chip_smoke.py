@@ -60,9 +60,21 @@ the last line:
      parity-coded checkpoint at step 3 (one XOR launch a leaf); one
      stripe object of params.embed lost, then Trainer.resume rebuilds it
      on the card (one launch), the restored state equals the saved one
-     byte for byte, and one more step of each trainer gives bit-equal
+     byte for byte, and two more steps of each trainer give bit-equal
      losses; then the same two f32 train steps (B=1, S=64) on the card
-     and on the CPU agree within 1e-4.
+     and on the CPU agree within 1e-4;
+ 13. the entry points (`python -m repro_torch.examples.*`, the
+     checkpoint and parity benchmarks) on the card: quickstart (a fresh
+     process) and failover_demo print what their CPU runs print;
+     serve_batched, f32 from one initial state, reads the same KiB of
+     weights as its CPU run and its 10 losses agree within 1e-4;
+     bench_checkpoint's dict equals its CPU run; bench_parity's kernel
+     rows are bit-exact and timed beside the bound; train_e2e --large
+     (200 steps of 8 x 128 tokens, 10 parity-coded checkpoints, ost1
+     killed at step 50, a resume at step 100) has finite losses, the last
+     below the first, and the expected checkpoints.  Every XOR launch,
+     counted around each entry point, is one parity call of the LOV or
+     the checkpoint manager.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -84,6 +96,10 @@ result line.
     python3 chip_smoke.py --train-only
 
 runs phases 1, 2, phase 3's largest shape and phase 12; no result line.
+
+    python3 chip_smoke.py --entry-only
+
+runs phases 1, 2 and 13; no result line.
 """
 from __future__ import annotations
 
@@ -100,10 +116,10 @@ import traceback
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-# operations bound: the H100 SXM float32 rate outside the tensor cores
-# (no int32 XOR rate is published); memory bounds this kernel anyway
-INT32_OPS_PER_S = 67e12
+# the H100 SXM's peak rates, the denominators of every bound below
+from repro_torch.kernels.hardware import (  # noqa: E402
+    BF16_FLOPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S)
+
 MAIN_MIB = 512
 STRIPE = 1 << 20
 SEED = 20240611
@@ -420,7 +436,6 @@ def write_split(torch, ops, parity, dev, mib=MAIN_MIB) -> dict:
     return out
 
 
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense tensor-core bf16
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py TOL
 # at the prefill shapes (bf16), element by element: see check_flash_scaled
 FLASH_REL_TOL, FLASH_ABS_TOL = 2.0 ** -7, 1e-4
@@ -872,6 +887,7 @@ TRAIN_LAYERS = 2
 TRAIN_BATCH = 4
 TRAIN_STEPS = 3
 TRAIN_FAIL_AT = 2            # ost1 fails before the third step
+AFTER_RESUME_STEPS = 2       # steps of each trainer compared after resume
 # the Trainer stripes each checkpoint leaf over min(3, osts) OSTs in
 # 256 KiB units; the parity call of a leaf XORs one row per OST
 TRAIN_STRIPES, TRAIN_STRIPE_SIZE = 3, 1 << 18
@@ -990,9 +1006,9 @@ def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
     at step 3 (one kernel launch a leaf), one stripe object of
     params.embed lost, Trainer.resume (one more launch, the stripe rebuilt
     on the card), the restored state equal to the saved one byte for byte,
-    and one more step of each trainer with bit-equal losses (the loss
-    depends only on the restored bytes and the batch; later steps are not
-    compared, since the embedding's backward sums with atomics)."""
+    and AFTER_RESUME_STEPS more steps of each trainer on the same batches
+    with bit-equal losses: the second step also holds the first step's
+    update (its backward, the embedding's included) to be deterministic."""
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.core import LustreCluster
     from repro_torch.models.layers import tree_items
@@ -1129,13 +1145,17 @@ def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
             cuda and resume_launches != 1) or calls.summary()["calls"] != 1:
         raise AssertionError(f"train resume: {res}")
 
-    # each trainer takes one more step on the same batch
+    # each trainer takes the same steps on the same batches
     losses = []
     for trainer in (tr, tr2):
-        _, _, m = trainer.step_fn(trainer.params, trainer.opt_state,
-                                  trainer._batch(trainer.step))
-        losses.append(float(m["loss"]))
-    after = {"losses": losses, "equal": losses[0] == losses[1]}
+        losses.append([])
+        for i in range(AFTER_RESUME_STEPS):
+            trainer.params, trainer.opt_state, m = trainer.step_fn(
+                trainer.params, trainer.opt_state,
+                trainer._batch(trainer.step + i))
+            losses[-1].append(float(m["loss"]))
+    after = {"steps": AFTER_RESUME_STEPS, "losses": losses,
+             "equal": losses[0] == losses[1]}
     emit("train_after_resume", **after)
     if losses[0] != losses[1]:
         raise AssertionError(f"train: losses after resume differ {losses}")
@@ -1315,24 +1335,30 @@ def main_path(device, mib: int, ops, parity) -> dict:
     return summary
 
 
-def bench_raid5(device, parity) -> dict:
-    """Phase 6: the raid5 section of BENCH_rpc.json, parity on `device`.
-
-    Client uuids are strings whose length the simulator's wire-size
-    model counts, so virtual times depend on how many clients the process
-    made before.  BENCH_rpc.json was written after other benchmarks had
-    made clients (two-digit uuid numbers), so the sequences start there."""
+def fresh_ids(first_uuid: int = 0):
+    """Start the simulator's process-wide id sequences as a fresh process
+    starts them, client uuids at `first_uuid`.  Client uuids are strings
+    whose length the wire-size model counts, so virtual times depend on
+    how many clients the process made before (ROADMAP R6)."""
     import itertools
 
     from repro_torch.core import dlm, llog, ptlrpc
+
+    ptlrpc.RpcClient._uuid_seq = itertools.count(first_uuid)
+    ptlrpc._trace_seq = itertools.count(1)
+    dlm._handle_seq = itertools.count(1)
+    llog._cookie_seq = itertools.count(1)
+
+
+def bench_raid5(device, parity) -> dict:
+    """Phase 6: the raid5 section of BENCH_rpc.json, parity on `device`.
+    BENCH_rpc.json was written after other benchmarks had made clients
+    (two-digit uuid numbers), so the sequences start there."""
     from repro_torch.tools.raid5_metrics import raid5_metrics
 
     want = json.loads((ROOT / "BENCH_rpc.json").read_text())["raid5"]
     want.pop("regressed", None)
-    ptlrpc.RpcClient._uuid_seq = itertools.count(10)
-    ptlrpc._trace_seq = itertools.count(1)
-    dlm._handle_seq = itertools.count(1)
-    llog._cookie_seq = itertools.count(1)
+    fresh_ids(10)
     launches = parity.LAUNCHES
     t0 = time.perf_counter()
     got = raid5_metrics(device=device)
@@ -1341,6 +1367,282 @@ def bench_raid5(device, parity) -> dict:
     if got != want:
         raise AssertionError(f"raid5 section differs: {got} != {want}")
     return got
+
+
+# ------------------------------------------------------- entry points
+
+# phase 13: serve_batched on the card against the CPU, f32 compute from one
+# initial state: the same tolerance as phase 12's card/CPU check (the two
+# devices sum in other orders; 10 steps of a 2-layer model stay far inside)
+ENTRY_SERVE_REL = TRAIN_CONSISTENCY_REL
+# train_e2e at --large and the example's defaults (200 steps of 8 x 128)
+ENTRY_E2E_ARGS = ["--large"]
+
+
+def start_module(module: str, *args: str) -> subprocess.Popen:
+    """`python -m module args` in a fresh process (fresh id sequences),
+    its standard output piped."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc: subprocess.Popen, timeout=600) -> str:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    if proc.returncode:
+        raise AssertionError(f"{proc.args} exited {proc.returncode}: "
+                             f"{err[-2000:]}")
+    return out
+
+
+def captured(fn, *a, **kw) -> tuple[object, str]:
+    """fn(*a, **kw) with the simulator's id sequences started afresh, as
+    in a fresh process; returns its result and its standard output."""
+    import contextlib
+    import io
+
+    fresh_ids()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue()
+
+
+def entry_points(torch, parity, ops, dev) -> dict:
+    """Phase 13: the port's examples and benchmarks as a user runs them,
+    on the card (`dev`; the CPU in a rehearsal, where no launch is
+    counted); each kernel launch counted around its own entry point."""
+    from repro_torch.examples import failover_demo
+    from repro_torch.tools import bench_checkpoint, bench_parity
+
+    where = torch.device(dev).type
+    cuda = where == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # quickstart on the card and on the CPU, and failover_demo on the CPU:
+    # fresh processes, run beside the in-process work below
+    procs = {"quickstart_card": start_module(
+                 "repro_torch.examples.quickstart", "--device", where),
+             "quickstart_cpu": start_module(
+                 "repro_torch.examples.quickstart", "--device", "cpu"),
+             "failover_demo_cpu": start_module(
+                 "repro_torch.examples.failover_demo", "--device", "cpu")}
+    res = {}
+    try:
+        # failover_demo on the card, in this process to count launches
+        parity.LAUNCHES = 0
+        t = time.perf_counter()
+        with ParityCalls(ops) as calls:
+            _, card = captured(failover_demo.main, ["--device", where])
+        launches = parity.LAUNCHES
+        cpu = finish(procs.pop("failover_demo_cpu"))
+        res["failover_demo"] = rec = {
+            "wall_s": time.perf_counter() - t, "lines": len(card.splitlines()),
+            "equal_cpu": card == cpu, "launches": launches,
+            "parity_calls": calls.summary()["calls"]}
+        emit("entry", name="failover_demo", **rec)
+        if card != cpu or rec["parity_calls"] != 1 or (
+                cuda and launches != 1):
+            raise AssertionError(f"failover_demo: {rec}\n{card}\n{cpu}")
+
+        res["serve_batched"] = entry_serve(torch, parity, dev)
+        res["bench_checkpoint"] = entry_bench_checkpoint(
+            torch, parity, ops, bench_checkpoint, where)
+        rows = bench_parity.kernel_half(dev)
+        res["bench_parity"] = {str(k): r for k, r in rows.items()}
+        emit("entry", name="bench_parity", rows=res["bench_parity"])
+
+        card, cpu = (finish(procs.pop(k))
+                     for k in ("quickstart_card", "quickstart_cpu"))
+        res["quickstart"] = rec = {"lines": len(card.splitlines()),
+                                   "equal_cpu": card == cpu}
+        emit("entry", name="quickstart", **rec)
+        if card != cpu:
+            raise AssertionError(f"quickstart: card\n{card}\ncpu\n{cpu}")
+
+        res["train_e2e"] = entry_train_e2e(torch, parity, ops, where)
+    finally:
+        for p in procs.values():
+            p.kill()
+    res["launches"] = sum(res[k]["launches"] for k in (
+        "failover_demo", "bench_checkpoint", "train_e2e"))
+    emit("entry_points", launches=res["launches"],
+         host_peak_gib=host_peak_gib())
+    return res
+
+
+def entry_serve(torch, parity, dev) -> dict:
+    """serve_batched on the card and on the CPU, f32 compute, from one
+    initial state made on the CPU from the seed."""
+    from repro_torch.examples import serve_batched
+    from repro_torch.models import convert, layers, registry
+    from repro_torch.optim import adamw
+
+    cfg = serve_batched.trainer_config("float32")
+    params = layers.tree_init(registry.param_defs(cfg.model),
+                              torch.Generator().manual_seed(SEED))
+    state = convert.state_to_numpy(params, adamw.init_state(params))
+    runs = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        parity.LAUNCHES = 0
+        t = time.perf_counter()
+        runs[name], _ = captured(serve_batched.run, where,
+                                 compute_dtype="float32", state=state)
+        runs[name].update(wall_s=time.perf_counter() - t,
+                          launches=parity.LAUNCHES)
+    card, cpu = runs["card"], runs["cpu"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                cpu["losses"])]
+    rec = {"outs": [r["out"] for r in card["outs"]],
+           "weights_kib": card["weights_kib"],
+           "weights_kib_cpu": cpu["weights_kib"],
+           "losses": card["losses"], "loss_rel_gaps": gaps,
+           "tolerance_rel": ENTRY_SERVE_REL,
+           "tokens_equal_cpu": card["outs"] == cpu["outs"],
+           "ckpt_steps": card["ckpt_steps"], "wall_s": card["wall_s"],
+           "cpu_wall_s": cpu["wall_s"], "launches": card["launches"]}
+    emit("entry", name="serve_batched", **rec)
+    if card["weights_kib"] != cpu["weights_kib"] or len(gaps) != 10 or \
+            not max(gaps) <= ENTRY_SERVE_REL or card["launches"] or \
+            [len(r["out"]) for r in card["outs"]] != [8] * 4:
+        raise AssertionError(f"serve_batched: {rec}")
+    return rec
+
+
+def entry_bench_checkpoint(torch, parity, ops, bench, card) -> dict:
+    """bench_checkpoint on the card equals its CPU run (virtual-time MB/s
+    do not depend on the device); the parity row launches the kernel once
+    a leaf."""
+    runs = {}
+    for where in (card, "cpu"):
+        parity.LAUNCHES = 0
+        t = time.perf_counter()
+        with ParityCalls(ops) as calls:
+            runs[where], _ = captured(bench.run, where)
+        runs[where + "_launches"] = parity.LAUNCHES
+        runs[where + "_calls"] = calls.summary()["calls"]
+        runs[where + "_wall_s"] = time.perf_counter() - t
+    n_leaves = len(bench.state())
+    rec = {"equal_cpu": runs[card] == runs["cpu"], "rows": runs[card],
+           "launches": runs[card + "_launches"],
+           "parity_calls": runs[card + "_calls"], "leaves": n_leaves,
+           "wall_s": runs[card + "_wall_s"], "cpu_wall_s": runs["cpu_wall_s"]}
+    emit("entry", name="bench_checkpoint", **rec)
+    if not rec["equal_cpu"] or rec["parity_calls"] != n_leaves or (
+            card == "cuda" and rec["launches"] != n_leaves):
+        raise AssertionError(f"bench_checkpoint: {rec} cpu {runs['cpu']}")
+    return rec
+
+
+def entry_train_e2e(torch, parity, ops, where) -> dict:
+    """train_e2e --large on the card at the example's defaults: every
+    loss finite and the last below the first, the expected checkpoints,
+    the resume at the last checkpoint at or before half, and one kernel
+    launch per parity call (one a leaf a save, plus any rebuild).  Times
+    its steps, saves and resume."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.examples import train_e2e
+    from repro_torch.train import steps as steps_mod
+    from repro_torch.train.trainer import Trainer
+
+    args = train_e2e.parse_args(ENTRY_E2E_ARGS)
+    step_s, saves, resumes = [], [], []
+    real_build, real_save = steps_mod.build_train_step, CheckpointManager.save
+    real_resume = Trainer.resume.__func__
+
+    cuda = where == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def timed_build(*a, **kw):
+        fn = real_build(*a, **kw)
+        step_s.append([])
+
+        def step(*sa):
+            sync()
+            t = time.perf_counter()
+            out = fn(*sa)
+            sync()
+            step_s[-1].append(time.perf_counter() - t)
+            return out
+        return step
+
+    def timed_save(self, step, tree, **kw):
+        t = time.perf_counter()
+        m = real_save(self, step, tree, **kw)
+        saves.append({"step": step, "wall_s": time.perf_counter() - t,
+                      "leaves_with_parity": sum(
+                          1 for e in m["leaves"].values() if e.get("parity"))})
+        return m
+
+    def timed_resume(cls, *a, **kw):
+        t = time.perf_counter()
+        tr = real_resume(cls, *a, **kw)
+        resumes.append(time.perf_counter() - t)
+        return tr
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    parity.LAUNCHES = 0
+    steps_mod.build_train_step = timed_build
+    CheckpointManager.save = timed_save
+    Trainer.resume = classmethod(timed_resume)
+    try:
+        with ParityCalls(ops) as calls:
+            r, printed = captured(train_e2e.main,
+                                  ENTRY_E2E_ARGS + ["--device", where])
+    finally:
+        steps_mod.build_train_step = real_build
+        CheckpointManager.save = real_save
+        Trainer.resume = classmethod(real_resume)
+    launches = parity.LAUNCHES
+    every = max(10, args.steps // 10)
+    half = args.steps // 2
+    first_run = sorted({*range(every, half + 1, every), half})
+    want_ckpts = sorted({*first_run, *range(first_run[-1] + every,
+                                            args.steps + 1, every),
+                         args.steps})
+    warm = statistics.median([t for run in step_s for t in run[1:]])
+    tokens = args.batch * args.seq
+    losses = r["losses_first"] + r["losses_after"]
+    rebuilt = calls.summary()["calls"] - sum(s["leaves_with_parity"]
+                                             for s in saves)
+    rec = {"model": r["model"], "params": r["params"], "steps": args.steps,
+           "batch": args.batch, "seq": args.seq,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "checkpoints": r["ckpt_steps"], "resumed_at": r["resumed_at"],
+           "wall_s": r["wall_s"], "first_step_s": [run[0] for run in step_s],
+           "warm_step_s": warm, "tokens_per_s": tokens / warm,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if cuda else None),
+           "save_s": [s["wall_s"] for s in saves], "resume_s": resumes,
+           "vtime_s": r["vtime_s"], "launches": launches,
+           "parity_calls": calls.summary()["calls"],
+           "leaves_with_parity": [s["leaves_with_parity"] for s in saves],
+           "rebuilt": rebuilt, "storage": printed.strip().splitlines()[-1],
+           "wrote_mib": r["wrote_mib"], "read_mib": r["read_mib"],
+           "timeouts": r["timeouts"], "replays": r["replays"],
+           "host_peak_gib_so_far": host_peak_gib()}
+    emit("entry", name="train_e2e", **rec)
+    if not all(math.isfinite(x) for x in losses) or len(losses) != \
+            args.steps or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_e2e: losses {losses}")
+    if r["ckpt_steps"] != want_ckpts or r["resumed_at"] != first_run[-1]:
+        raise AssertionError(f"train_e2e: checkpoints {r['ckpt_steps']}, "
+                             f"resumed at {r['resumed_at']}, want "
+                             f"{want_ckpts} and {first_run[-1]}")
+    if rec["parity_calls"] < 1 or rebuilt < 0 or (
+            cuda and launches != rec["parity_calls"]):
+        raise AssertionError(f"train_e2e: {launches} launches for "
+                             f"{rec['parity_calls']} parity calls, "
+                             f"{rec['leaves_with_parity']} leaves saved")
+    return rec
 
 
 def first_flash_calls(torch, fa, ref, dev):
@@ -1396,7 +1698,8 @@ def run(mode: str = "") -> int:
     t0 = time.perf_counter()
     built = _build.build({"--flash-only": ["flash_attention"],
                           "--parity-only": ["xor_parity"],
-                          "--train-only": ["xor_parity"]}.get(
+                          "--train-only": ["xor_parity"],
+                          "--entry-only": ["xor_parity"]}.get(
                               mode, ["xor_parity", "flash_attention"]))
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
@@ -1413,6 +1716,9 @@ def run(mode: str = "") -> int:
     if mode == "--train-only":
         check_large_rows(torch, parity, ref, dev)
         train(torch, fa, parity, ops, dev)
+        return 0
+    if mode == "--entry-only":
+        entry_points(torch, parity, ops, dev)
         return 0
     worst = check_kernel(torch, parity, ref, dev)
     large = check_large_rows(torch, parity, ref, dev)
@@ -1440,6 +1746,7 @@ def run(mode: str = "") -> int:
     serve_path(torch, fa, parity, cfg, params)
     del params
     trained = train(torch, fa, parity, ops, dev)
+    entry = entry_points(torch, parity, ops, dev)
 
     k4, fm = times[4], flash_times["main"]
     print(json.dumps({"kernels": [{
@@ -1455,7 +1762,8 @@ def run(mode: str = "") -> int:
             "launches"],
         "train_largest_call": trained["save"]["largest_call"],
         "train_shape": {k: large[k] for k in (
-            "K", "N", "ms", "plain_ms", "bound_ms", "bound_by")}}, {
+            "K", "N", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "entry_launches": entry["launches"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
@@ -1474,7 +1782,7 @@ def run(mode: str = "") -> int:
 
 
 if __name__ == "__main__":
-    modes = ("--flash-only", "--parity-only", "--train-only")
+    modes = ("--flash-only", "--parity-only", "--train-only", "--entry-only")
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
         sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:

@@ -1,4 +1,4 @@
-"""Client filesystem API (Lustre Lite), port of `repro.fsio`.  The global
-namespace (`repro.fsio.namespace`) is not ported yet."""
-from repro_torch.fsio.client import (FileHandle, FsError,  # noqa: F401
-                                     LustreClient)
+"""Client filesystem API (Lustre Lite) + global namespace (ch. 3)."""
+from repro_torch.fsio.client import LustreClient, FsError, FileHandle  # noqa: F401
+from repro_torch.fsio.namespace import (Automounter, GlobalNamespace,  # noqa: F401
+                                  make_mount_object)

@@ -1,7 +1,7 @@
 """Family dispatch + analytic parameter counts.
 
 Only the transformer family is ported; rwkv6 and zamba2 raise
-NotImplementedError (ROADMAP Queue 1 item 9)."""
+NotImplementedError (ROADMAP Queue 1 item 5)."""
 from __future__ import annotations
 
 import math
@@ -17,7 +17,7 @@ def module(cfg: ModelConfig):
     if cfg.family not in FAMILY:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP "
-            "Queue 1 item 9)")
+            "Queue 1 item 5)")
     return FAMILY[cfg.family]
 
 

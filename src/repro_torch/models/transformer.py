@@ -14,7 +14,7 @@ raises on the flash path.
 
 Not ported yet (they raise NotImplementedError): MoE layers, the
 encoder-decoder and patch-prefix models, and the ring-buffered windowed
-decode cache (ROADMAP Queue 1 items 8 and 13).
+decode cache (ROADMAP Queue 1 items 3 and 4).
 """
 from __future__ import annotations
 
@@ -29,13 +29,13 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 _NOT_PORTED = {
-    "moe": "MoE layers are not ported yet (ROADMAP Queue 1 item 8)",
+    "moe": "MoE layers are not ported yet (ROADMAP Queue 1 item 3)",
     "enc_dec": "encoder-decoder models are not ported yet (ROADMAP Queue 1 "
-               "item 13)",
+               "item 4)",
     "prefix": "patch-prefix models are not ported yet (ROADMAP Queue 1 "
-              "item 13)",
+              "item 4)",
     "windowed": "the ring-buffered windowed decode cache (decode_windowed) "
-                "is not ported yet (ROADMAP Queue 1 item 13)",
+                "is not ported yet (ROADMAP Queue 1 item 4)",
 }
 
 

@@ -4,7 +4,7 @@ The counterparts of `build_train_step`, `build_prefill_step`,
 `build_serve_step` and `build_step` of `repro.train.steps`, as plain
 callables on an explicit device.  PyTorch runs eagerly, so there is
 nothing to lower: no ShapeDtypeStructs, no shardings, no StepBundle (the
-dry-run tooling is ROADMAP Queue 1 item 11).
+dry-run tooling is ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

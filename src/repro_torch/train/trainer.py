@@ -11,8 +11,8 @@ the Lustre substrate, in PyTorch on the cluster's device.
     recovered by a fresh Trainer and `resume()`.
 
 There is no mesh: the state lives whole on one device (elastic resume
-across meshes is ROADMAP Queue 1 item 10).  Encoder frames and patch
-prefixes are not ported (item 13) and raise NotImplementedError.
+across meshes is ROADMAP Queue 1 item 6).  Encoder frames and patch
+prefixes are not ported (item 4) and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ class Trainer:
         if cfg.model.enc_layers or cfg.model.n_patches:
             raise NotImplementedError(
                 "encoder frames and patch prefixes are not ported yet "
-                "(ROADMAP Queue 1 item 13)")
+                "(ROADMAP Queue 1 item 4)")
         self.cluster = cluster
         self.cfg = cfg
         self.device = cluster.device

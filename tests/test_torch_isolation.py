@@ -1,7 +1,8 @@
 """The port stands alone: importing and running `repro_torch` (the raid5
 data path, a flash prefill, the batched server, a checkpoint save and
-restore and a Trainer's train step) loads no JAX and no module of the
-reference package `repro`."""
+restore, a Trainer's train step, and its examples and benchmarks as a
+user runs them) loads no JAX and no module of the reference package
+`repro`."""
 import json
 import os
 import pathlib
@@ -72,6 +73,29 @@ print(json.dumps(sorted(m for m in sys.modules
 """
 
 
+_RUN_ENTRY_POINTS = r"""
+import contextlib, io, json, runpy, sys
+from repro_torch.tools import bench_checkpoint, bench_parity
+for tool in (bench_checkpoint, bench_parity):
+    tool.save = lambda name, payload: None      # nothing under results/
+    with contextlib.redirect_stdout(io.StringIO()):
+        tool.main(["--device", "cpu"])
+for name in ("quickstart", "failover_demo", "serve_batched"):
+    sys.argv = [name, "--device", "cpu"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        runpy.run_module(f"repro_torch.examples.{name}", run_name="__main__")
+# train_e2e's module as `python -m` loads it, then its body on a narrow model
+e2e = runpy.run_module("repro_torch.examples.train_e2e")
+narrow = e2e["ModelConfig"](name="narrow", family="transformer", n_layers=1,
+                            d_model=32, n_heads=2, n_kv_heads=1, head_dim=16,
+                            d_ff=64, vocab=128)
+e2e["run"](e2e["parse_args"](["--steps", "2", "--batch", "2", "--seq", "16"]),
+           narrow, device="cpu")
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+"""
+
+
 @pytest.fixture(autouse=True)
 def _port_sanitizer_guard():
     before = len(port_sanitize.state.violations)
@@ -86,6 +110,18 @@ def test_running_the_port_loads_no_jax_and_no_reference_module():
     out = subprocess.run([sys.executable, "-c", _RUN], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_entry_points_load_no_jax_and_no_reference_module():
+    """The examples, run as `python -m repro_torch.examples.<name>` (the
+    body of train_e2e on a narrow model), and the checkpoint and parity
+    benchmarks."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_ENTRY_POINTS], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
