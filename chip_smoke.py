@@ -32,11 +32,12 @@ the last line:
      call split into its pieces (`write_split`);
   7. the flash-attention kernel, every variant (wgmma, mma, simt), against
      its plain version on the card (2e-5 in float32, 2e-2 in bfloat16),
-     over B, (H, Hkv), S, D, window, causal, Sq != Sk, FLASH_EDGES and
-     strided (B,S,H,D) views;
+     over B, (H, Hkv), S, D (zamba2's 112 among them), window, causal,
+     Sq != Sk, FLASH_EDGES and strided (B,S,H,D) views;
   8. at the prefill shapes of qwen3-4b (B=2, S=4096, and one layer of
-     prefill_32k: B=1, S=32768) and a gemma3-12b global layer (D=256,
-     B=2, S=4096): the kernel against its plain version, element by
+     prefill_32k: B=1, S=32768), a gemma3-12b global layer (D=256, B=2,
+     S=4096) and zamba2-7b's shared block (D=112, H=Hkv=32, B=2, S=4096):
+     the kernel against its plain version, element by
      element within a limit scaled to each output, then its times beside
      the operations bound, the plain version and
      scaled_dot_product_attention (a yardstick the port never calls);
@@ -74,7 +75,28 @@ the last line:
      killed at step 50, a resume at step 100) has finite losses, the last
      below the first, and the expected checkpoints.  Every XOR launch,
      counted around each entry point, is one parity call of the LOV or
-     the checkpoint manager.
+     the checkpoint manager;
+ 14. the MoE path: phi3.5-moe at full width, depth cut 32
+     -> 4 (random f32 parameters from the seed, 21.9 GB): a) the bf16
+     prefill of 2 x 4096 tokens through build_prefill_step on "flash"
+     (4 wgmma launches; the tokens dropped at C=1280 printed per layer)
+     against the same step on "ref", routing compared, and a planted
+     causal=False that must fail the check; c) BatchedServer on 4
+     requests, and the f32 prefill against the decode chain; b) at depth
+     1, f32, card against CPU: experts, drops and aux equal, logits
+     within 1e-4; d) one f32 train step at depth 1 against the CPU, run
+     twice on the card with bit-equal results; e) the Trainer on the
+     smoke config with parity: 3 steps, a checkpoint (one K1 launch a
+     leaf), a lost stripe rebuilt by Trainer.resume (one launch), the
+     state equal byte for byte, bit-equal losses after;
+ 15. the other families at full width, each freed before the next: a
+     bf16 prefill with its K3 launches by variant (dbrx-132b at depth 1:
+     1 wgmma; whisper-tiny whole, 384 decoder tokens: 4; paligemma-3b
+     whole and gemma3-12b's first 5:1 group: none; rwkv6-3b whole, 1024
+     tokens: none; zamba2-7b whole, 2 x 4096: 13 at D=112, against "ref"
+     with a planted fault), whisper's and rwkv6's decode continuing their
+     f32 prefill, gemma3's 1,100 f32 decode steps on the ring-buffered
+     and the full cache, and each family's f32 card-vs-CPU check.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -100,6 +122,11 @@ runs phases 1, 2, phase 3's largest shape and phase 12; no result line.
     python3 chip_smoke.py --entry-only
 
 runs phases 1, 2 and 13; no result line.
+
+    python3 chip_smoke.py --families-only
+
+runs phases 1, 2, one short call of each wgmma instantiation, then 14
+and 15; no result line.
 """
 from __future__ import annotations
 
@@ -456,14 +483,17 @@ def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev, strided=False):
 
 # K3's edges beyond the grid of check_flash, (B, H, Hkv, Sq, Sk, D, window,
 # causal): sequences that are not a multiple of the wgmma kernel's 128-row
-# tiles, Sq < Sk, a window of 1024 at S=4096 and gemma3's D=256 at S=4096
+# tiles, Sq < Sk, a window of 1024 at S=4096, gemma3's D=256 at S=4096 and
+# zamba2's D=112 at S=4096
 FLASH_EDGES = [(1, 4, 2, 100, 100, 128, 0, True),
                (1, 32, 8, 4000, 4000, 128, 0, True),
                (2, 32, 8, 1000, 4096, 128, 0, True),
                (1, 8, 2, 128, 4000, 256, 100, True),
                (1, 32, 8, 4096, 4096, 128, 1024, True),
                (1, 16, 8, 4096, 4096, 256, 0, True),
-               (1, 8, 8, 4000, 4000, 64, 1024, False)]
+               (1, 8, 8, 4000, 4000, 64, 1024, False),
+               (1, 32, 32, 4096, 4096, 112, 0, True),
+               (1, 4, 4, 4000, 4000, 112, 1024, True)]
 
 
 def check_flash(torch, fa, ref, dev) -> dict:
@@ -481,13 +511,19 @@ def check_flash(torch, fa, ref, dev) -> dict:
                 for D in (16, 32, 64, 128, 256):
                     cases += [(B, H, Hkv, S, S, D, w, c, False)
                               for w in (0, 32, 100) for c in (True, False)]
+    # D=112 (zamba2's shared block): the D=128 pipeline on TMA's zero fill
+    for B in (1, 2):
+        for H, Hkv in ((1, 1), (4, 4), (32, 32), (8, 2)):
+            for S in (64, 192, 1024):
+                cases += [(B, H, Hkv, S, S, 112, w, c, False)
+                          for w in (0, 100) for c in (True, False)]
     for Sq, Sk in ((1, 128), (64, 256), (100, 1024), (192, 1024), (128, 64)):
-        for H, Hkv, D in ((4, 2, 64), (32, 8, 128), (8, 1, 256)):
+        for H, Hkv, D in ((4, 2, 64), (4, 4, 112), (32, 8, 128), (8, 1, 256)):
             cases += [(2, H, Hkv, Sq, Sk, D, w, c, False)
                       for w in (0, 100) for c in (True, False)]
     cases += [(*e, strided) for e in FLASH_EDGES for strided in (False, True)]
     cases += [(2, 4, 2, S, S, D, 0, True, True)
-              for S in (100, 192) for D in (16, 32, 64, 128, 256)]
+              for S in (100, 192) for D in (16, 32, 64, 112, 128, 256)]
     n, scaled = 0, []
     before = dict(fa.VARIANT_LAUNCHES)
     for dname in ("float32", "bfloat16"):
@@ -569,11 +605,13 @@ def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
 
 
 # K3's timed shapes, bf16 causal: the qwen3-4b prefill of the main path,
-# one layer of qwen3-4b's prefill_32k, and a global layer of gemma3-12b
-# (D=256) at the main path's B and S: (name, B, H, Hkv, S, D, reps)
+# one layer of qwen3-4b's prefill_32k, a global layer of gemma3-12b
+# (D=256) and zamba2-7b's shared block (D=112, H = Hkv = 32) at the main
+# path's B and S: (name, B, H, Hkv, S, D, reps)
 FLASH_TIMED = (("main", 2, 32, 8, 4096, 128, 9),
                ("prefill_32k", 1, 32, 8, 32768, 128, 3),
-               ("gemma3_d256", 2, 16, 8, 4096, 256, 9))
+               ("gemma3_d256", 2, 16, 8, 4096, 256, 9),
+               ("zamba2_d112", 2, 32, 32, 4096, 112, 9))
 
 
 def time_flash(torch, fa, ref, dev) -> dict:
@@ -806,7 +844,8 @@ def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
     return out
 
 
-def consistency_check(torch, cfg, params, dev) -> dict:
+def consistency_check(torch, cfg, params, dev,
+                      phase="prefill_decode_consistency") -> dict:
     """f32 compute: the flash prefill's last-position logits of two
     64-token prompts against the decode chain's logits at position 63."""
     from repro_torch.models import registry
@@ -839,36 +878,40 @@ def consistency_check(torch, cfg, params, dev) -> dict:
            "tolerance": CONSISTENCY_REL_TOL * scale,
            "argmax_equal": bool(torch.equal(got.argmax(-1),
                                             want.argmax(-1)))}
-    emit("prefill_decode_consistency", **out)
+    emit(phase, **out)
     if not err <= CONSISTENCY_REL_TOL * scale:
         raise AssertionError(f"decode chain differs from the flash prefill: "
                              f"{err}")
     return out
 
 
-def serve_path(torch, fa, parity, cfg, params) -> dict:
+def serve_path(torch, fa, parity, cfg, params, tag="", device="cuda"
+               ) -> dict:
     """Main path, serving: BatchedServer on the card answers 4 requests
     with prompts of 8-64 tokens, 16 new tokens each."""
     from repro_torch.train.serve import BatchedServer
 
+    cuda = torch.device(device).type == "cuda"
     reqs = serve_requests(cfg)
     lens = [len(r.prompt) for r in reqs]
-    srv = BatchedServer(cfg, params, max_seq=256)          # device "cuda"
+    srv = BatchedServer(cfg, params, max_seq=256, device=device)
     fa.LAUNCHES = parity.LAUNCHES = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    sync(torch, device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     out = srv.generate(reqs)
-    torch.cuda.synchronize()
+    sync(torch, device)
     wall = time.perf_counter() - t
     steps = max(lens) + 16 - 1        # lockstep prompt + 15 decode steps
     res = {"requests": len(out), "prompt_lens": lens,
            "tokens_out": sum(len(r.out) for r in out), "decode_steps": steps,
            "wall_s": wall, "wall_ms_per_step": wall / steps * 1e3,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                        else None),
            "flash_launches": fa.LAUNCHES, "xor_launches": parity.LAUNCHES,
            "outs": [r.out for r in out]}
-    emit("serve", **res)
+    emit(tag + "serve", **res)
     if [len(r.out) for r in out] != [16] * 4 or not all(
             0 <= t < cfg.vocab for r in out for t in r.out):
         raise AssertionError("serve: a request did not get 16 valid tokens")
@@ -1000,7 +1043,8 @@ def host_peak_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
+def train_path(torch, fa, parity, ops, dev, tcfg,
+               lost=("params.embed.bin", 1), tag="") -> dict:
     """Phase 12, the main path of training: Trainer(cluster, cfg).run(3)
     with ost1 failing before the third step, the parity-coded checkpoint
     at step 3 (one kernel launch a leaf), one stripe object of
@@ -1008,7 +1052,9 @@ def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
     on the card), the restored state equal to the saved one byte for byte,
     and AFTER_RESUME_STEPS more steps of each trainer on the same batches
     with bit-equal losses: the second step also holds the first step's
-    update (its backward, the embedding's included) to be deterministic."""
+    update (its backward, the embedding's included) to be deterministic.
+    `lost` names the leaf file and the stripe slot whose object is lost;
+    `tag` prefixes the phase names."""
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.core import LustreCluster
     from repro_torch.models.layers import tree_items
@@ -1025,7 +1071,7 @@ def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
     tr.init_state()
     sync()
     n_params = sum(t.numel() for _, t in tree_items(tr.params))
-    emit("train_setup", model=tcfg.model.name, layers=tcfg.model.n_layers,
+    emit(tag + "train_setup", model=tcfg.model.name, layers=tcfg.model.n_layers,
          params=n_params, seq_len=rc.seq_len, global_batch=rc.global_batch,
          num_microbatches=rc.num_microbatches, remat=rc.remat,
          compute=rc.compute_dtype, attn_impl=rc.attn_impl,
@@ -1083,7 +1129,7 @@ def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
                        "parity_call_s": save["parity"]["s"],
                        "parity_calls": save["parity"]["calls"],
                        "largest_call": save["parity"]["largest"]}
-    emit("train_run", **out)
+    emit(tag + "train_run", **out)
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in metrics) or len(metrics) != TRAIN_STEPS:
         raise AssertionError(f"train: non-finite or missing metrics "
@@ -1101,7 +1147,7 @@ def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
 
     # one stripe object of the embedding's file is lost
     base = f"{tcfg.ckpt_base}/step_{TRAIN_STEPS:08d}"
-    lost_on = drop_stripe(cluster, tr.fs, f"{base}/params.embed.bin", 1)
+    lost_on = drop_stripe(cluster, tr.fs, f"{base}/{lost[0]}", lost[1])
     rebuilt0 = cluster.stats.counters.get("ckpt.stripe_reconstructed", 0)
     restore_s = []
     real_restore = CheckpointManager.restore
@@ -1140,7 +1186,7 @@ def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
            "leaves_compared": len(saved), "leaves_differ": differ,
            "step": tr2.step, "vtime_s": cluster.now - vtime_run,
            "host_peak_gib_so_far": host_peak_gib()}
-    emit("train_resume", **res)
+    emit(tag + "train_resume", **res)
     if rebuilt != 1 or differ or tr2.step != TRAIN_STEPS or (
             cuda and resume_launches != 1) or calls.summary()["calls"] != 1:
         raise AssertionError(f"train resume: {res}")
@@ -1156,19 +1202,22 @@ def train_path(torch, fa, parity, ops, dev, tcfg) -> dict:
             losses[-1].append(float(m["loss"]))
     after = {"steps": AFTER_RESUME_STEPS, "losses": losses,
              "equal": losses[0] == losses[1]}
-    emit("train_after_resume", **after)
+    emit(tag + "train_after_resume", **after)
     if losses[0] != losses[1]:
         raise AssertionError(f"train: losses after resume differ {losses}")
     out.update(resume=res, after_resume=after, host_peak_gib=host_peak_gib())
     return out
 
 
-def train_consistency(torch, tcfg, dev) -> dict:
-    """The same two train steps at phase 12's full width on the card and
-    on the CPU (the named reference of this check), f32 compute, on B=1 x
-    64 tokens from the seed, from one initial state made on the card:
-    loss and grad_norm of each step within TRAIN_CONSISTENCY_REL
-    relative."""
+def train_consistency(torch, model, dev, repeat=False,
+                      phase="train_consistency") -> dict:
+    """The same two train steps of `model` on the card and on the CPU (the
+    named reference of this check), f32 compute, on B=1 x 64 tokens from
+    the seed, from one initial state made on the card: loss and grad_norm
+    of each step within TRAIN_CONSISTENCY_REL relative.  With `repeat`
+    the card runs the two steps twice from that state, and the two runs'
+    losses, grad norms and updated parameters must be equal bit for
+    bit."""
     import numpy as np
 
     from repro_torch.models import layers, registry
@@ -1182,17 +1231,21 @@ def train_consistency(torch, tcfg, dev) -> dict:
     rng = np.random.default_rng(SEED + 3)
     batches = []
     for _ in range(2):
-        toks = rng.integers(0, tcfg.model.vocab, (1, S), dtype=np.int32)
+        toks = rng.integers(0, model.vocab, (1, S), dtype=np.int32)
         lab = np.roll(toks, -1, axis=-1)
         lab[:, -1] = 0
         batches.append({"tokens": toks, "labels": lab})
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    card = layers.tree_init(registry.param_defs(tcfg.model), gen)
+    card = layers.tree_init(registry.param_defs(model), gen)
     host = layers.tree_map(lambda t: t.to("cpu", copy=True), card)
-    runs = {}
-    for name, where in (("card", dev), ("cpu", "cpu")):
-        params = card if name == "card" else host
-        step = build_train_step(tcfg.model, rc, device=where)
+    runs, again = {}, None
+    order = (("card", dev),) + ((("card_repeat", dev),) if repeat else ()) \
+        + (("cpu", "cpu"),)
+    for name, where in order:
+        if name == "card_repeat":        # from the untouched host copy
+            again = layers.tree_map(lambda t: t.to(dev, copy=True), host)
+        params = {"card": card, "card_repeat": again, "cpu": host}[name]
+        step = build_train_step(model, rc, device=where)
         state = adamw.init_state(params)
         t = time.perf_counter()
         rows = []
@@ -1209,14 +1262,23 @@ def train_consistency(torch, tcfg, dev) -> dict:
                                      / host_t.abs().max().clamp_min(1e-30))
                   for (k, a), (_, host_t) in zip(layers.tree_items(card),
                                                  layers.tree_items(host))}
-    card = host = None
+    bit_equal = None
+    if repeat:
+        bit_equal = runs["card"]["steps"] == runs["card_repeat"]["steps"] \
+            and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                layers.tree_items(card), layers.tree_items(again)))
+    card = host = again = None
     gaps = [max(abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm"))
             for a, b in zip(runs["card"]["steps"], runs["cpu"]["steps"])]
-    out = {"S": S, "B": 1, "compute": "float32", "runs": runs,
-           "rel_gaps": gaps, "tolerance_rel": TRAIN_CONSISTENCY_REL,
-           "param_rel_gaps": param_gaps,
+    out = {"model": model.name, "layers": model.n_layers, "S": S, "B": 1,
+           "compute": "float32", "runs": runs, "rel_gaps": gaps,
+           "tolerance_rel": TRAIN_CONSISTENCY_REL,
+           "repeat_bit_equal": bit_equal, "param_rel_gaps": param_gaps,
            "host_peak_gib_so_far": host_peak_gib()}
-    emit("train_consistency", **out)
+    emit(phase, **out)
+    if repeat and not bit_equal:
+        raise AssertionError("two runs of the train step on the card from "
+                             "one state differ")
     if not max(gaps) <= TRAIN_CONSISTENCY_REL:
         raise AssertionError(f"train step on the card differs from the CPU:"
                              f" {gaps}")
@@ -1645,10 +1707,487 @@ def entry_train_e2e(torch, parity, ops, where) -> dict:
     return rec
 
 
+# ------------------------------------------- phases 14 and 15: families
+
+# phase 14: phi3.5-moe at full width (d 4096, 32/8 heads of 128, 16
+# experts top-2 of d_ff 6400, vocab 32064), depth cut 32 -> 4: a layer
+# holds 1.30 G parameters, so 32 layers would be 168 GB in f32 (84 GB in
+# bf16); 4 layers with the embedding and head are 5.46 G, 21.9 GB in f32
+MOE_MODEL, MOE_LAYERS = "phi3.5-moe", 4
+# flash vs "ref" prefill, bf16: in bf16 the two attention paths round
+# differently, so a few routing decisions flip (a token near a tie between
+# two experts).  Held: at least MOE_AGREE_MIN of the checked positions
+# routed alike in every layer, and at those positions the largest logit
+# gap within PREFILL_REL_TOL of the largest logit (phase 9's limit, for
+# the same rounding of the same attention)
+MOE_AGREE_MIN = 0.9
+# card vs CPU, f32 compute at depth <= 2 (MoE depth 1) and <= 64 tokens:
+# the largest logit gap over the largest logit, and aux relative
+FAMILY_REL_TOL = 1e-4
+AUX_REL_TOL = 1e-5
+FAMILY_CPU_S = 64
+# phase 15, (arch, layers (None: the whole model), B, S, the K3 launches of
+# its bf16 prefill on attn_impl="flash" by variant, layers of its
+# card/CPU check).  whisper's decoder runs 384 tokens: the flash entry
+# needs S to be a multiple of its 128-row blocks (the reference's
+# contract), and 384 is the longest such length within whisper's 448
+# positions.  zamba2's check holds one group and one tail block (7), the
+# least depth with every kind of block
+FAMILY_RUNS = (
+    ("dbrx-132b", 1, 2, 4096, {"wgmma": 1}, 1),
+    ("whisper-tiny", None, 2, 384, {"wgmma": 4}, 4),
+    ("paligemma-3b", None, 2, 256, {}, 2),
+    ("gemma3-12b", 6, 1, 2048, {}, 2),
+    ("rwkv6-3b", None, 1, 1024, {}, 2),
+    ("zamba2-7b", None, 2, 4096, {"wgmma": 13}, 7),
+)
+# decode steps checked against a prefill (whisper, rwkv6), and gemma3's
+# windowed-cache decode: 1,100 steps, past its 1024-slot rings
+CONTINUE_STEPS = 16
+RING_STEPS = 1100
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def free(torch, dev):
+    """Give back what the last model left on the card."""
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def family_params(torch, cfg, dev, seed=SEED):
+    """Random f32 parameters of `cfg` on `dev`, from `seed`."""
+    from repro_torch.models import layers, registry
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = layers.tree_init(registry.param_defs(cfg), gen)
+    sync(torch, dev)
+    return params
+
+
+def n_params(params) -> int:
+    from repro_torch.models.layers import tree_items
+    return sum(t.numel() for _, t in tree_items(params))
+
+
+def routing_agreement(torch, got, want) -> tuple[float, object]:
+    """Per-layer top-k experts (T, k) of two runs: the share of (token,
+    slot) assignments that differ (each token's experts as a set), and
+    a (T,) mask of the tokens routed alike in every layer."""
+    differ, total, alike = 0, 0, None
+    for a, b in zip(got, want, strict=True):
+        d = a.sort(dim=-1).values != b.sort(dim=-1).values
+        differ += int(d.sum())
+        total += d.numel()
+        same = ~d.any(dim=-1)
+        alike = same if alike is None else alike & same
+    return differ / max(total, 1), alike
+
+
+def check_positions(S) -> list[int]:
+    """Every 64th position of S, and the first and last few."""
+    return sorted(set(range(0, S, max(1, S // 64))) | {1, 15, S - 2, S - 1})
+
+
+def row_gaps(torch, registry, cfg, params, rc, x, x_ref, pos):
+    """(B, len(pos)): at each position, the largest logit gap between two
+    final hidden states over the largest |logit| of `x_ref`."""
+    idx = torch.tensor(pos, device=x.device)
+    got = registry.unembed(cfg, params, x[:, idx], rc).float()
+    want = registry.unembed(cfg, params, x_ref[:, idx], rc).float()
+    return (got - want).abs().amax(-1) / want.abs().amax(-1)
+
+
+def prefill_run(torch, fa, cfg, params, dev, batch, impl, force=None):
+    """One bf16 prefill through build_prefill_step on `impl` (`force`
+    overrides arguments of every flash call: a planted fault).  Returns
+    its record (wall s, peak GiB, K3 launches by variant, cache shapes),
+    the final hidden states, and for MoE each layer's experts and dropped
+    assignments."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import build_prefill_step
+
+    B, S = batch["tokens"].shape
+    step = build_prefill_step(
+        cfg, RunConfig(seq_len=S, global_batch=B, kind="prefill",
+                       attn_impl=impl), device=dev)
+    cuda = torch.device(dev).type == "cuda"
+    sync(torch, dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    fa.VARIANT_LAUNCHES = dict.fromkeys(fa.VARIANTS, 0)
+    with Spy(torch, registry, "forward", keep=lambda o: o[0]) as fwd, \
+            Spy(torch, moe_lib, "route", keep=lambda o: o[1]) as route, \
+            Spy(torch, moe_lib, "dispatch",
+                keep=lambda o: int((~o[2]).sum())) as drop, \
+            Spy(torch, fa, "flash_attention", force=force):
+        t = time.perf_counter()
+        tok, cache = step(params, batch)
+        sync(torch, dev)
+        wall = time.perf_counter() - t
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "B": B, "S": S,
+           "compute": "bfloat16", "attn_impl": impl, "wall_s": wall,
+           "launches": fa.LAUNCHES,
+           "variant_launches": dict(fa.VARIANT_LAUNCHES),
+           "dropped_per_layer": drop.returned,
+           "cache": {k: list(v.shape) for k, v in cache.items()},
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                        else None)}
+    x = fwd.returned[0]
+    if tuple(tok.shape) != (B, 1) or not bool(torch.isfinite(x).all()) or \
+            not all(bool(torch.isfinite(v.float()).all())
+                    for v in cache.values()):
+        raise AssertionError(f"{cfg.name} prefill on {impl}: wrong shapes "
+                             "or non-finite values")
+    return rec, x, route.returned
+
+
+def prefill_batch(torch, cfg, dev, B, S, seed):
+    """A prefill batch from `seed`: tokens, and frames or patches where
+    the model has them."""
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import make_batch
+
+    return make_batch(cfg, RunConfig(seq_len=S, global_batch=B,
+                                     kind="prefill"),
+                      torch.Generator(device=dev).manual_seed(seed),
+                      with_labels=False)
+
+
+def flash_vs_ref(torch, fa, cfg, params, dev, B, S, tag):
+    """The bf16 prefill on "flash" against the same step on "ref" and
+    against a fault planted in the flash call (causal=False), at
+    check_positions.  For MoE, only positions routed alike in every layer
+    are held to PREFILL_REL_TOL, and at least MOE_AGREE_MIN of them must
+    be.  The planted fault must fail the check."""
+    from repro_torch.models import moe, registry
+    from repro_torch.models.config import RunConfig
+
+    batch = prefill_batch(torch, cfg, dev, B, S, SEED + 4)
+    runs = {name: prefill_run(torch, fa, cfg, params, dev, batch, impl,
+                              force)
+            for name, impl, force in (("flash", "flash", None),
+                                      ("ref", "ref", None),
+                                      ("planted", "flash",
+                                       {"causal": False}))}
+    rc = RunConfig(seq_len=S, global_batch=B, kind="prefill")
+    pos = check_positions(S)
+    res = {}
+    for name in ("flash", "planted"):
+        gaps = row_gaps(torch, registry, cfg, params, rc, runs[name][1],
+                        runs["ref"][1], pos)
+        held, slot_differ = torch.ones_like(gaps, dtype=torch.bool), 0.0
+        if cfg.is_moe:
+            slot_differ, alike = routing_agreement(torch, runs[name][2],
+                                                   runs["ref"][2])
+            held = alike.reshape(B, S)[:, pos]
+        share = float(held.float().mean())
+        worst = float(gaps[held].max()) if bool(held.any()) else math.inf
+        res[name] = {"slot_differ_share": slot_differ, "held_share": share,
+                     "max_rel_gap_held": worst,
+                     "max_rel_gap_all": float(gaps.max()),
+                     "ok": share >= (MOE_AGREE_MIN if cfg.is_moe else 1.0)
+                     and worst <= PREFILL_REL_TOL}
+    flash = runs["flash"][0]
+    out = {**flash, "positions": len(pos),
+           "ref_dropped_per_layer": runs["ref"][0]["dropped_per_layer"],
+           "capacity": (moe.capacity(cfg, B * S) if cfg.is_moe else None),
+           "ref_wall_s": runs["ref"][0]["wall_s"],
+           "ref_peak_gib": runs["ref"][0]["peak_gib"],
+           "tolerance_rel": PREFILL_REL_TOL,
+           "agree_min": MOE_AGREE_MIN if cfg.is_moe else None, **res}
+    emit(f"{tag}_prefill", **out)
+    if not res["flash"]["ok"]:
+        raise AssertionError(f"{tag}: flash prefill differs from ref: "
+                             f"{res['flash']}")
+    if res["planted"]["ok"]:
+        raise AssertionError(f"{tag}: the check passes the planted fault "
+                             f"causal=False: {res['planted']}")
+    return out
+
+
+def card_vs_cpu(torch, cfg, params, dev, B=1, S=FAMILY_CPU_S,
+                tag="family"):
+    """f32 compute, attn "ref": the same forward (tokens and, where the
+    model has them, frames or patches from the seed) on the card and on
+    the CPU from one parameter state, logits within FAMILY_REL_TOL of the
+    largest; for MoE the top-k experts and the dropped assignments of
+    every layer equal and aux within AUX_REL_TOL."""
+    from repro_torch.models import layers
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import make_batch
+
+    rc = RunConfig(seq_len=S, global_batch=B, kind="prefill",
+                   attn_impl="ref", compute_dtype="float32")
+    batch = make_batch(cfg, rc, torch.Generator().manual_seed(SEED + 5),
+                       with_labels=False)
+    host = layers.tree_map(lambda t: t.to("cpu", copy=True), params)
+    runs = {}
+    for name, where, p in (("card", dev, params), ("cpu", "cpu", host)):
+        t = time.perf_counter()
+        with Spy(torch, moe_lib, "route", keep=lambda o: o[1]) as route, \
+                Spy(torch, moe_lib, "dispatch",
+                    keep=lambda o: int((~o[2]).sum())) as drop, \
+                torch.no_grad():
+            x, _, _, _, aux = registry.forward(
+                cfg, p, {k: v.to(where) for k, v in batch.items()}, rc)
+            logits = registry.unembed(cfg, p, x, rc).float().cpu()
+        runs[name] = {"logits": logits, "aux": float(aux),
+                      "top_e": [e.cpu() for e in route.returned],
+                      "dropped": drop.returned,
+                      "wall_s": time.perf_counter() - t}
+    del host
+    a, b = runs["card"], runs["cpu"]
+    gap = float((a["logits"] - b["logits"]).abs().max()
+                / b["logits"].abs().max())
+    routes = [bool(torch.equal(x, y)) for x, y in zip(a["top_e"],
+                                                      b["top_e"])]
+    aux_gap = abs(a["aux"] - b["aux"]) / max(abs(b["aux"]), 1e-30)
+    out = {"model": cfg.name, "layers": cfg.n_layers, "B": B, "S": S,
+           "compute": "float32", "rel_gap": gap,
+           "tolerance_rel": FAMILY_REL_TOL,
+           "wall_s": {k: v["wall_s"] for k, v in runs.items()}}
+    if cfg.is_moe:
+        out.update(top_e_equal=routes, dropped=a["dropped"],
+                   cpu_dropped=b["dropped"], aux=a["aux"], cpu_aux=b["aux"],
+                   aux_rel_gap=aux_gap, aux_tolerance_rel=AUX_REL_TOL)
+    emit(f"{tag}_card_vs_cpu", **out)
+    if not gap <= FAMILY_REL_TOL:
+        raise AssertionError(f"{tag}: card and CPU logits differ: {gap}")
+    if cfg.is_moe and not (all(routes) and a["dropped"] == b["dropped"]
+                           and aux_gap <= AUX_REL_TOL):
+        raise AssertionError(f"{tag}: card and CPU route differently: "
+                             f"{out}")
+    return out
+
+
+def moe_path(torch, fa, parity, ops, dev) -> dict:
+    """Phase 14, the MoE path: phi3.5-moe at full width, depth
+    MOE_LAYERS, steps a-e (see the module's docstring)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.trainer import TrainerConfig
+
+    full = get_config(MOE_MODEL)
+    cfg = full.scaled(n_layers=MOE_LAYERS)
+    free(torch, dev)
+    t0 = time.perf_counter()
+    params = family_params(torch, cfg, dev)
+    emit("moe_init", model=cfg.name, layers=cfg.n_layers,
+         params=n_params(params), bytes=4 * n_params(params),
+         wall_s=time.perf_counter() - t0)
+    # a: the flash prefill against "ref"
+    out = {"prefill": flash_vs_ref(torch, fa, cfg, params, dev, PREFILL_B,
+                                   PREFILL_S, tag="moe")}
+    if torch.device(dev).type == "cuda" and \
+            out["prefill"]["variant_launches"] != {
+                **dict.fromkeys(fa.VARIANTS, 0), "wgmma": cfg.n_layers}:
+        raise AssertionError(f"moe: {out['prefill']['variant_launches']} "
+                             f"flash launches, want {cfg.n_layers} wgmma")
+    # c: serving, then the f32 prefill against the decode chain (no token
+    # dropped: a decode step routes 2 tokens and never drops, so the check
+    # sets capacity_factor E / top_k, C = T, for the 128-token prefill)
+    out["serve"] = serve_path(torch, fa, parity, cfg, params, tag="moe_",
+                              device=dev)
+    no_drop = cfg.scaled(capacity_factor=cfg.n_experts / cfg.top_k)
+    out["consistency"] = consistency_check(torch, no_drop, params, dev,
+                                           phase="moe_prefill_decode")
+    del params
+    free(torch, dev)
+    # b: card vs CPU at depth 1
+    one = full.scaled(n_layers=1)
+    params = family_params(torch, one, dev, seed=SEED + 6)
+    out["card_vs_cpu"] = card_vs_cpu(torch, one, params, dev, tag="moe")
+    del params
+    free(torch, dev)
+    # d: one train step at depth 1, card vs CPU, and twice on the card
+    out["train_step"] = train_consistency(torch, one, dev, repeat=True,
+                                          phase="moe_train_step")
+    free(torch, dev)
+    # e: the Trainer on the smoke config, parity-coded checkpoint, resume
+    # (the smoke embedding fits in one stripe: its slot 0 is lost)
+    tcfg = TrainerConfig(
+        model=get_smoke_config(MOE_MODEL),
+        rc=RunConfig(seq_len=128, global_batch=8, kind="train",
+                     num_microbatches=2),
+        n_writers=2, parity=True, dataset_seqs=64, ckpt_every=3, seed=SEED)
+    out["trainer"] = train_path(torch, fa, parity, ops, dev, tcfg,
+                                lost=("params.embed.bin", 0), tag="moe_")
+    out["trainer_launches"] = out["trainer"]["launches"] + \
+        out["trainer"]["resume"]["launches"]
+    emit("moe", launches=out["prefill"]["launches"],
+         variant_launches=out["prefill"]["variant_launches"],
+         dropped_per_layer=out["prefill"]["dropped_per_layer"],
+         trainer_xor_launches=out["trainer_launches"],
+         trainer_rc=dataclasses.asdict(tcfg.rc))
+    return out
+
+
+def continue_decode(torch, cfg, params, dev, B, S0, n=CONTINUE_STEPS,
+                    tag="family"):
+    """f32, attn "ref": a prefill of S0 tokens (with the config's frames)
+    and n decode steps from its cache against a prefill of all S0 + n
+    tokens: the logits of the n positions within CONSISTENCY_REL_TOL of
+    the largest, and the recurrent state (RWKV) or the K/V cache at the
+    end within CONSISTENCY_REL_TOL of its largest entry."""
+    from repro_torch.models import registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import make_batch
+
+    rc = RunConfig(seq_len=S0 + n, global_batch=B, kind="prefill",
+                   attn_impl="ref", compute_dtype="float32")
+    batch = make_batch(cfg, rc, torch.Generator(device=dev).manual_seed(
+        SEED + 7), with_labels=False)
+    t = time.perf_counter()
+    with torch.no_grad():
+        x, _, full, _, _ = registry.forward(cfg, params, batch, rc,
+                                            return_cache=True)
+        want = registry.unembed(cfg, params, x[:, S0:], rc).float()
+        del x
+        pre = {**batch, "tokens": batch["tokens"][:, :S0]}
+        _, _, cache, _, _ = registry.forward(cfg, params, pre, rc,
+                                             return_cache=True)
+        dec = {k: torch.zeros(s, dtype=dt, device=dev) for k, (s, dt) in
+               registry.init_cache(cfg, B, S0 + n, torch.float32).items()}
+        for k, v in cache.items():
+            dec[k][tuple(slice(0, m) for m in v.shape)] = v
+        del cache
+        got = []
+        for j in range(n):
+            lg, dec = registry.decode(cfg, params, dec,
+                                      batch["tokens"][:, S0 + j:S0 + j + 1],
+                                      S0 + j, rc)
+            got.append(lg[:, 0].float())
+    got = torch.stack(got, dim=1)
+    gap = float((got - want).abs().max() / want.abs().max())
+    states = {k: float((dec[k] - full[k]).abs().max()
+                       / full[k].abs().max().clamp_min(1e-30))
+              for k in full if k in ("state", "x_att", "x_ffn", "k", "v")}
+    out = {"model": cfg.name, "layers": cfg.n_layers, "B": B,
+           "prefill_tokens": S0, "decode_steps": n, "compute": "float32",
+           "rel_gap": gap, "cache_rel_gaps": states,
+           "tolerance_rel": CONSISTENCY_REL_TOL,
+           "wall_s": time.perf_counter() - t}
+    emit(f"{tag}_decode_continues", **out)
+    if not (gap <= CONSISTENCY_REL_TOL
+            and max(states.values()) <= CONSISTENCY_REL_TOL):
+        raise AssertionError(f"{tag}: decode from the prefill's cache "
+                             f"differs: {out}")
+    return out
+
+
+def ring_decode(torch, cfg, params, dev) -> dict:
+    """gemma3's local:global group, f32: RING_STEPS decode steps from zero
+    caches, once with the ring-buffered windowed cache and once with the
+    full cache, logits held within FAMILY_REL_TOL of the largest at every
+    position past the window; both caches' bytes."""
+    from repro_torch.models import registry
+    from repro_torch.models.config import RunConfig
+
+    steps = RING_STEPS
+    rc = RunConfig(seq_len=steps, global_batch=1, kind="decode",
+                   attn_impl="ref", compute_dtype="float32")
+    caches = {name: {k: torch.zeros(s, dtype=dt, device=dev)
+                     for k, (s, dt) in registry.init_cache(
+                         cfg, 1, steps, torch.float32,
+                         windowed=name == "ring").items()}
+              for name in ("ring", "full")}
+    nbytes = {name: sum(t.numel() * t.element_size() for t in c.values())
+              for name, c in caches.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    toks = torch.randint(0, cfg.vocab, (1, steps), generator=gen,
+                         device=dev, dtype=torch.int32)
+    W = cfg.sliding_window
+    worst_past, worst_before = 0.0, 0.0
+    t = time.perf_counter()
+    with torch.no_grad():
+        for pos in range(steps):
+            tok = toks[:, pos:pos + 1]
+            a, _ = registry.decode(cfg, params, caches["ring"], tok, pos, rc)
+            b, _ = registry.decode(cfg, params, caches["full"], tok, pos, rc)
+            gap = float((a - b).abs().max() / b.abs().max())
+            if pos >= W:
+                worst_past = max(worst_past, gap)
+            else:
+                worst_before = max(worst_before, gap)
+    sync(torch, dev)
+    out = {"model": cfg.name, "layers": cfg.n_layers, "window": W,
+           "steps": steps, "compute": "float32",
+           "max_rel_gap_past_window": worst_past,
+           "max_rel_gap_before": worst_before,
+           "tolerance_rel": FAMILY_REL_TOL, "cache_bytes": nbytes,
+           "wall_s": time.perf_counter() - t}
+    emit("gemma3_ring_decode", **out)
+    if not (worst_past <= FAMILY_REL_TOL and worst_before <= FAMILY_REL_TOL):
+        raise AssertionError(f"ring decode differs from the full cache: "
+                             f"{out}")
+    return out
+
+
+def family_path(torch, fa, dev) -> dict:
+    """Phase 15: FAMILY_RUNS at full width, each freed before the next: a
+    bf16 prefill with its K3 launches by variant (zamba2's against "ref"
+    with a planted fault), the family's own decode check, and the f32
+    card-vs-CPU check."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, depth, B, S, want, cpu_depth in FAMILY_RUNS:
+        full = get_config(arch)
+        cfg = full if depth is None else full.scaled(n_layers=depth)
+        tag = arch.split("-")[0]
+        free(torch, dev)
+        t0 = time.perf_counter()
+        params = family_params(torch, cfg, dev)
+        rec = {"params": n_params(params),
+               "init_s": time.perf_counter() - t0}
+        if arch == "zamba2-7b":
+            rec["prefill"] = flash_vs_ref(torch, fa, cfg, params, dev, B, S,
+                                          tag=tag)
+        else:
+            rec["prefill"] = prefill_run(
+                torch, fa, cfg, params, dev,
+                prefill_batch(torch, cfg, dev, B, S, SEED + 9), "flash")[0]
+            emit(f"{tag}_prefill", **rec["prefill"])
+        got = {k: v for k, v in rec["prefill"]["variant_launches"].items()
+               if v}
+        if torch.device(dev).type == "cuda" and got != want:
+            raise AssertionError(f"{arch}: K3 launches {got}, want {want}")
+        if arch in ("whisper-tiny", "rwkv6-3b"):
+            rec["decode"] = continue_decode(torch, cfg, params, dev, B, S,
+                                            tag=tag)
+        elif arch == "gemma3-12b":
+            rec["decode"] = ring_decode(torch, cfg, params, dev)
+        if cpu_depth != cfg.n_layers:
+            del params
+            free(torch, dev)
+            cfg = full.scaled(n_layers=cpu_depth)
+            params = family_params(torch, cfg, dev, seed=SEED + 6)
+        rec["card_vs_cpu"] = card_vs_cpu(torch, cfg, params, dev, tag=tag)
+        del params
+        rec["wall_s"] = time.perf_counter() - t0
+        emit("family", model=arch, params=rec["params"],
+             prefill_wall_s=rec["prefill"]["wall_s"], variant_launches=got,
+             wall_s=rec["wall_s"])
+        out[arch] = rec
+    return out
+
+
 def first_flash_calls(torch, fa, ref, dev):
     """One short call of each wgmma instantiation, checked before anything
     heavier runs: a fault of the pipeline shows here in seconds."""
-    for D in (64, 128, 256):
+    for D in (64, 112, 128, 256):
         q, k, v = qkv(torch, 1, 2, 1, 300, 300, D, torch.bfloat16, D, dev)
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -1669,13 +2208,30 @@ def train(torch, fa, parity, ops, dev) -> dict:
     out = train_path(torch, fa, parity, ops, dev, tcfg)
     gc.collect()
     torch.cuda.empty_cache()
-    out["consistency"] = train_consistency(torch, tcfg, dev)
+    out["consistency"] = train_consistency(torch, tcfg.model, dev)
     emit("train", warm_step_s=out["warm_step_s"],
          tokens_per_s=out["tokens_per_s"], peak_gib=out["peak_gib"],
          save_s=out["save"]["wall_s"], resume_s=out["resume"]["wall_s"],
          restore_s=out["resume"]["restore_s"],
          host_peak_gib=host_peak_gib(), vtime_s=out["vtime_s"],
          launches=out["launches"] + out["resume"]["launches"])
+    return out
+
+
+def families(torch, fa, parity, ops, dev) -> dict:
+    """Phases 14 and 15, timed; the K3 launches of each path's prefill by
+    variant."""
+    t = time.perf_counter()
+    moe = moe_path(torch, fa, parity, ops, dev)
+    t14 = time.perf_counter() - t
+    fam = family_path(torch, fa, dev)
+    launches = {"phi3.5-moe": moe["prefill"]["variant_launches"]}
+    launches.update({k: v["prefill"]["variant_launches"]
+                     for k, v in fam.items()})
+    out = {"moe": moe, "family": fam, "launches": launches,
+           "phase14_s": t14, "phase15_s": time.perf_counter() - t - t14}
+    emit("families", launches=launches, phase14_s=out["phase14_s"],
+         phase15_s=out["phase15_s"], host_peak_gib=host_peak_gib())
     return out
 
 
@@ -1720,6 +2276,10 @@ def run(mode: str = "") -> int:
     if mode == "--entry-only":
         entry_points(torch, parity, ops, dev)
         return 0
+    if mode == "--families-only":
+        first_flash_calls(torch, fa, ref, dev)
+        families(torch, fa, parity, ops, dev)
+        return 0
     worst = check_kernel(torch, parity, ref, dev)
     large = check_large_rows(torch, parity, ref, dev)
     times = time_kernel(torch, parity, ref, ops, dev)
@@ -1747,8 +2307,9 @@ def run(mode: str = "") -> int:
     del params
     trained = train(torch, fa, parity, ops, dev)
     entry = entry_points(torch, parity, ops, dev)
+    fams = families(torch, fa, parity, ops, dev)
 
-    k4, fm = times[4], flash_times["main"]
+    k4, fm, fz = times[4], flash_times["main"], flash_times["zamba2_d112"]
     print(json.dumps({"kernels": [{
         "name": "xor_parity", "route": "cuda",
         "source": "src/repro_torch/csrc/xor_parity.cu",
@@ -1763,7 +2324,8 @@ def run(mode: str = "") -> int:
         "train_largest_call": trained["save"]["largest_call"],
         "train_shape": {k: large[k] for k in (
             "K", "N", "ms", "plain_ms", "bound_ms", "bound_by")},
-        "entry_launches": entry["launches"]}, {
+        "entry_launches": entry["launches"],
+        "moe_train_launches": fams["moe"]["trainer_launches"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
@@ -1773,7 +2335,12 @@ def run(mode: str = "") -> int:
         "ms": fm["ms"], "strided_ms": fm["strided_ms"],
         "plain_ms": fm["plain_ms"],
         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
-        "library_ms": fm["library_ms"]}]}), flush=True)
+        "library_ms": fm["library_ms"],
+        "family_variant_launches": fams["launches"],
+        "d112": {k: fz[k] for k in ("B", "H", "Hkv", "S", "D", "variant",
+                                    "ms", "strided_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}}
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1782,7 +2349,8 @@ def run(mode: str = "") -> int:
 
 
 if __name__ == "__main__":
-    modes = ("--flash-only", "--parity-only", "--train-only", "--entry-only")
+    modes = ("--flash-only", "--parity-only", "--train-only", "--entry-only",
+             "--families-only")
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
         sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:

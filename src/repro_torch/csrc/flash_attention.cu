@@ -27,7 +27,7 @@
 // of the loop), which skips what the TPU kernel skips with `pl.when`.
 // Three kernels, chosen by the wrapper's `variant(dtype, D)`:
 //
-//   * bfloat16, D in {64, 128, 256} (`flash_fwd_wgmma`), the model path.
+//   * bfloat16, D in {64, 112, 128, 256} (`flash_fwd_wgmma`), the model path.
 //     FlashAttention-3's shape: a block of 3 warpgroups owns 128 query
 //     rows.  What each choice does about the bound:
 //       - a producer warpgroup (one thread) keeps K/V tiles in flight by
@@ -44,6 +44,12 @@
 //         written;
 //       - KV tiles of 128 keys (64 at D=256, for registers and shared
 //         memory: 160 KB at D=128, 192 KB at D=256, one block an SM);
+//       - D=112 (zamba2's shared block) runs the D=128 pipeline: the
+//         tensor maps have an inner dimension of 112, so the second
+//         64-column box of every tile reads columns 112-127 as TMA's
+//         out-of-bounds zeros (nothing is padded or copied in device
+//         memory).  Q K^T takes the 7 k16 steps that hold data; P V runs at
+//         N=128, whose last 16 columns are 0 and are not stored;
 //       - the per-element mask runs only on tiles that cross the causal
 //         diagonal, the window edge or the end of the keys, as two
 //         compares a logit against per-row bounds (each register's column
@@ -451,17 +457,23 @@ constexpr int kBQ = 128;       // query rows a block: 2 consumers x 64
 constexpr int kThreads = 384;  // producer warpgroup + 2 consumers
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kPanelRow = 128; // bytes of one swizzled row: 64 bf16
+// columns of a tile in shared memory: D rounded up to whole 64-column
+// panels (112 -> 128, the rest TMA's zero fill)
+template <int D>
+__host__ __device__ constexpr int dp() {
+  return (D + 63) / 64 * 64;
+}
 template <int D>
 __host__ __device__ constexpr int bk() {
   return D == 256 ? 64 : 128;  // keys a tile
 }
 template <int D>
 __host__ __device__ constexpr int q_bytes() {
-  return kBQ * D * 2;
+  return kBQ * dp<D>() * 2;
 }
 template <int D>
 __host__ __device__ constexpr int kv_bytes() {
-  return bk<D>() * D * 2;  // one K or V tile
+  return bk<D>() * dp<D>() * 2;  // one K or V tile
 }
 template <int D>
 constexpr size_t smem_bytes() {
@@ -764,7 +776,8 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
                     const __grid_constant__ CUtensorMap tv, const Params p) {
   using namespace wg;
   constexpr int BK = bk<D>();
-  constexpr int kPanels = D / 64;
+  constexpr int DP = dp<D>();
+  constexpr int kPanels = DP / 64;
   constexpr int kQPanel = kBQ * kPanelRow;  // bytes of a 64-column panel
   constexpr int kKPanel = BK * kPanelRow;
 
@@ -835,9 +848,9 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     const float kMinusInf = __int_as_float(0xff800000);
     const uint32_t q_addr = smem_u32(Qs) + cw * 64 * kPanelRow;
 
-    float acc[D / 2];
+    float acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf;  // running max of the raw logits
     float l0 = 0.f, l1 = 0.f;          // this thread's share of the sums
 
@@ -849,7 +862,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       const uint32_t k_addr = smem_u32(Ks + s * kv_bytes<D>());
       const uint32_t v_addr = smem_u32(Vs + s * kv_bytes<D>());
 
-      // S = Q K^T (64 x BK) from shared memory
+      // S = Q K^T (64 x BK) from shared memory, over the D columns
       float sc[BK / 2];
       mbar_wait(&k_full[s], parity);
       wgmma_fence();
@@ -916,7 +929,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       l0 = l0 * al0 + rs0;
       l1 = l1 * al1 + rs1;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? al1 : al0;
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? al1 : al0;
 
       // P as the A fragments of the k16 steps of P V
       uint32_t pa[BK / 16][4];
@@ -933,7 +946,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<D>(acc, pa[kk], smem_desc(v_addr + kk * 16 * kPanelRow,
+        wgmma_rs<DP>(acc, pa[kk], smem_desc(v_addr + kk * 16 * kPanelRow,
                                            kKPanel));
       wgmma_commit();
       wgmma_wait_all();
@@ -944,6 +957,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 
     // epilogue: normalise, stage the bf16 rows in this warpgroup's own Q
     // rows (same swizzle), then 16-byte coalesced stores through o's strides
+    // (the first D columns: at D=112 the zero columns 112-127 stay behind)
 #pragma unroll
     for (int sh = 1; sh < 4; sh <<= 1) {
       l0 += __shfl_xor_sync(kFull, l0, sh);
@@ -1105,6 +1119,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 16: return launch_d<16>(p, variant, st);
     case 32: return launch_d<32>(p, variant, st);
     case 64: return launch_d<64>(p, variant, st);
+    case 112: return launch_d<112>(p, variant, st);
     case 128: return launch_d<128>(p, variant, st);
     case 256: return launch_d<256>(p, variant, st);
     default: return (int)cudaErrorInvalidValue;

@@ -12,8 +12,8 @@ a (B,S,H,D) q gets the (B,H,S,D) view of a (B,S,H,D) output.
 On CUDA tensors it launches a hand-written kernel of
 `csrc/flash_attention.cu` (on the current stream, without synchronising),
 the one `variant(dtype, head_dim)` names: "wgmma" (bfloat16, D >= 64: TMA
-and warpgroup MMA), "mma" (bfloat16, D < 64: mma.sync) or "simt"
-(float32 FMA).  On CPU tensors it computes the plain version,
+and warpgroup MMA; D=112 runs the D=128 pipeline on TMA's zero fill),
+"mma" (bfloat16, D < 64: mma.sync) or "simt" (float32 FMA).  On CPU tensors it computes the plain version,
 `ref.flash_attention_ref`.  There is no other route: a CUDA tensor that
 the kernel cannot take raises.
 
@@ -30,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 VARIANTS = ("simt", "mma", "wgmma")      # their codes in the C launcher
 
 LAUNCHES = 0

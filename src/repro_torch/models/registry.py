@@ -1,23 +1,19 @@
 """Family dispatch + analytic parameter counts.
 
-Only the transformer family is ported; rwkv6 and zamba2 raise
-NotImplementedError (ROADMAP Queue 1 item 5)."""
+`cache_logical` (sharding metadata) waits for multi-device work (ROADMAP
+Queue 1 item 6)."""
 from __future__ import annotations
 
 import math
 
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer, zamba2
 from repro_torch.models.config import ModelConfig
 
-FAMILY = {"transformer": transformer}
+FAMILY = {"transformer": transformer, "rwkv6": rwkv6, "zamba2": zamba2}
 
 
 def module(cfg: ModelConfig):
-    if cfg.family not in FAMILY:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP "
-            "Queue 1 item 5)")
     return FAMILY[cfg.family]
 
 
@@ -26,7 +22,12 @@ def param_defs(cfg: ModelConfig):
 
 
 def init_cache(cfg, batch_size, seq_len, dtype, windowed=False):
-    return module(cfg).init_cache(cfg, batch_size, seq_len, dtype, windowed)
+    """{name: (shape, dtype)}; `windowed` applies to the transformer
+    family only."""
+    if cfg.family == "transformer":
+        return module(cfg).init_cache(cfg, batch_size, seq_len, dtype,
+                                      windowed)
+    return module(cfg).init_cache(cfg, batch_size, seq_len, dtype)
 
 
 def forward(cfg, params, batch, rc, return_cache=False):

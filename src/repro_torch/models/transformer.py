@@ -1,20 +1,23 @@
-"""Decoder-only transformer: the dense family of `repro.models.transformer`.
+"""Unified decoder/encoder-decoder transformer: `repro.models.transformer`
+in PyTorch.
 
-Covers yi-9b, gemma3-12b (5:1 local:global), qwen3-4b (qk_norm) and
-qwen2-7b (qkv bias).  Parameters are a nested dict of tensors keyed like
+Covers yi-9b, gemma3-12b (5:1 local:global), qwen3-4b (qk_norm), qwen2-7b
+(qkv bias), paligemma-3b (patch-prefix VLM), phi3.5-moe and dbrx (MoE,
+`models/moe.py`) and whisper-tiny (encoder-decoder over stub frame
+embeddings).  Parameters are a nested dict of tensors keyed like
 `param_defs`, each layer's weights stacked on a leading axis, so the two
 packages exchange them (`models/convert.py`).  The reference's layer scan
 is a Python loop over that axis; with `rc.remat == "full"` each layer
 is recomputed in the backward pass (`torch.utils.checkpoint`), as the
 reference's `_maybe_remat` does.  Each layer gets its window as an int;
-the flash kernel is taken only when every layer has the same window, as
-in the reference, where a per-layer window is traced.  The kernel is
-forward only, as the reference's is: attention that needs a gradient
-raises on the flash path.
-
-Not ported yet (they raise NotImplementedError): MoE layers, the
-encoder-decoder and patch-prefix models, and the ring-buffered windowed
-decode cache (ROADMAP Queue 1 items 3 and 4).
+the flash kernel is taken only without a prefix and when every layer has
+the same window, as in the reference, where a per-layer window is traced
+(so paligemma's prefix, whisper's encoder and gemma3's local:global mix
+take the plain attention).  The kernel is forward only, as the
+reference's is: attention that needs a gradient raises on the flash
+path.  Decode caches are written in place (the reference returns updated
+copies); `init_cache(windowed=True)` gives gemma3-style mixes a ring
+buffer of `sliding_window` slots for each local layer (`decode_windowed`).
 """
 from __future__ import annotations
 
@@ -26,26 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
-
-_NOT_PORTED = {
-    "moe": "MoE layers are not ported yet (ROADMAP Queue 1 item 3)",
-    "enc_dec": "encoder-decoder models are not ported yet (ROADMAP Queue 1 "
-               "item 4)",
-    "prefix": "patch-prefix models are not ported yet (ROADMAP Queue 1 "
-              "item 4)",
-    "windowed": "the ring-buffered windowed decode cache (decode_windowed) "
-                "is not ported yet (ROADMAP Queue 1 item 4)",
-}
-
-
-def _dense_only(cfg: ModelConfig):
-    if cfg.is_moe:
-        raise NotImplementedError(_NOT_PORTED["moe"])
-    if cfg.enc_layers:
-        raise NotImplementedError(_NOT_PORTED["enc_dec"])
-    if cfg.n_patches:
-        raise NotImplementedError(_NOT_PORTED["prefix"])
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -96,8 +81,7 @@ def _mlp_defs(cfg: ModelConfig, n: int):
 
 
 def param_defs(cfg: ModelConfig):
-    """The reference's parameter tree (MoE, encoder and patch leaves
-    included, so parameter counts agree), as ParamDefs."""
+    """The reference's parameter tree, as ParamDefs."""
     d, V = cfg.d_model, cfg.vocab
     n = cfg.n_layers
     defs = {
@@ -107,14 +91,14 @@ def param_defs(cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = L.ParamDef((d, V), (None, "model"))
-    if cfg.enc_layers:
+    if cfg.enc_layers:  # whisper-style encoder + cross attention
         ne = cfg.enc_layers
         defs["enc_layers"] = {"attn": _attn_defs(cfg, ne),
                               "mlp": _mlp_defs(cfg, ne)}
         defs["enc_final_ln"] = L.ParamDef((d,), (None,), init="zeros")
         defs["layers"]["xattn"] = _attn_defs(cfg, n, cross=True)
         defs["dec_pos"] = L.ParamDef((32768, d), (None, None), init="zeros")
-    if cfg.n_patches:
+    if cfg.n_patches:  # paligemma: projection for stub patch embeddings
         defs["patch_proj"] = L.ParamDef((d, d), (None, "model"))
     return defs
 
@@ -216,6 +200,20 @@ def attn_block(cfg, p, x, window: int, prefix_len, rc, positions=None,
     return _attn_out(cfg, p, out, x, cdt), (k, v)
 
 
+def cross_attn_block(cfg, p, x, enc_kv, rc):
+    """Attention of the decoder over the encoder's K/V (B, F, Hkv, Dh),
+    every frame visible."""
+    cdt = _dtype(rc.compute_dtype)
+    B, S, d = x.shape
+    H, Dh = cfg.n_heads, cfg.head_dim
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    q = (h @ p["wq"].to(cdt)).reshape(B, S, H, Dh)
+    k, v = enc_kv
+    mask = torch.ones((1, S, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = L.attention_scores(q, k, v, mask, dtype=cdt)
+    return _attn_out(cfg, p, out, x, cdt)
+
+
 def decode_attn_block(cfg, p, x, window, cache_k, cache_v, pos: int, rc):
     """One-token decode. cache_[kv]: (B, Smax, Hkv, Dh), written in place
     at `pos` (the reference returns updated copies).  Returns
@@ -235,10 +233,13 @@ def decode_attn_block(cfg, p, x, window, cache_k, cache_v, pos: int, rc):
 
 
 def mlp_block(cfg, p, x, rc):
-    if cfg.is_moe:
-        raise NotImplementedError(_NOT_PORTED["moe"])
+    """Returns (x, aux): the MoE load-balance loss, 0 for a dense MLP."""
     cdt = _dtype(rc.compute_dtype)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    if cfg.is_moe:
+        B, S, d = x.shape
+        y, aux = moe_lib.moe_ffn(cfg, p, h.reshape(B * S, d), rc)
+        return x + y.reshape(B, S, d), aux
     g = h @ p["wg"].to(cdt)
     u = h @ p["wu"].to(cdt)
     hidden = L.act_fn(cfg.act)(g) * u
@@ -247,6 +248,35 @@ def mlp_block(cfg, p, x, rc):
 
 
 # ----------------------------------------------------------------- stacks
+
+def _remat(rc) -> bool:
+    """Recompute each layer in the backward pass (only when a backward
+    can follow)."""
+    return rc.remat == "full" and torch.is_grad_enabled()
+
+
+def _run(fn, remat: bool, *args):
+    """fn(*args), keeping only its inputs for the backward when `remat`."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def encoder_forward(cfg, params, frames, rc):
+    """Whisper-style encoder over stub frame embeddings (B, F, d):
+    bidirectional (the whole input is the prefix), so never flash."""
+    x = frames.to(_dtype(rc.compute_dtype))
+
+    def body(x, pl):
+        x, _ = attn_block(cfg, pl["attn"], x, 0, x.shape[1], rc)
+        x, _ = mlp_block(cfg, pl["mlp"], x, rc)
+        return x
+
+    remat = _remat(rc)
+    for i in range(cfg.enc_layers):
+        x = _run(body, remat, x, _layer(params["enc_layers"], i))
+    return L.rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+
 
 def _embed(cfg, params, tokens, rc):
     """Gathers the rows, then casts them (the reference casts the table
@@ -258,39 +288,67 @@ def _embed(cfg, params, tokens, rc):
     return x
 
 
-def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
-    """Train/prefill forward. batch: tokens (B,S).
-
-    Returns (logits_source_x, prefix_len, cache, enc_kv, aux)."""
-    _dense_only(cfg)
-    x = _embed(cfg, params, batch["tokens"], rc)
+def _inputs_with_prefix(cfg, params, tokens, batch, rc):
+    """Token embeddings behind paligemma's projected patch prefix, or
+    with whisper's decoder positions added.  Returns (x, prefix_len)."""
+    x = _embed(cfg, params, tokens, rc)
     prefix_len = 0
+    if cfg.n_patches:
+        cdt = x.dtype
+        patches = batch["patches"].to(cdt) @ params["patch_proj"].to(cdt)
+        x = torch.cat([patches, x], dim=1)
+        prefix_len = cfg.n_patches
+    if cfg.enc_layers:
+        S = x.shape[1]
+        x = x + params["dec_pos"][:S].to(x.dtype)[None]
+    return x, prefix_len
+
+
+def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
+    """Train/prefill forward. batch: tokens (B,S) [+ patches (B,P,d) /
+    frames (B,F,d)].
+
+    Returns (logits_source_x, prefix_len, cache, enc_out, aux): the cache
+    holds each layer's K/V over all S + P positions and, with an encoder,
+    each layer's cross K/V over the F frames; aux sums the layers' MoE
+    load-balance losses."""
+    x, prefix_len = _inputs_with_prefix(cfg, params, batch["tokens"], batch,
+                                        rc)
     w_arr = windows(cfg)
     uniform = bool((w_arr == w_arr[0]).all())   # enables the flash kernel
-    ks, vs, aux = [], [], []
+    enc_out = (encoder_forward(cfg, params, batch["frames"], rc)
+               if cfg.enc_layers else None)
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
 
     def body(x, pl, window):
         x, (k, v) = attn_block(cfg, pl["attn"], x, window, prefix_len, rc,
                                uniform_window=uniform)
+        xk = xv = None
+        if enc_out is not None:         # this layer's cross K/V
+            cdt = x.dtype
+            B, F, _ = enc_out.shape
+            xk = (enc_out @ pl["xattn"]["wk"].to(cdt)).reshape(B, F, Hkv, Dh)
+            xv = (enc_out @ pl["xattn"]["wv"].to(cdt)).reshape(B, F, Hkv, Dh)
+            x = cross_attn_block(cfg, pl["xattn"], x, (xk, xv), rc)
         x, a = mlp_block(cfg, pl["mlp"], x, rc)
-        return x, k, v, a
+        return x, k, v, xk, xv, a
 
-    remat = rc.remat == "full" and torch.is_grad_enabled()
+    remat = _remat(rc)
+    kept, aux = [], []
     for i in range(cfg.n_layers):
-        pl = _layer(params["layers"], i)
-        if remat:           # keep only the layer's input for the backward
-            x, k, v, a = checkpoint(body, x, pl, int(w_arr[i]),
-                                    use_reentrant=False)
-        else:
-            x, k, v, a = body(x, pl, int(w_arr[i]))
+        x, k, v, xk, xv, a = _run(body, remat, x, _layer(params["layers"], i),
+                                  int(w_arr[i]))
         aux.append(a)
         if return_cache:
-            ks.append(k)
-            vs.append(v)
+            kept.append((k, v, xk, xv))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} \
-        if return_cache else None
-    return x, prefix_len, cache, None, torch.stack(aux).sum()
+    cache = None
+    if return_cache:
+        ks, vs, xks, xvs = zip(*kept)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if cfg.enc_layers:
+            cache["xk"], cache["xv"] = torch.stack(xks), torch.stack(xvs)
+    return x, prefix_len, cache, enc_out, torch.stack(aux).sum()
 
 
 def unembed(cfg, params, x, rc):
@@ -302,32 +360,101 @@ def unembed(cfg, params, x, rc):
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype,
                windowed: bool = False):
-    """KV-cache spec: {"k": (shape, dtype), "v": (shape, dtype)}, shapes
-    (L, B, seq_len, Hkv, Dh)."""
-    if windowed and cfg.sliding_window and cfg.global_every \
-            and cfg.n_layers % cfg.global_every == 0:
-        raise NotImplementedError(_NOT_PORTED["windowed"])
-    if cfg.enc_layers:
-        raise NotImplementedError(_NOT_PORTED["enc_dec"])
+    """KV-cache spec: {name: (shape, dtype)}.  "k"/"v" (L, B, seq_len, Hkv,
+    Dh), with an encoder "xk"/"xv" (L, B, enc_frames, Hkv, Dh).
+
+    windowed=True (gemma3-style local:global mixes, when global_every
+    divides n_layers): each group of `global_every` layers keeps its local
+    layers' K/V in a ring of W = min(sliding_window, seq_len) slots
+    ("k_loc"/"v_loc" (ng, global_every - 1, B, W, Hkv, Dh)) and its global
+    layer's over the whole context ("k_glob"/"v_glob" (ng, B, seq_len,
+    Hkv, Dh))."""
     n, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    return {"k": ((n, batch_size, seq_len, Hkv, Dh), dtype),
-            "v": ((n, batch_size, seq_len, Hkv, Dh), dtype)}
+    if windowed and cfg.sliding_window and cfg.global_every \
+            and n % cfg.global_every == 0:
+        ng = n // cfg.global_every
+        nloc = cfg.global_every - 1
+        W = min(cfg.sliding_window, seq_len)
+        return {
+            "k_loc": ((ng, nloc, batch_size, W, Hkv, Dh), dtype),
+            "v_loc": ((ng, nloc, batch_size, W, Hkv, Dh), dtype),
+            "k_glob": ((ng, batch_size, seq_len, Hkv, Dh), dtype),
+            "v_glob": ((ng, batch_size, seq_len, Hkv, Dh), dtype),
+        }
+    c = {"k": ((n, batch_size, seq_len, Hkv, Dh), dtype),
+         "v": ((n, batch_size, seq_len, Hkv, Dh), dtype)}
+    if cfg.enc_layers:
+        c["xk"] = ((n, batch_size, cfg.enc_frames, Hkv, Dh), dtype)
+        c["xv"] = ((n, batch_size, cfg.enc_frames, Hkv, Dh), dtype)
+    return c
+
+
+def decode_attn_block_ring(cfg, p, x, window, cache_k, cache_v, pos: int,
+                           rc):
+    """Sliding-window decode against a RING buffer of W = cache_k.shape[1]
+    slots, written in place at slot pos mod W.  Slot s holds absolute
+    position pos - ((pos - s) mod W); the mask only rejects slots whose
+    position is still negative (cold start)."""
+    cdt = _dtype(rc.compute_dtype)
+    B = x.shape[0]
+    W = cache_k.shape[1]
+    q, k, v = _qkv(cfg, p, x, cdt)
+    posv = torch.full((B, 1), pos, device=x.device)
+    if cfg.rope_theta:
+        q = L.rope(q, posv, cfg.rope_theta)
+        k = L.rope(k, posv, cfg.rope_theta)
+    slot = pos % W
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    slots = torch.arange(W, device=x.device)
+    abs_pos = pos - torch.remainder(pos - slots, W)
+    mask = (abs_pos >= 0)[None, :]
+    out = L.attention_scores(q, cache_k, cache_v, mask[None], dtype=cdt)
+    return _attn_out(cfg, p, out, x, cdt), (cache_k, cache_v)
+
+
+def decode_windowed(cfg: ModelConfig, params, cache, token, pos: int, rc):
+    """Decode for local:global mixes with ring-buffered local caches: the
+    layers run as groups of `global_every`, its local layers on their
+    rings, then its global layer on the full cache.  The cache is written
+    in place and returned."""
+    x = _embed(cfg, params, token, rc)
+    per = cfg.global_every
+    W = cfg.sliding_window
+    for g in range(cfg.n_layers // per):
+        for j in range(per - 1):
+            pl = _layer(params["layers"], g * per + j)
+            x, _ = decode_attn_block_ring(cfg, pl["attn"], x, W,
+                                          cache["k_loc"][g, j],
+                                          cache["v_loc"][g, j], pos, rc)
+            x, _ = mlp_block(cfg, pl["mlp"], x, rc)
+        pl = _layer(params["layers"], g * per + per - 1)
+        x, _ = decode_attn_block(cfg, pl["attn"], x, 0, cache["k_glob"][g],
+                                 cache["v_glob"][g], pos, rc)
+        x, _ = mlp_block(cfg, pl["mlp"], x, rc)
+    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return unembed(cfg, params, x, rc), cache
 
 
 def decode(cfg: ModelConfig, params, cache, token, pos: int, rc):
     """One-token decode step. token (B,1) int; pos an int.
 
-    cache: {"k": (L,B,Smax,Hkv,Dh), "v": ...}, updated in place and
-    returned.  Returns (logits (B,1,V), cache)."""
+    cache: {"k": (L,B,Smax,Hkv,Dh), "v": ..., ["xk", "xv"]} or the
+    windowed layout {"k_loc", "v_loc", "k_glob", "v_glob"}, updated in
+    place and returned.  Returns (logits (B,1,V), cache)."""
     if "k_loc" in cache:
-        raise NotImplementedError(_NOT_PORTED["windowed"])
-    _dense_only(cfg)
+        return decode_windowed(cfg, params, cache, token, pos, rc)
     x = _embed(cfg, params, token, rc)
+    if cfg.enc_layers:
+        x = x + params["dec_pos"][pos].to(x.dtype)[None, None]
     win = windows(cfg)
     for i in range(cfg.n_layers):
         pl = _layer(params["layers"], i)
         x, _ = decode_attn_block(cfg, pl["attn"], x, int(win[i]),
                                  cache["k"][i], cache["v"][i], pos, rc)
+        if cfg.enc_layers:
+            x = cross_attn_block(cfg, pl["xattn"], x,
+                                 (cache["xk"][i], cache["xv"][i]), rc)
         x, _ = mlp_block(cfg, pl["mlp"], x, rc)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x, rc), cache

@@ -2,7 +2,10 @@
 
 A wave of requests is left-padded to a common prompt length and decoded in
 lockstep, one decode step per token for the whole batch, prompt included:
-the logic of `repro.train.serve`, on the card by default.
+the logic of `repro.train.serve`, on the card by default.  Every family
+decodes through `registry.decode`; an encoder-decoder decodes against the
+zero cross cache that `init_cache` gives, as the reference's server does
+(it runs no encoder).
 """
 from __future__ import annotations
 

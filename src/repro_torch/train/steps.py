@@ -19,6 +19,44 @@ from repro_torch.models.layers import (tree_get, tree_items, tree_map,
 from repro_torch.optim import adamw
 
 
+# ----------------------------------------------------------------- batches
+
+def batch_shapes(cfg: ModelConfig, rc: RunConfig, with_labels: bool):
+    """{name: (shape, dtype)} of one global batch, as the reference's
+    `batch_structs`: tokens (and labels) int32, with an encoder the stub
+    frame embeddings and with a patch prefix the stub patch embeddings,
+    both bfloat16; the lead is (nmb, B/nmb) with microbatches."""
+    B, S = rc.global_batch, rc.seq_len
+    nmb = rc.num_microbatches
+    lead = (nmb, B // nmb) if nmb > 1 else (B,)
+    out = {"tokens": ((*lead, S), torch.int32)}
+    if with_labels:
+        out["labels"] = ((*lead, S), torch.int32)
+    if cfg.enc_layers:
+        out["frames"] = ((*lead, cfg.enc_frames, cfg.d_model), torch.bfloat16)
+    if cfg.n_patches:
+        out["patches"] = ((*lead, cfg.n_patches, cfg.d_model),
+                          torch.bfloat16)
+    return out
+
+
+def make_batch(cfg: ModelConfig, rc: RunConfig, generator: torch.Generator,
+               with_labels=True):
+    """A random batch on the generator's device: tokens uniform over the
+    vocabulary, frames and patches standard normal (drawn in f32, then
+    cast)."""
+    dev = generator.device
+    out = {}
+    for name, (shape, dtype) in batch_shapes(cfg, rc, with_labels).items():
+        if dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab, shape, generator=generator,
+                                      device=dev, dtype=torch.int32)
+        else:
+            out[name] = torch.randn(shape, generator=generator, device=dev,
+                                    dtype=torch.float32).to(dtype)
+    return out
+
+
 def _on(dev: torch.device, params):
     """Raise unless the parameters lie on `dev`."""
     got = params["embed"].device
@@ -145,10 +183,12 @@ def build_train_step(cfg: ModelConfig, rc: RunConfig,
 # ----------------------------------------------------------------- prefill
 
 def build_prefill_step(cfg: ModelConfig, rc: RunConfig, device="cuda"):
-    """step(params, batch) -> (next_tok (B,1) int32, cache {"k","v"}).
+    """step(params, batch) -> (next_tok (B,1) int32, cache).
 
-    Runs the full-sequence forward over batch["tokens"] (B,S), keeping
-    each layer's K/V, and takes the argmax of the last position's
+    Runs the full-sequence forward over batch["tokens"] (B,S) (and the
+    batch's frames or patches), keeping the family's cache (a transformer
+    keeps each layer's K/V over S + n_patches positions and, with an
+    encoder, its cross K/V), and takes the argmax of the last position's
     logits."""
     dev = resolve_device(device)
 
@@ -165,10 +205,24 @@ def build_prefill_step(cfg: ModelConfig, rc: RunConfig, device="cuda"):
     return step
 
 
+def decode_cache(cfg: ModelConfig, rc: RunConfig, device="cuda"):
+    """The serve step's zero cache for rc.global_batch sequences, as the
+    reference's `decode_cache_structs`: seq_len (+ n_patches for a
+    transformer) positions, in the compute dtype (the recurrent states in
+    f32), ring-buffered local layers with `rc.windowed_cache`."""
+    dev = resolve_device(device)
+    S = rc.seq_len + (cfg.n_patches if cfg.family == "transformer" else 0)
+    spec = registry.init_cache(cfg, rc.global_batch, S,
+                               getattr(torch, rc.compute_dtype),
+                               windowed=rc.windowed_cache)
+    return {k: torch.zeros(shape, dtype=dt, device=dev)
+            for k, (shape, dt) in spec.items()}
+
+
 def build_serve_step(cfg: ModelConfig, rc: RunConfig, device="cuda"):
     """step(params, cache, token (B,1), pos) -> (next_tok (B,1) int32,
-    cache): one-token decode against a seq_len KV cache, written in
-    place."""
+    cache): one-token decode against a cache from `decode_cache` (or a
+    prefill's), written in place."""
     dev = resolve_device(device)
 
     def step(params, cache, token, pos):

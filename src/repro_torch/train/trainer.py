@@ -11,8 +11,9 @@ the Lustre substrate, in PyTorch on the cluster's device.
     recovered by a fresh Trainer and `resume()`.
 
 There is no mesh: the state lives whole on one device (elastic resume
-across meshes is ROADMAP Queue 1 item 6).  Encoder frames and patch
-prefixes are not ported (item 4) and raise NotImplementedError.
+across meshes is ROADMAP Queue 1 item 6).  Every family of the registry
+trains; a model with an encoder or a patch prefix gets each step's stub
+frames or patches from `side_inputs`.
 """
 from __future__ import annotations
 
@@ -50,10 +51,6 @@ class Trainer:
     def __init__(self, cluster: LustreCluster, cfg: TrainerConfig):
         """The trainer runs on the cluster's device (the card, by
         default)."""
-        if cfg.model.enc_layers or cfg.model.n_patches:
-            raise NotImplementedError(
-                "encoder frames and patch prefixes are not ported yet "
-                "(ROADMAP Queue 1 item 4)")
         self.cluster = cluster
         self.cfg = cfg
         self.device = cluster.device
@@ -100,7 +97,23 @@ class Trainer:
         if nmb > 1:
             b = {k: v.reshape(nmb, v.shape[0] // nmb, *v.shape[1:])
                  for k, v in b.items()}
-        return {k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
+        b = {k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
+        return {**b, **self.side_inputs(step)}
+
+    def side_inputs(self, step: int) -> dict:
+        """Step `step`'s stub encoder frames or patch embeddings, at the
+        batch's shapes (`steps.batch_shapes`), standard normal in bf16
+        from a generator seeded with the step.  (The reference draws them
+        with jax.random.normal(PRNGKey(step)), whose numbers PyTorch
+        cannot reproduce: a cross test hands the reference's arrays in
+        through this method.)"""
+        gen = torch.Generator(self.device).manual_seed(step)
+        shapes = steps_mod.batch_shapes(self.cfg.model, self.cfg.rc,
+                                        with_labels=False)
+        return {name: torch.randn(shape, generator=gen, device=self.device,
+                                  dtype=torch.float32).to(dtype)
+                for name, (shape, dtype) in shapes.items()
+                if name in ("frames", "patches")}
 
     # ---------------------------------------------------------------- loop
     def run(self, n_steps: int | None = None, *, fail_at: dict | None = None

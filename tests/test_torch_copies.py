@@ -35,13 +35,14 @@ Allowed to differ, and therefore not listed in COPIED:
     from the port's tree by `python -m repro_torch.tools.lint
     src/repro_torch --write-inventory` (tests/test_torch_lint.py holds it
     to what the analyzer regenerates);
-  * `models/layers.py`, `models/transformer.py`, `models/registry.py` -
-    written anew in PyTorch: parameters are nested dicts of tensors from a
-    torch.Generator, the layer scan is a loop, the decode cache is written
-    in place, the flash path calls the port's kernel, the sharding
-    constraints (identity without a mesh) are dropped, and MoE,
-    encoder-decoder, patch-prefix, windowed-cache decode and the rwkv6 /
-    zamba2 families raise NotImplementedError;
+  * `models/layers.py`, `models/transformer.py`, `models/moe.py`,
+    `models/rwkv6.py`, `models/zamba2.py`, `models/registry.py` - written
+    anew in PyTorch: parameters are nested dicts of tensors from a
+    torch.Generator, the layer and time scans are loops, decode caches are
+    written in place, the flash path calls the port's kernel, the sharding
+    constraints (identity without a mesh) are dropped, the MoE combine sums
+    each token's slots instead of a scatter-add, and the shard_map MoE
+    dispatch and `cache_logical` (mesh code) wait for multi-device work;
   * `models/convert.py` - the numpy bridge for parameter trees and whole
     trainer states (the reference has no such module);
   * `train/steps.py`, `train/serve.py` - the train, prefill and serve

@@ -216,10 +216,32 @@ def test_variant_is_the_designed_kernel(dtype, D):
     ("float16", 128, TypeError), ("float64", 64, TypeError),
     ("int32", 128, TypeError), ("bfloat16", 48, ValueError),
     ("float32", 8, ValueError), ("bfloat16", 512, ValueError),
+    ("bfloat16", 96, ValueError), ("float32", 120, ValueError),
 ])
 def test_variant_raises_on_other_inputs(dtype, D, error):
     with pytest.raises(error):
         fa.variant(getattr(torch, dtype), D)
+
+
+@pytest.mark.parametrize("window", [0, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_112_matches_pallas(pallas, dtype, window):
+    """zamba2-7b's head_dim: the Pallas kernel (interpret mode) takes any
+    D; the port's plain version and its entry point on CPU tensors (the
+    (B,H,S,D) views of (B,S,H,D) tensors, as zamba2's shared block passes
+    them) agree with it at D=112."""
+    arrays = _inputs((2, 4, 128, 112), (2, 4, 128, 112), 112 + window)
+    want = _reference(pallas, arrays, dtype, causal=True, window=window,
+                      block_q=64, block_k=64)
+    plain = _port(ref.flash_attention_ref, arrays, dtype, causal=True,
+                  window=window)
+    assert np.abs(plain - want).max() < TOL[dtype]
+    q, k, v = _bshd_views(arrays, dtype)
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    assert fa.variant(q.dtype, 112) == ("wgmma" if dtype == "bfloat16"
+                                        else "simt")
+    assert out.transpose(1, 2).is_contiguous()
+    assert np.abs(out.float().numpy() - want).max() < TOL[dtype]
 
 
 def _strided(kind):
@@ -349,6 +371,10 @@ CARD_CASES = [
     (1, 8, 2, 1000, 4096, 64, 0, True),
     (1, 8, 2, 4096, 4096, 128, 1024, True),
     (1, 4, 2, 4096, 4096, 256, 0, True),
+    # D=112 (zamba2's shared block): the D=128 pipeline on TMA's zero fill
+    (1, 4, 4, 100, 100, 112, 0, True),
+    (2, 4, 4, 300, 300, 112, 64, False),
+    (1, 32, 32, 1024, 1024, 112, 0, True),
 ]
 
 
@@ -369,7 +395,7 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, B, H, Hkv,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [32, 128, 256])
+@pytest.mark.parametrize("D", [32, 112, 128, 256])
 def test_flash_kernel_strided_views_on_card(cuda_device, dtype, D):
     arrays = _inputs((2, 8, 300, D), (2, 2, 300, D), D)
     q, k, v = (t.to(cuda_device) for t in _bshd_views(arrays, dtype))

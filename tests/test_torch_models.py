@@ -1,5 +1,9 @@
-"""The port's dense transformer, serving steps and server against the JAX
-reference.
+"""The port's models, serving steps and server against the JAX reference.
+
+The dense transformer in detail; the twins of tests/test_archs.py for
+every architecture are in test_torch_archs.py, and the other families in
+detail in test_torch_moe.py, test_torch_families.py and
+test_torch_recurrent.py.
 
 Parameters come from `repro.models.layers.tree_init` and cross to the port
 through the numpy bridge (`repro_torch.models.convert`); token batches are
@@ -259,10 +263,6 @@ def test_param_counts_match_reference(arch):
     from repro.models.registry import count_params
     from repro_torch.configs import get_config
     cfg, want = get_config(arch), ref_config(arch)
-    if cfg.family != "transformer":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TR.count_params(cfg)
-        return
     assert cfg.n_params == TR.count_params(cfg) == count_params(want)
     assert cfg.n_active_params == count_params(want, active_only=True)
 
@@ -274,25 +274,6 @@ def test_qwen3_4b_full_width_parameter_count():
                 TL.tree_items(TR.param_defs(cfg)))
     assert total == 4_411_424_256        # 17.6 GB in float32
     assert cfg.n_params == total - 151936 * 2560
-
-
-@pytest.mark.parametrize("arch", ["phi3.5-moe", "whisper-tiny",
-                                  "paligemma-3b", "rwkv6-3b", "zamba2-7b"])
-def test_unported_models_raise(arch):
-    tcfg = port_smoke(arch)
-    _, trc = _rcs(seq_len=8, global_batch=1, kind="prefill")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        defs = TR.param_defs(tcfg)
-        params = TL.tree_init(defs, torch.Generator().manual_seed(0))
-        TR.forward(tcfg, params, {"tokens": torch.zeros((1, 8),
-                                                        dtype=torch.long)},
-                   trc)
-
-
-def test_windowed_cache_raises():
-    tcfg = port_smoke("gemma3-12b")
-    with pytest.raises(NotImplementedError, match="decode_windowed"):
-        TR.init_cache(tcfg, 1, 16, torch.float32, windowed=True)
 
 
 def test_tree_init_shapes_and_statistics():

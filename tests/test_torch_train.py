@@ -180,10 +180,39 @@ def test_train_step_with_flash_attention_raises():
         Trainer(cpu_cluster(), cfg).run(1)
 
 
-def test_trainer_rejects_models_not_ported():
-    cfg = dataclasses.replace(mkcfg(), model=get_smoke_config("whisper-tiny"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Trainer(cpu_cluster(), cfg)
+@pytest.mark.parametrize("arch", ["phi3.5-moe", "whisper-tiny",
+                                  "paligemma-3b", "rwkv6-3b", "zamba2-7b"])
+def test_every_family_trains_checkpoints_and_resumes(arch):
+    """MoE, encoder-decoder, patch-prefix, RWKV-6 and Zamba2 models each
+    train 4 steps with finite losses (frames or patches from
+    `side_inputs`), checkpoint at 2 and 4, and a resumed trainer holds the
+    state byte for byte and takes the next step with the same loss."""
+    cfg = dataclasses.replace(mkcfg(steps=4, every=2),
+                              model=get_smoke_config(arch))
+    tr = Trainer(cpu_cluster(), cfg)
+    metrics = tr.run(4)
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+               for m in metrics)
+    assert tr.ckpt.steps() == [2, 4]
+    back = Trainer.resume(tr.cluster, cfg)
+    same_state((tr.params, tr.opt_state), (back.params, back.opt_state))
+    assert back.run(1)[-1]["loss"] == tr.run(1)[-1]["loss"]
+
+
+def test_side_inputs_are_seeded_by_the_step():
+    """frames (whisper) and patches (paligemma): bf16 normal of the
+    reference's shapes, the same for the same step, other for another."""
+    for arch, name, n in (("whisper-tiny", "frames", 16),
+                          ("paligemma-3b", "patches", 8)):
+        cfg = dataclasses.replace(mkcfg(), model=get_smoke_config(arch))
+        tr = Trainer(cpu_cluster(), cfg)
+        a, b = tr._batch(3), tr._batch(3)
+        c = tr.side_inputs(4)[name]
+        assert a[name].dtype == torch.bfloat16
+        assert tuple(a[name].shape) == (4, n, cfg.model.d_model)
+        assert torch.equal(a[name], b[name]) and not torch.equal(
+            a[name], c)
+        assert abs(float(a[name].float().std()) - 1.0) < 0.1
 
 
 def test_build_step_dispatches_on_kind():
@@ -230,9 +259,10 @@ def fresh_ids(mods):
         yield
 
 
-def pair(mesh, parity=True, **rc):
+def pair(mesh, parity=True, arch="qwen3-4b", **rc):
     """A reference and a port Trainer on identical fresh clusters, the
-    port's started from the reference's initial state."""
+    port's started from the reference's initial state; with an encoder or
+    a patch prefix, the port's frames or patches are the reference's."""
     kw = {"seq_len": 32, "global_batch": 4, "kind": "train",
           "attn_impl": "ref", **rc}
     common = dict(n_steps=6, ckpt_every=3, dataset_seqs=128, n_writers=2,
@@ -240,14 +270,20 @@ def pair(mesh, parity=True, **rc):
     with fresh_ids((ref_dlm, ref_llog, ref_rpc)):
         rcl = RefCluster(osts=3, mdses=1, clients=2, commit_interval=64)
         ref = RefTrainer(rcl, RefTrainerConfig(
-            model=ref_smoke("qwen3-4b"), rc=RefRunConfig(**kw), **common),
+            model=ref_smoke(arch), rc=RefRunConfig(**kw), **common),
             mesh=mesh).init_state()
     with fresh_ids((port_dlm, port_llog, port_rpc)):
         pcl = LustreCluster(osts=3, mdses=1, clients=2, commit_interval=64,
                             device="cpu")
         port = Trainer(pcl, TrainerConfig(
-            model=get_smoke_config("qwen3-4b"), rc=RunConfig(**kw),
-            **common))
+            model=get_smoke_config(arch), rc=RunConfig(**kw), **common))
+
+    def side_inputs(step):                   # the reference's
+        b = ref._batch(step)
+        return {k: torch.from_numpy(np.asarray(b[k], np.float32)).to(
+            torch.bfloat16) for k in ("frames", "patches") if k in b}
+
+    port.side_inputs = side_inputs
     port.params, port.opt_state = convert.state_from_numpy(
         {"params": jax.tree.map(np.asarray, ref.params),
          "opt": jax.tree.map(np.asarray, ref.opt_state)}, "cpu")
@@ -283,6 +319,31 @@ def test_trainer_matches_reference_trainer(ref_mesh, rc_kw, rel, state_rel):
     _, rm = ref.ckpt.restore(6)
     assert pm == rm
     assert pm["leaves"]["opt.step"]["dtype"] == "int32"
+    assert port.cluster.now == ref.cluster.now
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe", "whisper-tiny",
+                                  "paligemma-3b"])
+def test_family_trainer_matches_reference_trainer(ref_mesh, arch):
+    """The port Trainer against the reference Trainer on an MoE, an
+    encoder-decoder and a patch-prefix model, f32, 6 steps from one
+    state, the reference's frames and patches handed to the port: loss
+    and grad_norm of each step within 1e-4 relative, the trained state
+    within F32_STATE, the same checkpoints and virtual time."""
+    ref, port = pair(ref_mesh, arch=arch, compute_dtype="float32")
+    init = ref_state(ref)
+    with fresh_ids((ref_dlm, ref_llog, ref_rpc)):
+        want = ref.run(6)
+    with fresh_ids((port_dlm, port_llog, port_rpc)):
+        got = port.run(6)
+    for w, g in zip(want, got, strict=True):
+        assert g["loss"] == pytest.approx(w["loss"], rel=F32_REL)
+        assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=F32_REL)
+    gaps = state_gaps(init, ref_state(ref),
+                      convert.state_to_numpy(port.params, port.opt_state))
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] < F32_STATE, (worst, gaps[worst])
+    assert port.ckpt.steps() == ref.ckpt.steps() == [3, 6]
     assert port.cluster.now == ref.cluster.now
 
 
