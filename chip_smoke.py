@@ -2184,6 +2184,249 @@ def family_path(torch, fa, dev) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 16: multi-device
+
+# a one-rank NCCL process group and a (1, 1) ("data", "model") mesh on the
+# card: the sharded paths run on DTensors of CUDA tensors there (the card
+# is one; NCCL refuses two ranks on it)
+PAR_MESH = (1, 1)
+# sharded vs unsharded phase-12 training: losses relative (bit-equal
+# expected: each local op is the unsharded one on the same tensors)
+PAR_TRAIN_STEPS = 2
+PAR_TRAIN_REL = 1e-6
+# the sharded MoE against the global dispatch, f32, at depth 1
+PAR_MOE_T = 4096
+PAR_MOE_TOL = 1e-6
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def par_trainer(torch, tcfg, dev, mesh):
+    """A phase-12 Trainer (no parity: phase 12 holds it) run
+    PAR_TRAIN_STEPS, on `mesh` or unsharded: (trainer, metrics, step
+    seconds, peak GiB)."""
+    from repro_torch.core import LustreCluster
+    from repro_torch.train.trainer import Trainer
+
+    cluster = LustreCluster(osts=4, mdses=1, clients=2, commit_interval=64,
+                            device=dev, max_cached_mb=0)
+    tr = Trainer(cluster, tcfg, mesh=mesh)
+    tr.init_state()
+    real, step_s = tr.step_fn, []
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    tr.step_fn = timed
+    torch.cuda.reset_peak_memory_stats()
+    metrics = tr.run(PAR_TRAIN_STEPS)
+    return tr, metrics, step_s, torch.cuda.max_memory_allocated() / 2**30
+
+
+def par_train(torch, dev, mesh) -> dict:
+    """Phase 16 a: phase 12's training (qwen3-4b full width, 2 layers,
+    4 x 4096 tokens in 4 microbatches, bf16 compute, "auto" attention),
+    unsharded and through Trainer(mesh=...) with fsdp "on", from one seed
+    on the same batches; then the sharded trainer's checkpoint restored
+    by Trainer.resume(mesh=None), byte for byte."""
+    import dataclasses
+
+    from repro_torch.models.layers import tree_full, tree_items
+    from repro_torch.train.trainer import Trainer
+
+    base = train_config()
+    tcfg = dataclasses.replace(
+        base, parity=False, ckpt_every=PAR_TRAIN_STEPS,
+        rc=dataclasses.replace(base.rc, fsdp="on"))
+    plain, want, plain_s, plain_peak = par_trainer(torch, tcfg, dev, None)
+    del plain
+    free(torch, dev)
+    sharded, got, step_s, peak = par_trainer(torch, tcfg, dev, mesh)
+    gaps = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            for a, b in zip(got, want)]
+    t = time.perf_counter()
+    back = Trainer.resume(sharded.cluster, tcfg, mesh=None)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    saved = dict(tree_items(tree_full(sharded._state_tree())))
+    restored = dict(tree_items(back._state_tree()))
+    differ = [".".join(k) for k in saved if k not in restored
+              or saved[k].dtype != restored[k].dtype
+              or not torch.equal(saved[k].to(restored[k].device),
+                                 restored[k])]
+    wg = sharded.params["layers"]["mlp"]["wg"]
+    out = {"mesh": list(PAR_MESH), "fsdp": tcfg.rc.fsdp,
+           "wg_placements": str(wg.placements),
+           "losses": [m["loss"] for m in got],
+           "plain_losses": [m["loss"] for m in want],
+           "grad_norms": [m["grad_norm"] for m in got],
+           "plain_grad_norms": [m["grad_norm"] for m in want],
+           "loss_rel_gaps": gaps, "tolerance_rel": PAR_TRAIN_REL,
+           "bit_equal": [m["loss"] for m in got] == [m["loss"] for m in
+                                                    want],
+           "step_s": step_s, "plain_step_s": plain_s,
+           "peak_gib": peak, "plain_peak_gib": plain_peak,
+           "resume_s": resume_s, "resume_step": back.step,
+           "leaves_compared": len(saved), "leaves_differ": differ}
+    emit("parallel_train", **out)
+    del sharded, back, saved, restored
+    free(torch, dev)
+    if not max(gaps) <= PAR_TRAIN_REL or differ or \
+            out["resume_step"] != PAR_TRAIN_STEPS:
+        raise AssertionError(f"sharded training: {out}")
+    return out
+
+
+def par_prefill(torch, fa, dev, mesh) -> dict:
+    """Phase 16 b: phase 9's flash prefill (qwen3-4b, 36 layers, B=2 x
+    4096, bf16 compute) unsharded and on the mesh (parameters placed by
+    steps.param_specs): K3 launches once a layer through local_map and
+    the final hidden states are bit-equal."""
+    from repro_torch.models import layers, registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import build_prefill_step, param_specs
+
+    cfg, params = model_params(torch, dev)
+    tokens = prefill_tokens(torch, cfg, dev)
+    rc = RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B,
+                   kind="prefill", attn_impl="flash")
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        p = params if m is None else layers.tree_distribute(
+            params, m, param_specs(cfg, rc, m))
+        step = build_prefill_step(cfg, rc, device=dev, mesh=m)
+        walls = []
+        for _ in range(2):                  # the second run warm
+            fa.LAUNCHES = 0
+            with Spy(torch, registry, "forward",
+                     keep=lambda out: out[0]) as fwd:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                tok, cache = step(p, {"tokens": tokens})
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+        x = fwd.returned[-1]
+        runs[name] = {"x": x.full_tensor() if m is not None else x,
+                      "launches": fa.LAUNCHES, "wall_s": walls,
+                      "next": (tok.full_tensor() if m is not None
+                               else tok).reshape(-1).tolist()}
+        del cache, p
+    equal = torch.equal(runs["plain"]["x"], runs["mesh"]["x"])
+    out = {"launches": runs["mesh"]["launches"],
+           "plain_launches": runs["plain"]["launches"],
+           "bit_equal": equal, "next_tokens": runs["mesh"]["next"],
+           "plain_next_tokens": runs["plain"]["next"],
+           "wall_s": runs["mesh"]["wall_s"],
+           "plain_wall_s": runs["plain"]["wall_s"]}
+    emit("parallel_prefill", **out)
+    del params, runs
+    free(torch, dev)
+    if out["launches"] != cfg.n_layers or not equal:
+        raise AssertionError(f"sharded flash prefill: {out}")
+    return out
+
+
+def par_moe(torch, dev, mesh) -> dict:
+    """Phase 16 c: phi3.5-moe at full width, depth 1, f32: the shard-local
+    dispatch (moe_ffn_sharded, rc.shard_moe_tokens) on the mesh against
+    the global dispatch on PAR_MOE_T tokens from the seed: y, aux and the
+    dropped assignments."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.config import RunConfig
+
+    cfg = get_config(MOE_MODEL).scaled(n_layers=1)
+    params = family_params(torch, cfg, dev, seed=SEED + 16)
+    p = {k: v[0] for k, v in params["layers"]["mlp"].items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = torch.randn((PAR_MOE_T, cfg.d_model), generator=gen, device=dev)
+    rc = RunConfig(seq_len=PAR_MOE_T, global_batch=1, kind="prefill",
+                   compute_dtype="float32", shard_moe_tokens=True)
+    with torch.no_grad():
+        want_stats, got_stats = {}, {}
+        y0, aux0 = moe._moe_ffn_global(cfg, p, x, rc, want_stats)
+        y, aux = moe.moe_ffn_sharded(cfg, p, x, rc, mesh, got_stats)
+        torch.cuda.synchronize()
+        y, aux = y.full_tensor(), aux.full_tensor()
+    out = {"tokens": PAR_MOE_T, "max_abs_err": float((y - y0).abs().max()),
+           "aux": float(aux), "global_aux": float(aux0),
+           "dropped": got_stats["dropped"],
+           "global_dropped": want_stats["dropped"],
+           "tolerance": PAR_MOE_TOL}
+    emit("parallel_moe", **out)
+    del params, p, x, y, y0
+    free(torch, dev)
+    if not (out["max_abs_err"] <= PAR_MOE_TOL and abs(
+            out["aux"] - out["global_aux"]) <= PAR_MOE_TOL
+            and out["dropped"] == out["global_dropped"]):
+        raise AssertionError(f"sharded MoE: {out}")
+    return out
+
+
+def par_roofline(prefill, train, smi) -> dict:
+    """Phase 16 d: the qwen3-4b prefill (B=2 x 4096, 36 layers, bf16,
+    "flash", whose kernel the count sees as its plain version) and the
+    phase-12 train step, counted on fake tensors at those shapes; beside
+    their warm times on the card, the first MFU figures."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models.config import RunConfig
+    from repro_torch.tools import roofline
+
+    cells = {"prefill": (get_config(MODEL), RunConfig(
+                 seq_len=PREFILL_S, global_batch=PREFILL_B, kind="prefill",
+                 attn_impl="flash"), prefill["plain_wall_s"][-1]),
+             "train": (train_config().model, train_config().rc,
+                       train["plain_step_s"][-1])}
+    out = {"nvidia_smi": smi}
+    for name, (cfg, rc, seconds) in cells.items():
+        rec = trace_cell(cfg, rc)
+        r, h = rec["roofline"], rec["hlo_cost"]
+        out[name] = {"flops": h["flops"], "traffic_bytes": h["traffic_bytes"],
+                     "model_flops": r["model_flops"],
+                     "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                     "collective_s": r["collective_s"],
+                     "measured_s": seconds,
+                     "mfu": roofline.mfu(cfg, rc, seconds),
+                     "count_s": rec["compile_s"]}
+    print(json.dumps({"roofline": out}), flush=True)
+    return out
+
+
+def parallel(torch, fa, dev, smi) -> dict:
+    """Phase 16: the multi-device paths on a one-rank NCCL mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", PAR_MESH,
+                                mesh_dim_names=("data", "model"))
+        train = par_train(torch, dev, mesh)
+        prefill = par_prefill(torch, fa, dev, mesh)
+        moe_out = par_moe(torch, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    roof = par_roofline(prefill, train, smi)
+    out = {"train": train, "prefill": prefill, "moe": moe_out,
+           "roofline": roof, "phase16_s": time.perf_counter() - t0}
+    emit("parallel", phase16_s=out["phase16_s"],
+         mesh_launches=prefill["launches"], host_peak_gib=host_peak_gib())
+    return out
+
+
 def first_flash_calls(torch, fa, ref, dev):
     """One short call of each wgmma instantiation, checked before anything
     heavier runs: a fault of the pipeline shows here in seconds."""
@@ -2255,7 +2498,8 @@ def run(mode: str = "") -> int:
     built = _build.build({"--flash-only": ["flash_attention"],
                           "--parity-only": ["xor_parity"],
                           "--train-only": ["xor_parity"],
-                          "--entry-only": ["xor_parity"]}.get(
+                          "--entry-only": ["xor_parity"],
+                          "--parallel-only": ["flash_attention"]}.get(
                               mode, ["xor_parity", "flash_attention"]))
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
@@ -2279,6 +2523,10 @@ def run(mode: str = "") -> int:
     if mode == "--families-only":
         first_flash_calls(torch, fa, ref, dev)
         families(torch, fa, parity, ops, dev)
+        return 0
+    if mode == "--parallel-only":
+        first_flash_calls(torch, fa, ref, dev)
+        parallel(torch, fa, dev, smi)
         return 0
     worst = check_kernel(torch, parity, ref, dev)
     large = check_large_rows(torch, parity, ref, dev)
@@ -2308,6 +2556,7 @@ def run(mode: str = "") -> int:
     trained = train(torch, fa, parity, ops, dev)
     entry = entry_points(torch, parity, ops, dev)
     fams = families(torch, fa, parity, ops, dev)
+    par = parallel(torch, fa, dev, smi)
 
     k4, fm, fz = times[4], flash_times["main"], flash_times["zamba2_d112"]
     print(json.dumps({"kernels": [{
@@ -2337,6 +2586,7 @@ def run(mode: str = "") -> int:
         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
         "library_ms": fm["library_ms"],
         "family_variant_launches": fams["launches"],
+        "mesh_launches": par["prefill"]["launches"],
         "d112": {k: fz[k] for k in ("B", "H", "Hkv", "S", "D", "variant",
                                     "ms", "strided_ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
@@ -2350,7 +2600,7 @@ def run(mode: str = "") -> int:
 
 if __name__ == "__main__":
     modes = ("--flash-only", "--parity-only", "--train-only", "--entry-only",
-             "--families-only")
+             "--families-only", "--parallel-only")
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
         sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:

@@ -17,11 +17,13 @@ and the same bytes on disk:
     leaves: `_read_object`);
   * elastic restore: the manifest keeps shapes and dtypes.
 
-Leaves may be torch tensors or numpy arrays; a tensor on the card comes
-to the host once (`.detach().cpu()`).  numpy has no bfloat16, so a
-bfloat16 tensor is stored by its raw bytes under the dtype name
-"bfloat16", as the reference stores its bfloat16 arrays, and is restored
-as a bfloat16 tensor.  Every other leaf is restored as a numpy array.
+Leaves may be torch tensors (DTensors too: gathered whole) or numpy
+arrays; a tensor on the card comes to the host once (`.detach().cpu()`).
+`restore` hands back whole leaves; a sharded trainer places them.
+numpy has no bfloat16, so a bfloat16 tensor is stored by its raw bytes
+under the dtype name "bfloat16", as the reference stores its bfloat16
+arrays, and is restored as a bfloat16 tensor.  Every other leaf is
+restored as a numpy array.
 
 The manager calls only client methods and this package's LOV helpers,
 so it also runs on the reference package's clients (with an explicit
@@ -34,6 +36,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.osc import PAGE_SIZE
 from repro_torch.fsio.client import FsError, LustreClient
@@ -62,7 +65,12 @@ def _unflatten(skeleton, values: dict):
 
 def _host(leaf) -> tuple[np.ndarray, str]:
     """A leaf as a host array and its manifest dtype name.  A bfloat16
-    tensor becomes an int16 view of its bytes named "bfloat16"."""
+    tensor becomes an int16 view of its bytes named "bfloat16".  A
+    DTensor (a sharded trainer's state) is gathered whole first, so its
+    bytes are those of a single-device save of the same values (every
+    rank saves, leaf by leaf in one order, so the gathers pair up)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:

@@ -1,7 +1,4 @@
-"""Family dispatch + analytic parameter counts.
-
-`cache_logical` (sharding metadata) waits for multi-device work (ROADMAP
-Queue 1 item 6)."""
+"""Family dispatch + analytic parameter counts."""
 from __future__ import annotations
 
 import math
@@ -28,6 +25,11 @@ def init_cache(cfg, batch_size, seq_len, dtype, windowed=False):
         return module(cfg).init_cache(cfg, batch_size, seq_len, dtype,
                                       windowed)
     return module(cfg).init_cache(cfg, batch_size, seq_len, dtype)
+
+
+def cache_logical(cfg):
+    """Each cache entry's logical spec (`shardings.resolve_spec`)."""
+    return module(cfg).cache_logical()
 
 
 def forward(cfg, params, batch, rc, return_cache=False):

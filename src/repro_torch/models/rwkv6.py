@@ -21,6 +21,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import shardings as sh
+from repro_torch.parallel.shardings import constrain
 
 LORA = 64
 GN_EPS = 64e-5          # the per-head group norm's epsilon
@@ -78,12 +80,14 @@ def _wkv_seq(r, k, v, w, u, state):
     r, k, v, w = (a.float() for a in (r, k, v, w))
     S = state.float()
     ys = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,Dk,Dv)
-        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                               S + u[..., None] * kv))
-        S = w[:, t, :, :, None] * S + kv
-    return torch.stack(ys, dim=1), S
+    n = r.shape[1]
+    with L.loop("rwkv6.time", n) as trips:
+        for t in range(trips):
+            kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # (B,H,Dk,Dv)
+            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                   S + u[..., None] * kv))
+            S = w[:, t, :, :, None] * S + kv
+    return torch.stack(ys * (n // trips), dim=1), S
 
 
 def _time_mix(cfg, p, x, x_prev, state, rc):
@@ -94,21 +98,21 @@ def _time_mix(cfg, p, x, x_prev, state, rc):
     hs = _shift(h, x_prev)
     mu = p["mu"].to(cdt)
     xr, xk, xv, xg, xw = (_mix(h, hs, mu[i]) for i in range(5))
-    r = (xr @ p["wr"].to(cdt)).reshape(B, S, H, Dh)
-    k = (xk @ p["wk"].to(cdt)).reshape(B, S, H, Dh)
-    v = (xv @ p["wv"].to(cdt)).reshape(B, S, H, Dh)
+    r = L.split_heads(xr @ p["wr"].to(cdt), H, Dh)
+    k = L.split_heads(xk @ p["wk"].to(cdt), H, Dh)
+    v = L.split_heads(xv @ p["wv"].to(cdt), H, Dh)
     g = F.silu(xg @ p["wg"].to(cdt))
     dw = torch.tanh(xw @ p["lora_a"].to(cdt)) @ p["lora_b"].to(cdt)
-    w = torch.exp(-torch.exp(p["w0"].float() + dw.float())).reshape(
-        B, S, H, Dh)
+    w = L.split_heads(torch.exp(-torch.exp(p["w0"].float() + dw.float())),
+                      H, Dh)
     y, state = _wkv_seq(r, k, v, w, p["u"].float(), state)
     # group norm per head
     y = y.to(cdt)
     y = y * torch.rsqrt(torch.mean(torch.square(y.float()), dim=-1,
                                    keepdim=True) + GN_EPS).to(cdt)
-    y = y.reshape(B, S, d) * (1.0 + p["gn"].to(cdt))
+    y = L.merge_heads(y) * (1.0 + p["gn"].to(cdt))
     out = (y * g) @ p["wo"].to(cdt)
-    return x + out, h[:, -1], state
+    return constrain(x + out, ("batch", None, None)), h[:, -1], state
 
 
 def _channel_mix(cfg, p, x, x_prev, rc):
@@ -118,22 +122,25 @@ def _channel_mix(cfg, p, x, x_prev, rc):
     mu = p["mu"].to(cdt)
     xk, xr = _mix(h, hs, mu[0]), _mix(h, hs, mu[1])
     k = torch.square(F.relu(xk @ p["wk"].to(cdt)))
+    k = constrain(k, ("batch", None, "model"))
     v = k @ p["wv"].to(cdt)
     r = torch.sigmoid(xr @ p["wr"].to(cdt))
-    return x + r * v, h[:, -1]
+    return constrain(x + r * v, ("batch", None, None)), h[:, -1]
 
 
 def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
     """Returns (x, 0, cache, None, 0): the cache holds each layer's last
     normalised inputs ("x_att", "x_ffn") and wkv state ("state")."""
     cdt = getattr(torch, rc.compute_dtype)
-    x = params["embed"][batch["tokens"]].to(cdt)
+    x = constrain(sh.unshard(params["embed"])[batch["tokens"]].to(cdt),
+                  ("batch", None, None))
     B, S, d = x.shape
     H, Dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
     state0 = torch.zeros((B, H, Dh, Dh), dtype=torch.float32,
                          device=x.device)
 
-    def body(x, pl):
+    def body(x, stacked, i):
+        pl = L.layer(stacked, i)
         x, xa, st = _time_mix(cfg, pl["att"], x, None, state0, rc)
         x, xf = _channel_mix(cfg, pl["ffn"], x, None, rc)
         return x, xa, xf, st
@@ -141,13 +148,12 @@ def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
     remat = rc.remat == "full" and torch.is_grad_enabled()
     kept = []
     for i in range(cfg.n_layers):
-        pl = L.tree_map(lambda a: a[i], params["layers"])
-        out = (checkpoint(body, x, pl, use_reentrant=False) if remat
-               else body(x, pl))
+        out = (checkpoint(body, x, params["layers"], i, use_reentrant=False)
+               if remat else body(x, params["layers"], i))
         x = out[0]
         if return_cache:
             kept.append(out[1:])
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = L.rms_norm(x, sh.unshard(params["final_ln"]), cfg.norm_eps)
     cache = None
     if return_cache:
         xa, xf, st = (torch.stack(t) for t in zip(*kept))
@@ -165,18 +171,25 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype):
             "x_ffn": ((n, batch_size, d), dtype)}
 
 
+def cache_logical():
+    return {"state": (None, "batch", None, None, "model2"),
+            "x_att": (None, "batch", None),
+            "x_ffn": (None, "batch", None)}
+
+
 def decode(cfg: ModelConfig, params, cache, token, pos: int, rc):
     """One-token step: each layer's state and shifted inputs advance in
     place.  Returns (logits (B,1,V), cache)."""
     cdt = getattr(torch, rc.compute_dtype)
-    x = params["embed"][token].to(cdt)      # (B,1,d)
+    x = sh.unshard(params["embed"])[token].to(cdt)      # (B,1,d)
     for i in range(cfg.n_layers):
-        pl = L.tree_map(lambda a: a[i], params["layers"])
+        pl = L.layer(params["layers"], i)
         x, xa, st = _time_mix(cfg, pl["att"], x, cache["x_att"][i],
                               cache["state"][i], rc)
         x, xf = _channel_mix(cfg, pl["ffn"], x, cache["x_ffn"][i], rc)
         cache["x_att"][i] = xa
         cache["x_ffn"][i] = xf
         cache["state"][i] = st
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x @ params["lm_head"].to(cdt), cache
+    x = L.rms_norm(x, sh.unshard(params["final_ln"]), cfg.norm_eps)
+    logits = x @ sh.unshard(params["lm_head"]).to(cdt)
+    return constrain(logits, ("batch", None, "model")), cache

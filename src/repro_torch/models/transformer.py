@@ -18,6 +18,12 @@ reference's is: attention that needs a gradient raises on the flash
 path.  Decode caches are written in place (the reference returns updated
 copies); `init_cache(windowed=True)` gives gemma3-style mixes a ring
 buffer of `sliding_window` slots for each local layer (`decode_windowed`).
+
+Under a mesh (`parallel/shardings.py`) parameters and activations are
+DTensors: `constrain` pins the activations where the reference pins
+them, each layer gathers its FSDP-sharded weights inside its remat region
+(`layers.layer`), and the flash kernel runs on each device's own batch
+rows and heads through `local_map`.
 """
 from __future__ import annotations
 
@@ -25,12 +31,16 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import shardings as sh
+from repro_torch.parallel.shardings import constrain
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -115,37 +125,33 @@ def windows(cfg: ModelConfig) -> np.ndarray:
     return w
 
 
-def _layer(stacked, i: int):
-    """Layer i's parameters: views into the stacked tensors."""
-    return L.tree_map(lambda a: a[i], stacked)
-
-
 # ----------------------------------------------------------------- blocks
 
 def _qkv(cfg, p, x, cdt):
     B, S, d = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = h @ p["wq"].to(cdt)
-    k = h @ p["wk"].to(cdt)
-    v = h @ p["wv"].to(cdt)
+    q = L.matmul(h, p["wq"].to(cdt))
+    k = L.matmul(h, p["wk"].to(cdt))
+    v = L.matmul(h, p["wv"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
-    q = q.reshape(B, S, H, Dh)
-    k = k.reshape(B, S, Hkv, Dh)
-    v = v.reshape(B, S, Hkv, Dh)
+    q = L.split_heads(q, H, Dh)
+    k = L.split_heads(k, Hkv, Dh)
+    v = L.split_heads(v, Hkv, Dh)
     if "qn" in p:
         q = L.rms_norm(q, p["qn"], cfg.norm_eps)
         k = L.rms_norm(k, p["kn"], cfg.norm_eps)
+    q = constrain(q, ("batch", None, "model", None))
     return q, k, v
 
 
 def _attn_out(cfg, p, out, x, cdt):
-    B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return x + out @ p["wo"].to(cdt)
+    out = L.merge_heads(out)
+    return constrain(x + L.matmul(out, p["wo"].to(cdt)),
+                     ("batch", None, None))
 
 
 def _chunked_attention(q, k, v, window, prefix_len, chunk, cdt,
@@ -177,19 +183,15 @@ def attn_block(cfg, p, x, window: int, prefix_len, rc, positions=None,
     if cfg.rope_theta:
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
+    k = constrain(k, ("batch", None, "model", None))
+    v = constrain(v, ("batch", None, "model", None))
     if rc.attn_impl == "flash" and not prefix_len and uniform_window:
         if torch.is_grad_enabled() and q.requires_grad:
             raise NotImplementedError(
                 "the flash-attention kernel is forward only, as the "
                 "reference's is: train with attn_impl 'ref', 'chunked' or "
                 "'auto'")
-        # the hand-written kernel (kernels/flash_attention.py) reads the
-        # (B,S,H,D) activations through their (B,H,S,D) views and writes
-        # its output in q's order, (B,S,H,D): no copy on either side
-        out = kops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window)
-        out = out.transpose(1, 2).to(cdt)
+        out = _flash(q, k, v, window).to(cdt)
     elif rc.attn_impl == "chunked" or (rc.attn_impl == "auto" and S > 2048):
         chunk = next((c for c in (rc.attn_chunk, 512, 256, 128, 64)
                       if c <= S and S % c == 0), S)
@@ -200,6 +202,34 @@ def attn_block(cfg, p, x, window: int, prefix_len, rc, positions=None,
     return _attn_out(cfg, p, out, x, cdt), (k, v)
 
 
+def _flash(q, k, v, window: int):
+    """The hand-written kernel (kernels/flash_attention.py) on (B,S,H,D)
+    activations: it reads them through their (B,H,S,D) views and writes
+    its output in q's order, (B,S,H,D), with no copy on either side.
+
+    On DTensors it runs through `local_map`: each device takes its own
+    batch rows over the dp axes and its own heads over "model" (heads stay
+    whole when the model axis does not divide both H and Hkv, so that
+    every local query head finds its KV head), and launches the kernel on
+    those."""
+    def run(q, k, v):
+        return kops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window).transpose(1, 2)
+
+    if not isinstance(q, DTensor):
+        return run(q, k, v)
+    mesh = q.device_mesh
+    spec = sh.resolve_spec(mesh, ("batch", None, "model", None), q.shape)
+    if sh.resolve_spec(mesh, ("batch", None, "model", None),
+                       k.shape)[2] is None:
+        spec = (spec[0], None, None, None)
+    pl = sh.placements(mesh, spec)
+    # one output: its placements as a list (a tuple reads as several)
+    return local_map(run, out_placements=list(pl), in_placements=(pl, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def cross_attn_block(cfg, p, x, enc_kv, rc):
     """Attention of the decoder over the encoder's K/V (B, F, Hkv, Dh),
     every frame visible."""
@@ -207,7 +237,7 @@ def cross_attn_block(cfg, p, x, enc_kv, rc):
     B, S, d = x.shape
     H, Dh = cfg.n_heads, cfg.head_dim
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = (h @ p["wq"].to(cdt)).reshape(B, S, H, Dh)
+    q = L.split_heads(L.matmul(h, p["wq"].to(cdt)), H, Dh)
     k, v = enc_kv
     mask = torch.ones((1, S, k.shape[1]), dtype=torch.bool, device=x.device)
     out = L.attention_scores(q, k, v, mask, dtype=cdt)
@@ -238,13 +268,22 @@ def mlp_block(cfg, p, x, rc):
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     if cfg.is_moe:
         B, S, d = x.shape
-        y, aux = moe_lib.moe_ffn(cfg, p, h.reshape(B * S, d), rc)
-        return x + y.reshape(B, S, d), aux
-    g = h @ p["wg"].to(cdt)
-    u = h @ p["wu"].to(cdt)
+        # the dispatch may split the tokens where the batch could not be
+        # split (T divides the dp axes, B does not): its output, and its
+        # input's gradient, go back to the input's layout, which folds
+        # into (B, S)
+        hf = L.grad_as_forward(h.reshape(B * S, d))
+        y, aux = moe_lib.moe_ffn(cfg, p, hf, rc)
+        if isinstance(y, DTensor):
+            y = y.redistribute(hf.device_mesh, hf.placements)
+        return constrain(x + y.reshape(B, S, d), ("batch", None, None)), aux
+    g = L.matmul(h, p["wg"].to(cdt))
+    u = L.matmul(h, p["wu"].to(cdt))
     hidden = L.act_fn(cfg.act)(g) * u
-    y = hidden @ p["wd"].to(cdt)
-    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+    hidden = constrain(hidden, ("batch", None, "model"))
+    y = L.matmul(hidden, p["wd"].to(cdt))
+    return (constrain(x + y, ("batch", None, None)),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # ----------------------------------------------------------------- stacks
@@ -267,25 +306,26 @@ def encoder_forward(cfg, params, frames, rc):
     bidirectional (the whole input is the prefix), so never flash."""
     x = frames.to(_dtype(rc.compute_dtype))
 
-    def body(x, pl):
+    def body(x, stacked, i):
+        pl = L.layer(stacked, i)
         x, _ = attn_block(cfg, pl["attn"], x, 0, x.shape[1], rc)
         x, _ = mlp_block(cfg, pl["mlp"], x, rc)
         return x
 
     remat = _remat(rc)
     for i in range(cfg.enc_layers):
-        x = _run(body, remat, x, _layer(params["enc_layers"], i))
-    return L.rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+        x = _run(body, remat, x, params["enc_layers"], i)
+    return L.rms_norm(x, sh.unshard(params["enc_final_ln"]), cfg.norm_eps)
 
 
 def _embed(cfg, params, tokens, rc):
     """Gathers the rows, then casts them (the reference casts the table
     first: the same values, without a second copy of the table)."""
     cdt = _dtype(rc.compute_dtype)
-    x = params["embed"][tokens].to(cdt)
+    x = sh.unshard(params["embed"])[tokens].to(cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
-    return x
+    return constrain(x, ("batch", None, None))
 
 
 def _inputs_with_prefix(cfg, params, tokens, batch, rc):
@@ -295,12 +335,13 @@ def _inputs_with_prefix(cfg, params, tokens, batch, rc):
     prefix_len = 0
     if cfg.n_patches:
         cdt = x.dtype
-        patches = batch["patches"].to(cdt) @ params["patch_proj"].to(cdt)
+        patches = L.matmul(batch["patches"].to(cdt),
+                           sh.unshard(params["patch_proj"]).to(cdt))
         x = torch.cat([patches, x], dim=1)
         prefix_len = cfg.n_patches
     if cfg.enc_layers:
         S = x.shape[1]
-        x = x + params["dec_pos"][:S].to(x.dtype)[None]
+        x = x + sh.unshard(params["dec_pos"])[:S].to(x.dtype)[None]
     return x, prefix_len
 
 
@@ -320,15 +361,18 @@ def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
                if cfg.enc_layers else None)
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
 
-    def body(x, pl, window):
+    def body(x, stacked, i, window):
+        pl = L.layer(stacked, i)
         x, (k, v) = attn_block(cfg, pl["attn"], x, window, prefix_len, rc,
                                uniform_window=uniform)
         xk = xv = None
         if enc_out is not None:         # this layer's cross K/V
             cdt = x.dtype
             B, F, _ = enc_out.shape
-            xk = (enc_out @ pl["xattn"]["wk"].to(cdt)).reshape(B, F, Hkv, Dh)
-            xv = (enc_out @ pl["xattn"]["wv"].to(cdt)).reshape(B, F, Hkv, Dh)
+            xk = L.split_heads(L.matmul(enc_out, pl["xattn"]["wk"].to(cdt)),
+                               Hkv, Dh)
+            xv = L.split_heads(L.matmul(enc_out, pl["xattn"]["wv"].to(cdt)),
+                               Hkv, Dh)
             x = cross_attn_block(cfg, pl["xattn"], x, (xk, xv), rc)
         x, a = mlp_block(cfg, pl["mlp"], x, rc)
         return x, k, v, xk, xv, a
@@ -336,12 +380,12 @@ def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
     remat = _remat(rc)
     kept, aux = [], []
     for i in range(cfg.n_layers):
-        x, k, v, xk, xv, a = _run(body, remat, x, _layer(params["layers"], i),
+        x, k, v, xk, xv, a = _run(body, remat, x, params["layers"], i,
                                   int(w_arr[i]))
         aux.append(a)
         if return_cache:
             kept.append((k, v, xk, xv))
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = L.rms_norm(x, sh.unshard(params["final_ln"]), cfg.norm_eps)
     cache = None
     if return_cache:
         ks, vs, xks, xvs = zip(*kept)
@@ -353,9 +397,9 @@ def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
 
 def unembed(cfg, params, x, rc):
     cdt = _dtype(rc.compute_dtype)
-    head = (params["embed"].to(cdt).T if cfg.tie_embeddings
-            else params["lm_head"].to(cdt))
-    return x @ head
+    head = (sh.unshard(params["embed"]).to(cdt).T if cfg.tie_embeddings
+            else sh.unshard(params["lm_head"]).to(cdt))
+    return constrain(L.matmul(x, head), ("batch", None, "model"))
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype,
@@ -387,6 +431,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype,
         c["xk"] = ((n, batch_size, cfg.enc_frames, Hkv, Dh), dtype)
         c["xv"] = ((n, batch_size, cfg.enc_frames, Hkv, Dh), dtype)
     return c
+
+
+def cache_logical():
+    # seq dim falls back to the data axes ("batch2") when batch cannot
+    # claim them (e.g. long_500k with global_batch=1)
+    base = (None, "batch", "batch2", "model", "model2")
+    return {"k": base, "v": base, "xk": base, "xv": base,
+            "k_loc": (None, None, "batch", None, "model", "model2"),
+            "v_loc": (None, None, "batch", None, "model", "model2"),
+            "k_glob": base, "v_glob": base}
 
 
 def decode_attn_block_ring(cfg, p, x, window, cache_k, cache_v, pos: int,
@@ -423,16 +477,16 @@ def decode_windowed(cfg: ModelConfig, params, cache, token, pos: int, rc):
     W = cfg.sliding_window
     for g in range(cfg.n_layers // per):
         for j in range(per - 1):
-            pl = _layer(params["layers"], g * per + j)
+            pl = L.layer(params["layers"], g * per + j)
             x, _ = decode_attn_block_ring(cfg, pl["attn"], x, W,
                                           cache["k_loc"][g, j],
                                           cache["v_loc"][g, j], pos, rc)
             x, _ = mlp_block(cfg, pl["mlp"], x, rc)
-        pl = _layer(params["layers"], g * per + per - 1)
+        pl = L.layer(params["layers"], g * per + per - 1)
         x, _ = decode_attn_block(cfg, pl["attn"], x, 0, cache["k_glob"][g],
                                  cache["v_glob"][g], pos, rc)
         x, _ = mlp_block(cfg, pl["mlp"], x, rc)
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = L.rms_norm(x, sh.unshard(params["final_ln"]), cfg.norm_eps)
     return unembed(cfg, params, x, rc), cache
 
 
@@ -446,15 +500,15 @@ def decode(cfg: ModelConfig, params, cache, token, pos: int, rc):
         return decode_windowed(cfg, params, cache, token, pos, rc)
     x = _embed(cfg, params, token, rc)
     if cfg.enc_layers:
-        x = x + params["dec_pos"][pos].to(x.dtype)[None, None]
+        x = x + sh.unshard(params["dec_pos"])[pos].to(x.dtype)[None, None]
     win = windows(cfg)
     for i in range(cfg.n_layers):
-        pl = _layer(params["layers"], i)
+        pl = L.layer(params["layers"], i)
         x, _ = decode_attn_block(cfg, pl["attn"], x, int(win[i]),
                                  cache["k"][i], cache["v"][i], pos, rc)
         if cfg.enc_layers:
             x = cross_attn_block(cfg, pl["xattn"], x,
                                  (cache["xk"][i], cache["xv"][i]), rc)
         x, _ = mlp_block(cfg, pl["mlp"], x, rc)
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = L.rms_norm(x, sh.unshard(params["final_ln"]), cfg.norm_eps)
     return unembed(cfg, params, x, rc), cache

@@ -22,11 +22,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import shardings as sh
+from repro_torch.parallel.shardings import constrain
 
 GROUP = 6          # mamba blocks per shared-attention application
 
@@ -118,13 +122,50 @@ def _ssd_chunked(xh, Bm, Cm, da, dt, chunk, cdt=torch.bfloat16):
     state = torch.zeros((Bsz, H, N, P), dtype=torch.float32,
                         device=xh.device)
     prevs = []
-    for c in range(nc):
-        prevs.append(state)
-        state = gl[:, c, :, None, None] * state + st[:, c]
-    Sprevs = torch.stack(prevs, dim=1)                  # (B,nc,H,N,P)
+    with L.loop("zamba2.chunks", nc) as trips:
+        for c in range(trips):
+            prevs.append(state)
+            state = gl[:, c, :, None, None] * state + st[:, c]
+    Sprevs = torch.stack(prevs * (nc // trips), dim=1)  # (B,nc,H,N,P)
     y_inter = torch.einsum("bcin,bchnp,bcih->bcihp", Cm.float(), Sprevs,
                            torch.exp(seg))
     return (y + y_inter).reshape(Bsz, S, H, P), state
+
+
+def _ssd(xh, Bm, Cm, da, dt, state, chunk: int, cdt):
+    """The SSD of a block: chunked over the sequence without a state,
+    else one decode step (S == 1) from `state`.  Returns (y f32, state).
+
+    On DTensors it runs on each device's own batch rows (dp axes) and
+    heads ("model") through `local_map`: DTensor's einsum would merge a
+    sharded head dim into a strided layout that its products do not
+    take.  B and C feed every head, so their gradients are partial sums
+    over "model"."""
+    def run(xh, Bm, Cm, da, dt, state):
+        if state is None:
+            return _ssd_chunked(xh, Bm, Cm, da, dt, chunk, cdt)
+        kv = torch.einsum("bsn,bsh,bshp->bhnp", Bm.float(), dt, xh.float())
+        state = torch.exp(da)[:, 0, :, None, None] * state + kv
+        return torch.einsum("bsn,bhnp->bshp", Cm.float(), state), state
+
+    if not isinstance(xh, DTensor):
+        return run(xh, Bm, Cm, da, dt, state)
+    mesh = xh.device_mesh
+    b, _, m, _ = sh.resolve_spec(mesh, ("batch", None, "model", None),
+                                 xh.shape)
+    x_pl = sh.placements(mesh, (b, None, m, None))
+    n_pl = sh.placements(mesh, (b, None, None))
+    h_pl = sh.placements(mesh, (b, None, m))
+    s_pl = sh.placements(mesh, (b, m, None, None))
+    n_grad = tuple(Partial() if a == "model" and m else pl
+                   for a, pl in zip(mesh.mesh_dim_names, n_pl))
+    s_in = None if state is None else s_pl
+    return local_map(
+        run, out_placements=(x_pl, s_pl),
+        in_placements=(x_pl, n_pl, n_pl, h_pl, h_pl, s_in),
+        in_grad_placements=(x_pl, n_grad, n_grad, h_pl, h_pl, s_in),
+        device_mesh=mesh, redistribute_inputs=True)(xh, Bm, Cm, da, dt,
+                                                    state)
 
 
 def _mamba_block(cfg, p, x, rc, conv_prev=None, state=None):
@@ -133,35 +174,33 @@ def _mamba_block(cfg, p, x, rc, conv_prev=None, state=None):
     d_in, H, P, N, conv_dim = _dims(cfg)
     B_, S, d = x.shape
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    zxbcdt = h @ p["in_proj"].to(cdt)
+    # its gradient gathers the slices' in its own layout before the
+    # product's backward (they come back in layouts that mix badly)
+    zxbcdt = L.grad_as_forward(h @ p["in_proj"].to(cdt))
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in: d_in + conv_dim]
     dt_raw = zxbcdt[..., d_in + conv_dim:]
     xbc, conv_state = _conv1d(xbc, p["conv_w"].to(cdt), conv_prev)
     xbc = F.silu(xbc)
-    xh = xbc[..., :d_in].reshape(B_, S, H, P)
+    xh = L.split_heads(xbc[..., :d_in], H, P)
     Bm = xbc[..., d_in: d_in + N]
     Cm = xbc[..., d_in + N:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())                  # (H,)
     da = dt * a                                          # (B,S,H) f32
-    if state is None:
-        chunk = next(c for c in (rc.ssm_chunk, 128, 64, 32, 16, 8, 4, 2, 1)
-                     if c <= S and S % c == 0)
-        y, state = _ssd_chunked(xh, Bm, Cm, da, dt, chunk, cdt)
-    else:  # single-step decode (S == 1)
-        kv = torch.einsum("bsn,bsh,bshp->bhnp", Bm.float(), dt, xh.float())
-        state = torch.exp(da)[:, 0, :, None, None] * state + kv
-        y = torch.einsum("bsn,bhnp->bshp", Cm.float(), state)
+    chunk = next(c for c in (rc.ssm_chunk, 128, 64, 32, 16, 8, 4, 2, 1)
+                 if c <= S and S % c == 0)
+    y, state = _ssd(xh, Bm, Cm, da, dt, state, chunk, cdt)
     y = y.to(cdt) + p["skip_d"].to(cdt)[None, None, :, None] * xh
-    y = y.reshape(B_, S, d_in)
+    y = L.merge_heads(y)
     y = y * F.silu(z)
     y = L.rms_norm(y, p["gn"], cfg.norm_eps)
     out = y @ p["out_proj"].to(cdt)
-    return x + out, conv_state, state
+    return constrain(x + out, ("batch", None, None)), conv_state, state
 
 
 def _shared(params):
+    """The shared block's parameters (views; gathered where used)."""
     return L.tree_map(lambda a: a[0], params["shared_attn"])
 
 
@@ -171,43 +210,44 @@ def forward(cfg: ModelConfig, params, batch, rc, return_cache=False):
     "tail_state") and each shared-attention application's K/V ("k"/"v"
     (ng, B, S, Hkv, Dh))."""
     cdt = getattr(torch, rc.compute_dtype)
-    x = params["embed"][batch["tokens"]].to(cdt)
+    x = constrain(sh.unshard(params["embed"])[batch["tokens"]].to(cdt),
+                  ("batch", None, None))
     shared = _shared(params)
     ng, tail = n_groups_tail(cfg)
     remat = rc.remat == "full" and torch.is_grad_enabled()
 
-    def mamba(x, pl):
-        return _mamba_block(cfg, pl, x, rc)
+    def mamba(x, stacked, j):
+        return _mamba_block(cfg, L.layer(stacked, j), x, rc)
 
     def blocks(x, stacked, n):
         """n Mamba2 blocks, each checkpointed under remat."""
         convs, states = [], []
         for j in range(n):
-            pl = L.tree_map(lambda a: a[j], stacked)
-            x, cs, st = (checkpoint(mamba, x, pl, use_reentrant=False)
-                         if remat else mamba(x, pl))
+            x, cs, st = (checkpoint(mamba, x, stacked, j, use_reentrant=False)
+                         if remat else mamba(x, stacked, j))
             convs.append(cs)
             states.append(st)
         return x, torch.stack(convs), torch.stack(states)
 
-    def group(x, pg):
-        x, cs, st = blocks(x, pg, GROUP)
-        x, (k, v) = tfm.attn_block(cfg, shared["attn"], x, 0, 0, rc)
-        x, _ = tfm.mlp_block(cfg, shared["mlp"], x, rc)
+    def group(x, stacked, g):
+        x, cs, st = blocks(x, L.tree_map(lambda a: a[g], stacked), GROUP)
+        sa = L.gathered(shared)
+        x, (k, v) = tfm.attn_block(cfg, sa["attn"], x, 0, 0, rc)
+        x, _ = tfm.mlp_block(cfg, sa["mlp"], x, rc)
         return x, cs, st, k, v
 
     kept = []
     for g in range(ng):
-        pg = L.tree_map(lambda a: a[g], params["mamba_groups"])
         # the whole group again in the backward pass, its blocks one by one
-        out = (checkpoint(group, x, pg, use_reentrant=False) if remat
-               else group(x, pg))
+        out = (checkpoint(group, x, params["mamba_groups"], g,
+                          use_reentrant=False) if remat
+               else group(x, params["mamba_groups"], g))
         x = out[0]
         if return_cache:
             kept.append(out[1:])
     if tail:
         x, tconv, tstate = blocks(x, params["mamba_tail"], tail)
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = L.rms_norm(x, sh.unshard(params["final_ln"]), cfg.norm_eps)
     cache = None
     if return_cache:
         cs, st, k, v = (torch.stack(t) for t in zip(*kept))
@@ -235,12 +275,21 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype):
     return c
 
 
+def cache_logical():
+    return {"conv": (None, None, "batch", None, "model"),
+            "state": (None, None, "batch", None, None, "model"),
+            "k": (None, "batch", "batch2", "model", "model2"),
+            "v": (None, "batch", "batch2", "model", "model2"),
+            "tail_conv": (None, "batch", None, "model"),
+            "tail_state": (None, "batch", None, None, "model")}
+
+
 def decode(cfg: ModelConfig, params, cache, token, pos: int, rc):
     """One-token step: every block's conv and SSM state and the shared
     block's K/V advance in place.  Returns (logits (B,1,V), cache)."""
     cdt = getattr(torch, rc.compute_dtype)
-    x = params["embed"][token].to(cdt)
-    shared = _shared(params)
+    x = sh.unshard(params["embed"])[token].to(cdt)
+    shared = L.gathered(_shared(params))
     ng, tail = n_groups_tail(cfg)
 
     def step(x, pl, conv, state):
@@ -251,13 +300,15 @@ def decode(cfg: ModelConfig, params, cache, token, pos: int, rc):
 
     for g in range(ng):
         for j in range(GROUP):
-            pl = L.tree_map(lambda a: a[g, j], params["mamba_groups"])
+            pl = L.gathered(L.tree_map(lambda a: a[g, j],
+                                       params["mamba_groups"]))
             x = step(x, pl, cache["conv"][g, j], cache["state"][g, j])
         x, _ = tfm.decode_attn_block(cfg, shared["attn"], x, 0,
                                      cache["k"][g], cache["v"][g], pos, rc)
         x, _ = tfm.mlp_block(cfg, shared["mlp"], x, rc)
     for j in range(tail):
-        pl = L.tree_map(lambda a: a[j], params["mamba_tail"])
+        pl = L.layer(params["mamba_tail"], j)
         x = step(x, pl, cache["tail_conv"][j], cache["tail_state"][j])
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x @ params["lm_head"].to(cdt), cache
+    x = L.rms_norm(x, sh.unshard(params["final_ln"]), cfg.norm_eps)
+    logits = x @ sh.unshard(params["lm_head"]).to(cdt)
+    return constrain(logits, ("batch", None, "model")), cache

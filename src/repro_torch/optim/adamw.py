@@ -13,7 +13,10 @@ The state is {"step": int32 0-d tensor, "m": tree, "v": tree}, f32
 moments keyed like the parameters, so a checkpoint stores the same bytes
 as the reference's.  `apply_updates` writes parameters and moments in
 place under torch.no_grad(); trees are nested dicts walked in sorted key
-order, as JAX flattens them.
+order, as JAX flattens them.  On DTensor state (a sharded trainer) each
+op runs on the shards, and `global_norm` is the whole gradient's norm:
+each leaf's sum of squares is a partial sum over its shards, which
+DTensor reduces before the square root.
 """
 from __future__ import annotations
 

@@ -10,10 +10,15 @@ the Lustre substrate, in PyTorch on the cluster's device.
     storage clients (failover ring / replay); a trainer death is
     recovered by a fresh Trainer and `resume()`.
 
-There is no mesh: the state lives whole on one device (elastic resume
-across meshes is ROADMAP Queue 1 item 6).  Every family of the registry
-trains; a model with an encoder or a patch prefix gets each step's stub
-frames or patches from `side_inputs`.
+  * elasticity: with a mesh (a DeviceMesh over the ranks of the process
+    group, every rank running its own Trainer on the same cluster
+    state), parameters and optimizer state are DTensors placed by
+    `steps.param_specs`; `resume()` restores whole tensors and places
+    them on whatever mesh the new trainer has.  Without a mesh the state
+    lives whole on the cluster's device.
+
+Every family of the registry trains; a model with an encoder or a patch
+prefix gets each step's stub frames or patches from `side_inputs`.
 """
 from __future__ import annotations
 
@@ -48,14 +53,16 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cluster: LustreCluster, cfg: TrainerConfig):
+    def __init__(self, cluster: LustreCluster, cfg: TrainerConfig,
+                 mesh=None):
         """The trainer runs on the cluster's device (the card, by
-        default)."""
+        default), sharded over `mesh` when one is given."""
         self.cluster = cluster
         self.cfg = cfg
         self.device = cluster.device
-        self.step_fn = steps_mod.build_train_step(cfg.model, cfg.rc,
-                                                  device=self.device)
+        self.mesh = mesh
+        self.step_fn = steps_mod.build_train_step(
+            cfg.model, cfg.rc, device=self.device, mesh=mesh)
         # storage clients: writer 0 is also the data-plane reader
         n_clients = len(cluster.client_nodes)
         self.writers = [LustreClient(cluster, i % n_clients).mount()
@@ -81,10 +88,19 @@ class Trainer:
     # ---------------------------------------------------------------- init
     def init_state(self):
         gen = torch.Generator(self.device).manual_seed(self.cfg.seed)
-        self.params = L.tree_init(registry.param_defs(self.cfg.model), gen,
-                                  getattr(torch, self.cfg.rc.param_dtype))
+        self.params = self._place(L.tree_init(
+            registry.param_defs(self.cfg.model), gen,
+            getattr(torch, self.cfg.rc.param_dtype)))
         self.opt_state = adamw.init_state(self.params)
         return self
+
+    def _place(self, params):
+        """Whole parameters (or moments) on the trainer's mesh, placed by
+        `steps.param_specs`; unchanged without a mesh."""
+        if self.mesh is None:
+            return params
+        return L.tree_distribute(params, self.mesh, steps_mod.param_specs(
+            self.cfg.model, self.cfg.rc, self.mesh))
 
     # ---------------------------------------------------------------- data
     def _batch(self, step: int) -> dict:
@@ -152,12 +168,13 @@ class Trainer:
                        extra_meta={"arch": self.cfg.model.name})
 
     @classmethod
-    def resume(cls, cluster: LustreCluster, cfg: TrainerConfig
-               ) -> "Trainer":
-        """Fresh trainer restored from the latest complete checkpoint.
-        Shapes come from the manifest; each leaf is rebuilt on the
-        trainer's device, parameters in the run's param dtype."""
-        t = cls(cluster, cfg)
+    def resume(cls, cluster: LustreCluster, cfg: TrainerConfig,
+               mesh=None) -> "Trainer":
+        """Fresh trainer (possibly on another mesh, or none: elastic)
+        restored from the latest complete checkpoint.  Shapes come from
+        the manifest; each leaf is rebuilt on the trainer's device,
+        parameters in the run's param dtype, then placed on the mesh."""
+        t = cls(cluster, cfg, mesh)
         t.ckpt.cleanup_incomplete()
         flat, manifest = t.ckpt.restore()
         t.step = manifest["step"]
@@ -170,5 +187,8 @@ class Trainer:
             if not isinstance(leaf, torch.Tensor):      # bf16 comes as one
                 leaf = torch.from_numpy(np.array(leaf))  # writable copy
             L.tree_set(state, path, leaf.to(t.device, dtype))
-        t.params, t.opt_state = state["params"], state["opt"]
+        t.params = t._place(state["params"])
+        opt = state["opt"]
+        t.opt_state = {"step": opt["step"], "m": t._place(opt["m"]),
+                       "v": t._place(opt["v"])}
         return t

@@ -1,8 +1,8 @@
 """The port stands alone: importing and running `repro_torch` (the raid5
 data path, a flash prefill, the batched server, a checkpoint save and
-restore, a Trainer's train step, and its examples and benchmarks as a
-user runs them) loads no JAX and no module of the reference package
-`repro`."""
+restore, a Trainer's train step, its examples and benchmarks as a user
+runs them, a sharded Trainer on a one-rank gloo mesh and a dry-run cell)
+loads no JAX and no module of the reference package `repro`."""
 import json
 import os
 import pathlib
@@ -96,6 +96,35 @@ print(json.dumps(sorted(m for m in sys.modules
 """
 
 
+_RUN_PARALLEL = r"""
+import json, socket, sys
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import LustreCluster
+from repro_torch.launch import dryrun
+from repro_torch.models.config import RunConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=0, world_size=1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+c = LustreCluster(osts=2, mdses=1, clients=1, device="cpu")
+tr = Trainer(c, TrainerConfig(
+    model=get_smoke_config("qwen3-4b"),
+    rc=RunConfig(seq_len=16, global_batch=2, kind="train", attn_impl="ref"),
+    ckpt_every=1, dataset_seqs=8, n_writers=1, parity=False), mesh=mesh)
+assert tr.run(1)[0]["step"] == 1 and tr.ckpt.steps() == [1]
+dist.destroy_process_group()
+rec = dryrun.run_cell("whisper-tiny", "decode_32k", False, verbose=False)
+assert rec["n_chips"] == 256 and rec["hlo_cost"]["flops"] > 0
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+"""
+
+
 @pytest.fixture(autouse=True)
 def _port_sanitizer_guard():
     before = len(port_sanitize.state.violations)
@@ -119,6 +148,15 @@ def test_entry_points_load_no_jax_and_no_reference_module():
     benchmarks."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", _RUN_ENTRY_POINTS], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_sharded_trainer_and_dryrun_load_no_jax_and_no_reference_module():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", _RUN_PARALLEL], env=env,
                          cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
