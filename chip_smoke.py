@@ -30,24 +30,31 @@ the last line:
   6. the raid5 section of BENCH_rpc.json reproduced with parity on the
      card; then phase 5's write once more on a fresh cluster, each parity
      call split into its pieces (`write_split`);
-  7. the flash-attention kernel, every variant (wgmma, mma, simt), against
-     its plain version on the card (2e-5 in float32, 2e-2 in bfloat16),
-     over B, (H, Hkv), S, D (zamba2's 112 among them), window, causal,
-     Sq != Sk, FLASH_EDGES and strided (B,S,H,D) views;
-  8. at the prefill shapes of qwen3-4b (B=2, S=4096, and one layer of
-     prefill_32k: B=1, S=32768), a gemma3-12b global layer (D=256, B=2,
-     S=4096) and zamba2-7b's shared block (D=112, H=Hkv=32, B=2, S=4096):
-     the kernel against its plain version, element by
-     element within a limit scaled to each output, then its times beside
-     the operations bound, the plain version and
-     scaled_dot_product_attention (a yardstick the port never calls);
+  7. the flash-attention kernel, every variant (wgmma, mma, simt) in
+     float32, bfloat16 and float16, against its plain version on the card
+     (2e-5 in float32, 2e-2 in bfloat16, 5e-3 in float16), over B,
+     (H, Hkv), S, D (zamba2's 112 among them), window, causal, Sq != Sk,
+     FLASH_EDGES, strided (B,S,H,D) views and NEW_HEAD_DIMS (8 to 512:
+     mma at a width above D, wgmma on mostly empty last TMA boxes, simt
+     for 16-bit types), after one short call of each compiled kernel;
+  8. at the prefill shapes of qwen3-4b (B=2, S=4096, in bfloat16, float16
+     and float32, and one layer of prefill_32k: B=1, S=32768), a
+     gemma3-12b global layer (D=256, B=2, S=4096), zamba2-7b's shared
+     block (D=112, H=Hkv=32, B=2, S=4096) and qwen3-4b's shape at D=96,
+     80 (wgmma at width 128), 48 (mma) and 100 (simt): the kernel against
+     its plain version, element by element within a limit scaled to each
+     output, then its times beside the operations bound, the plain
+     version and scaled_dot_product_attention in the same dtype (a
+     yardstick the port never calls);
   9. the main path, prefill: qwen3-4b at full width and depth (random f32
      parameters from a seed, bf16 compute) through build_prefill_step
      with attn_impl="flash" on 2 prompts of 4096 tokens; the wgmma kernel
      must launch once per layer (36 times), the logits at 10 positions must
      agree with the same step on attn_impl="ref", and two faults planted
      in the flash call (causal=False, a window of 2048) must fail that
-     comparison;
+     comparison; 9b: the same in float16 compute (36 launches of the
+     float16 wgmma kernel, "ref" in float16 finite, within 5 %, both
+     planted faults caught);
  10. in f32 compute, the flash prefill of two 64-token prompts against the
      decode chain's logits at position 63;
  11. the main path, serving: BatchedServer (on "cuda", its default)
@@ -105,7 +112,7 @@ CUDA card is usable or the port's sources are missing.
     python3 chip_smoke.py --flash-only
 
 is the quick check of the flash-attention kernel alone (phases 1, 2, 7, 8,
-after one short call of each wgmma instantiation); it prints no result
+after one short call of each compiled kernel); it prints no result
 line.  Run it under `timeout` after a change to the kernel: a fault of
 its mbarrier pipeline traps after seconds, and the timeout bounds the
 rest.
@@ -125,7 +132,7 @@ runs phases 1, 2 and 13; no result line.
 
     python3 chip_smoke.py --families-only
 
-runs phases 1, 2, one short call of each wgmma instantiation, then 14
+runs phases 1, 2, one short call of each compiled flash kernel, then 14
 and 15; no result line.
 """
 from __future__ import annotations
@@ -145,7 +152,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the H100 SXM's peak rates, the denominators of every bound below
 from repro_torch.kernels.hardware import (  # noqa: E402
-    BF16_FLOPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S)
+    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S)
 
 MAIN_MIB = 512
 STRIPE = 1 << 20
@@ -463,9 +470,27 @@ def write_split(torch, ops, parity, dev, mib=MAIN_MIB) -> dict:
     return out
 
 
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py TOL
-# at the prefill shapes (bf16), element by element: see check_flash_scaled
-FLASH_REL_TOL, FLASH_ABS_TOL = 2.0 ** -7, 1e-4
+# tests/test_kernels.py's TOL, and tests/test_torch_flash.py's for float16
+# (one f16 ulp of an output up to 4, plus P rounded to f16: 2^-11 a weight)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 5e-3}
+# at the prefill shapes, element by element: see check_flash_scaled.  The
+# relative term is 4 units of the type's rounding (2^-9 bf16, 2^-11 f16);
+# in float32 only the order of the sums differs.
+FLASH_REL_TOL = {"float32": 2.0 ** -17, "bfloat16": 2.0 ** -7,
+                 "float16": 2.0 ** -9}
+FLASH_ABS_TOL = {"float32": 2e-5, "bfloat16": 1e-4, "float16": 1e-4}
+# the head dims phase 7 holds beyond the models' 16-256 (every branch of
+# `variant`: mma at a width above D, wgmma on mostly empty last TMA boxes,
+# simt for 16-bit types) and the shapes it holds each at, (B, H, Hkv, Sq,
+# Sk, window, causal, strided): GQA, a window, Sq != Sk (Sq > Sk too),
+# a window without causal on strided views, a longer sequence
+NEW_HEAD_DIMS = (8, 40, 48, 80, 96, 100, 120, 136, 160, 192, 200, 320, 512)
+NEW_HEAD_DIM_SHAPES = ((1, 4, 2, 192, 192, 0, True, False),
+                       (2, 4, 4, 300, 300, 100, True, False),
+                       (1, 8, 2, 100, 257, 0, True, False),
+                       (2, 4, 2, 130, 130, 64, False, True),
+                       (1, 2, 1, 1024, 1024, 0, True, False),
+                       (1, 4, 2, 128, 64, 0, True, False))
 
 
 def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev, strided=False):
@@ -498,12 +523,12 @@ FLASH_EDGES = [(1, 4, 2, 100, 100, 128, 0, True),
 
 def check_flash(torch, fa, ref, dev) -> dict:
     """K3 check: every variant of the kernel against its plain version on
-    the card, over B, (H, Hkv), S, D, window, causal and dtype, plus
-    Sq != Sk (Sq < Sk, and Sq > Sk where leading rows keep no key and must
-    be 0), FLASH_EDGES, and strided (B,S,H,D) views in and out.  The bf16
-    FLASH_EDGES with Sk >= 1000 are also held to check_flash_scaled's
-    element-wise limit."""
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    the card, over B, (H, Hkv), S, D, window, causal and dtype (float32,
+    bfloat16, float16), plus Sq != Sk (Sq < Sk, and Sq > Sk where leading
+    rows keep no key and must be 0), FLASH_EDGES, strided (B,S,H,D) views
+    in and out, and NEW_HEAD_DIMS.  The 16-bit FLASH_EDGES with
+    Sk >= 1000 are also held to check_flash_scaled's element-wise limit."""
+    worst = dict.fromkeys(FLASH_TOL, 0.0)
     cases = []
     for B in (1, 2):
         for H, Hkv in ((1, 1), (4, 2), (8, 1), (32, 8)):
@@ -524,9 +549,12 @@ def check_flash(torch, fa, ref, dev) -> dict:
     cases += [(*e, strided) for e in FLASH_EDGES for strided in (False, True)]
     cases += [(2, 4, 2, S, S, D, 0, True, True)
               for S in (100, 192) for D in (16, 32, 64, 112, 128, 256)]
-    n, scaled = 0, []
+    cases += [(B, H, Hkv, Sq, Sk, D, w, c, strided)
+              for D in NEW_HEAD_DIMS
+              for B, H, Hkv, Sq, Sk, w, c, strided in NEW_HEAD_DIM_SHAPES]
+    n, scaled, held = 0, [], {}
     before = dict(fa.VARIANT_LAUNCHES)
-    for dname in ("float32", "bfloat16"):
+    for dname in FLASH_TOL:
         dtype = getattr(torch, dname)
         for i, (B, H, Hkv, Sq, Sk, D, w, c, strided) in enumerate(cases):
             q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, i, dev, strided)
@@ -534,20 +562,21 @@ def check_flash(torch, fa, ref, dev) -> dict:
             want = ref.flash_attention_ref(q, k, v, causal=c, window=w)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            if dname == "bfloat16" and Sk >= 1000 and (
+            if dname != "float32" and Sk >= 1000 and (
                     B, H, Hkv, Sq, Sk, D, w, c) in FLASH_EDGES:
-                # at long S a fixed 2e-2 is loose: hold it element by element
+                # at long S a fixed limit is loose: hold it element by element
                 check = check_flash_scaled(torch, ref, got, want, q, k, v,
                                            causal=c, window=w)
-                scaled.append({"B": B, "H": H, "Hkv": Hkv, "Sq": Sq, "Sk": Sk,
-                               "D": D, "window": w, "causal": c,
-                               "strided": strided,
+                scaled.append({"dtype": dname, "B": B, "H": H, "Hkv": Hkv,
+                               "Sq": Sq, "Sk": Sk, "D": D, "window": w,
+                               "causal": c, "strided": strided,
                                "worst_over_limit": check["worst_over_limit"]})
                 if not check["worst_over_limit"] <= 1.0:
                     raise AssertionError(
-                        f"flash_attention bf16 B={B} H={H} Hkv={Hkv} Sq={Sq} "
-                        f"Sk={Sk} D={D} window={w} causal={c} strided="
-                        f"{strided} differs from its plain version: {check}")
+                        f"flash_attention {dname} B={B} H={H} Hkv={Hkv} "
+                        f"Sq={Sq} Sk={Sk} D={D} window={w} causal={c} "
+                        f"strided={strided} differs from its plain version:"
+                        f" {check}")
             if not err <= FLASH_TOL[dname]:
                 raise AssertionError(
                     f"flash_attention {dname} B={B} H={H} Hkv={Hkv} Sq={Sq} "
@@ -558,22 +587,32 @@ def check_flash(torch, fa, ref, dev) -> dict:
                 if got[:, :, :Sq - Sk].abs().max() != 0:
                     raise AssertionError("a row that keeps no key is not 0")
             worst[dname] = max(worst[dname], err)
+            held.setdefault(fa.variant(dtype, D), set()).add((dname, D))
             n += 1
     ran = {k: v - before[k] for k, v in fa.VARIANT_LAUNCHES.items()}
+    head_dims = {name: {dn: sorted(D for d, D in pairs if d == dn)
+                        for dn in FLASH_TOL}
+                 for name, pairs in sorted(held.items())}
     emit("kernel_check", kernel="flash_attention", shapes=n,
          max_abs_err=worst, tolerance=FLASH_TOL, variant_launches=ran,
-         edges_over_scaled_limit=scaled)
+         head_dims=head_dims, edges_over_scaled_limit=scaled)
     if not all(ran.values()):
         raise AssertionError(f"a flash variant was never checked: {ran}")
-    return worst
+    return {"max_abs_err": worst, "shapes": n,
+            "head_dims": sorted({D for pairs in held.values()
+                                 for _, D in pairs})}
 
 
-def flash_cost(B, H, Hkv, S, D, itemsize) -> tuple[float, float, float, str]:
-    """flops and bytes of causal attention at Sq == Sk == S, and the bound
-    (ms) with what sets it."""
+def flash_cost(B, H, Hkv, S, D, dtype) -> tuple[float, float, float, str]:
+    """flops and bytes of causal attention at Sq == Sk == S in `dtype` (a
+    name), and the bound (ms) with what sets it: the operations at the
+    card's peak for the type (the tensor cores' for 16-bit types, FMA for
+    float32)."""
     flops = 4.0 * B * H * D * (S * (S + 1) / 2)    # QK^T and PV, kept pairs
+    itemsize = 4 if dtype == "float32" else 2
     nbytes = itemsize * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    peak = F32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S
+    by_ops = flops / peak * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if by_ops >= by_bytes:
         return flops, nbytes, by_ops, "operations"
@@ -584,18 +623,22 @@ def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
                        window=0) -> dict:
     """The kernel's output `got` vs the plain version's `want` on q, k, v
     at a prefill shape, held element by element to
-    2^-7 (|want| + |v|_P / 2) + 1e-4, where |v|_P is the plain version
-    run on |v| (the P-weighted mean of |v| along the row).  2^-7 |want|
-    covers the bf16 rounding of both outputs; 2^-8 |v|_P bounds the
-    kernel's rounding of P to bf16 before PV (2^-9 a weight, with slack).
-    At S=4096 a typical output is 0.03-0.04 and this limit about 3.5e-3,
-    where a fixed 2e-2 would pass a dropped or repeated KV tile."""
+    r (|want| + |v|_P / 2) + a, where |v|_P is the plain version run on
+    |v| (the P-weighted mean of |v| along the row) and r, a are q's type's
+    FLASH_REL_TOL and FLASH_ABS_TOL.  In bf16 (r = 2^-7) r |want| covers
+    the rounding of both outputs and r/2 |v|_P bounds the kernel's
+    rounding of P to bf16 before PV (2^-9 a weight, with slack); float16
+    is the same at 2^-9, its rounding being 4 times finer.  At S=4096 a
+    typical bf16 output is 0.03-0.04 and this limit about 3.5e-3, where a
+    fixed 2e-2 would pass a dropped or repeated KV tile."""
+    dname = str(q.dtype).removeprefix("torch.")
     want = want.float()
     weighted = ref.flash_attention_ref(q, k, v.abs(), causal=causal,
                                        window=window).float()
     err = (got.float() - want).abs()
     mag = want.abs()
-    limit = FLASH_REL_TOL * (mag + weighted / 2) + FLASH_ABS_TOL
+    limit = (FLASH_REL_TOL[dname] * (mag + weighted / 2)
+             + FLASH_ABS_TOL[dname])
     ratio = float((err / limit).max())
     return {"max_abs_err": float(err.max()),
             "mean_abs_want": float(mag.mean()),
@@ -604,14 +647,22 @@ def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
             "worst_over_limit": ratio}
 
 
-# K3's timed shapes, bf16 causal: the qwen3-4b prefill of the main path,
-# one layer of qwen3-4b's prefill_32k, a global layer of gemma3-12b
-# (D=256) and zamba2-7b's shared block (D=112, H = Hkv = 32) at the main
-# path's B and S: (name, B, H, Hkv, S, D, reps)
-FLASH_TIMED = (("main", 2, 32, 8, 4096, 128, 9),
-               ("prefill_32k", 1, 32, 8, 32768, 128, 3),
-               ("gemma3_d256", 2, 16, 8, 4096, 256, 9),
-               ("zamba2_d112", 2, 32, 32, 4096, 112, 9))
+# K3's timed shapes, causal: the qwen3-4b prefill of the main path in bf16
+# and float16 (phase 9b) and float32, one layer of qwen3-4b's prefill_32k,
+# a global layer of gemma3-12b (D=256), zamba2-7b's shared block (D=112,
+# H = Hkv = 32), and head dims off the compiled widths at the main path's
+# shape: 96 and 80 on the 128-wide wgmma pipeline, 48 on mma, 100 on simt
+# (name, dtype, B, H, Hkv, S, D, reps)
+FLASH_TIMED = (("main", "bfloat16", 2, 32, 8, 4096, 128, 9),
+               ("prefill_32k", "bfloat16", 1, 32, 8, 32768, 128, 3),
+               ("gemma3_d256", "bfloat16", 2, 16, 8, 4096, 256, 9),
+               ("zamba2_d112", "bfloat16", 2, 32, 32, 4096, 112, 9),
+               ("main_f16", "float16", 2, 32, 8, 4096, 128, 9),
+               ("d96", "bfloat16", 2, 32, 8, 4096, 96, 9),
+               ("d80", "bfloat16", 2, 32, 8, 4096, 80, 9),
+               ("d48_mma", "bfloat16", 2, 32, 8, 4096, 48, 3),
+               ("d100_simt", "bfloat16", 2, 32, 8, 4096, 100, 3),
+               ("main_f32", "float32", 2, 32, 8, 4096, 128, 3))
 
 
 def time_flash(torch, fa, ref, dev) -> dict:
@@ -619,23 +670,24 @@ def time_flash(torch, fa, ref, dev) -> dict:
     held against the plain version's on the same inputs
     (check_flash_scaled), then the kernel (on contiguous inputs, and on
     the strided (B,S,H,D) views the model passes), the plain version and
-    the library call (scaled_dot_product_attention, a yardstick only) are
-    timed."""
+    the library call (scaled_dot_product_attention in the same dtype, a
+    yardstick only) are timed."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for name, B, H, Hkv, S, D, reps in FLASH_TIMED:
-        q, k, v = qkv(torch, B, H, Hkv, S, S, D, torch.bfloat16, 7, dev)
+    for name, dname, B, H, Hkv, S, D, reps in FLASH_TIMED:
+        q, k, v = qkv(torch, B, H, Hkv, S, S, D, getattr(torch, dname), 7,
+                      dev)
         check = check_flash_scaled(torch, ref, fa.flash_attention(q, k, v),
                                    ref.flash_attention_ref(q, k, v), q, k, v)
-        emit("kernel_check", kernel="flash_attention", shape=name, B=B, S=S,
-             D=D, **check)
+        emit("kernel_check", kernel="flash_attention", shape=name,
+             dtype=dname, B=B, S=S, D=D, **check)
         if not check["worst_over_limit"] <= 1.0:
             raise AssertionError(f"flash_attention at {name} (B={B}, S={S})"
                                  f" differs from its plain version: {check}")
         pool = [(q, k, v)]
         views = [tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
                        for t in (q, k, v))]
-        flops, nbytes, b, by = flash_cost(B, H, Hkv, S, D, 2)
+        flops, nbytes, b, by = flash_cost(B, H, Hkv, S, D, dname)
         kern = time_on_card(torch, lambda t: fa.flash_attention(*t), pool,
                             reps)
         strided = time_on_card(torch, lambda t: fa.flash_attention(*t),
@@ -645,7 +697,8 @@ def time_flash(torch, fa, ref, dev) -> dict:
         lib = time_on_card(torch, lambda t: sdpa(*t, is_causal=True,
                                                  enable_gqa=True), pool, reps)
         out[name] = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
-                     "dtype": "bfloat16", "variant": fa.variant(q.dtype, D),
+                     "dtype": dname, "variant": fa.variant(q.dtype, D),
+                     "width": fa.width(fa.variant(q.dtype, D), D),
                      "check": check, "flops": flops, "bytes": nbytes,
                      "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
                      "strided_ms": strided["graph_ms"],
@@ -753,28 +806,32 @@ def logit_gaps(torch, registry, cfg, params, rc, x, x_ref) -> list[float]:
     return (err / want.abs().amax(dim=(0, 2))).tolist()
 
 
-def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
+def prefill_path(torch, fa, parity, cfg, params, dev, compute="bfloat16",
+                 n_runs=2, phase="prefill") -> dict:
     """Main path, prefill: build_prefill_step with attn_impl="flash" on B=2
-    prompts of 4096 tokens, bf16 compute over f32 parameters.  Each of the
-    two calls (the second one warm) must launch the flash kernel once per
-    layer and the XOR kernel never.  Its logits at POSITIONS must agree
-    with the same step on attn_impl="ref", and the same check must fail
-    when a fault is planted in the flash call (PLANTED)."""
+    prompts of 4096 tokens, `compute` over f32 parameters.  Each of the
+    `n_runs` calls (the later ones warm) must launch the flash kernel's
+    `wgmma` variant once per layer, in the compute dtype, and the XOR
+    kernel never.  Its logits at POSITIONS must agree with the same step
+    on attn_impl="ref", whose states must be finite, and the same check
+    must fail when a fault is planted in the flash call (PLANTED)."""
     from repro_torch.models import registry
     from repro_torch.models.config import RunConfig
     from repro_torch.train.steps import build_prefill_step
 
     tokens = prefill_tokens(torch, cfg, dev)
     rc = RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B,
-                   kind="prefill", attn_impl="flash")
+                   kind="prefill", attn_impl="flash", compute_dtype=compute)
     step = build_prefill_step(cfg, rc, device=dev)
     hidden = (lambda out: out[0])            # forward's final hidden states
+    want_launches = {f"wgmma/{compute}": cfg.n_layers}
     runs = []
-    for _ in range(2):
+    for _ in range(n_runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.LAUNCHES = parity.LAUNCHES = 0
         fa.VARIANT_LAUNCHES = dict.fromkeys(fa.VARIANTS, 0)
+        fa.DTYPE_LAUNCHES = {}
         with Spy(torch, fa, "flash_attention", timed=True) as flash, \
                 Spy(torch, registry, "forward", keep=hidden) as fwd:
             t = time.perf_counter()
@@ -783,15 +840,16 @@ def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
             wall = time.perf_counter() - t
         runs.append({"wall_s": wall, "launches": fa.LAUNCHES,
                      "variant_launches": dict(fa.VARIANT_LAUNCHES),
+                     "dtype_launches": dict(fa.DTYPE_LAUNCHES),
                      "xor_launches": parity.LAUNCHES,
                      "flash_device_s": flash.device_s(),
                      "flash_share": flash.device_s() / wall,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         if fa.LAUNCHES != cfg.n_layers or parity.LAUNCHES or \
-                fa.VARIANT_LAUNCHES["wgmma"] != cfg.n_layers:
-            raise AssertionError(f"{fa.VARIANT_LAUNCHES} flash and "
+                fa.DTYPE_LAUNCHES != want_launches:
+            raise AssertionError(f"{fa.DTYPE_LAUNCHES} flash and "
                                  f"{parity.LAUNCHES} XOR launches in the "
-                                 f"prefill, want {cfg.n_layers} wgmma and 0")
+                                 f"prefill, want {want_launches} and 0")
     x = fwd.returned[0]
     launches = runs[0]["launches"]
     variant_launches = runs[0]["variant_launches"]
@@ -805,7 +863,8 @@ def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
     # the same step with the plain attention of the reference ("ref")
     ref_step = build_prefill_step(
         cfg, RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B,
-                       kind="prefill", attn_impl="ref"), device=dev)
+                       kind="prefill", attn_impl="ref",
+                       compute_dtype=compute), device=dev)
     torch.cuda.reset_peak_memory_stats()
     with Spy(torch, registry, "forward", keep=hidden) as ref_fwd:
         t = time.perf_counter()
@@ -815,6 +874,10 @@ def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
     ref_peak = torch.cuda.max_memory_allocated() / 2**30
     del ref_cache
     x_ref = ref_fwd.returned[0]
+    if not bool(torch.isfinite(x_ref).all()):
+        raise AssertionError(f"the \"ref\" prefill in {compute} is not "
+                             f"finite at depth {cfg.n_layers}: no reference "
+                             f"to hold the flash prefill to")
     gaps = logit_gaps(torch, registry, cfg, params, rc, x, x_ref)
 
     # the check against planted faults: each must break it
@@ -826,21 +889,22 @@ def prefill_path(torch, fa, parity, cfg, params, dev) -> dict:
         planted[name] = logit_gaps(torch, registry, cfg, params, rc,
                                    bad.returned[0], x_ref)
     out = {"model": MODEL, "B": PREFILL_B, "S": PREFILL_S,
-           "compute": "bfloat16", "launches": launches,
-           "variant_launches": variant_launches, "runs": runs,
+           "compute": compute, "launches": launches,
+           "variant_launches": variant_launches,
+           "dtype_launches": runs[0]["dtype_launches"], "runs": runs,
            "next_tokens": tok.reshape(-1).tolist(),
            "ref_next_tokens": ref_tok.reshape(-1).tolist(),
            "positions": POSITIONS, "rel_gaps": gaps,
            "tolerance_rel": PREFILL_REL_TOL, "planted_rel_gaps": planted,
            "ref_wall_s": ref_wall, "ref_peak_gib": ref_peak}
-    emit("prefill", **out)
+    emit(phase, **out)
     if not max(gaps) <= PREFILL_REL_TOL:
-        raise AssertionError(f"flash prefill logits differ from ref: "
-                             f"{gaps} > {PREFILL_REL_TOL}")
+        raise AssertionError(f"flash prefill logits ({compute}) differ from "
+                             f"ref: {gaps} > {PREFILL_REL_TOL}")
     for name, bad in planted.items():
         if max(bad) <= PREFILL_REL_TOL:
-            raise AssertionError(f"the prefill check passes the planted "
-                                 f"fault {name}: {bad}")
+            raise AssertionError(f"the prefill check ({compute}) passes the "
+                                 f"planted fault {name}: {bad}")
     return out
 
 
@@ -2427,19 +2491,38 @@ def parallel(torch, fa, dev, smi) -> dict:
     return out
 
 
+# one head dim per wgmma kernel: width 64; width 128 at 5-8 k16 steps of
+# Q K^T; width 256 at 12 and 16
+WGMMA_FIRST_DIMS = [64, 72, 96, 112, 128, 136, 256]
+
+
 def first_flash_calls(torch, fa, ref, dev):
-    """One short call of each wgmma instantiation, checked before anything
-    heavier runs: a fault of the pipeline shows here in seconds."""
-    for D in (64, 112, 128, 256):
-        q, k, v = qkv(torch, 1, 2, 1, 300, 300, D, torch.bfloat16, D, dev)
-        got = fa.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.flash_attention_ref(q, k, v).float())
-                    .abs().max())
-        emit("kernel_first_call", kernel="flash_attention", D=D,
-             variant=fa.variant(q.dtype, D), max_abs_err=err)
-        if not err <= FLASH_TOL["bfloat16"]:
-            raise AssertionError(f"wgmma kernel at D={D}: max abs err {err}")
+    """One short call of each compiled kernel, checked before anything
+    heavier runs: a fault of the wgmma pipeline shows here in seconds.
+    wgmma has a kernel per width and Q K^T step count (WGMMA_FIRST_DIMS
+    holds one D of each; 72 and 136 leave a last TMA box mostly empty),
+    mma and simt one per width (mma at width / 2 + 8, simt at width - 4,
+    which no tensor-core variant takes)."""
+    for dname in FLASH_TOL:
+        dtype = getattr(torch, dname)
+        dims = []
+        if dname != "float32":
+            dims += WGMMA_FIRST_DIMS
+            dims += [w // 2 + 8 for w in fa.WIDTHS["mma"]]
+        dims += [w - 4 for w in fa.WIDTHS["simt"]]
+        for D in dims:
+            q, k, v = qkv(torch, 1, 2, 1, 300, 300, D, dtype, D, dev)
+            got = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.flash_attention_ref(q, k, v)
+                         .float()).abs().max())
+            name = fa.variant(dtype, D)
+            emit("kernel_first_call", kernel="flash_attention", dtype=dname,
+                 D=D, variant=name, width=fa.width(name, D),
+                 max_abs_err=err)
+            if not err <= FLASH_TOL[dname]:
+                raise AssertionError(f"{name} kernel, {dname}, D={D}: max "
+                                     f"abs err {err}")
 
 
 def train(torch, fa, parity, ops, dev) -> dict:
@@ -2550,6 +2633,9 @@ def run(mode: str = "") -> int:
     flash_times = time_flash(torch, fa, ref, dev)
     cfg, params = model_params(torch, dev)
     prefill = prefill_path(torch, fa, parity, cfg, params, dev)
+    prefill16 = prefill_path(torch, fa, parity, cfg, params, dev,
+                             compute="float16", n_runs=1,
+                             phase="prefill_f16")
     consistency_check(torch, cfg, params, dev)
     serve_path(torch, fa, parity, cfg, params)
     del params
@@ -2559,6 +2645,8 @@ def run(mode: str = "") -> int:
     par = parallel(torch, fa, dev, smi)
 
     k4, fm, fz = times[4], flash_times["main"], flash_times["zamba2_d112"]
+    timed_keys = ("B", "H", "Hkv", "S", "D", "variant", "ms", "strided_ms",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{
         "name": "xor_parity", "route": "cuda",
         "source": "src/repro_torch/csrc/xor_parity.cu",
@@ -2580,16 +2668,22 @@ def run(mode: str = "") -> int:
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": prefill["launches"],
         "variant_launches": prefill["variant_launches"],
-        "max_abs_err": max(flash_err.values()),
+        "max_abs_err": max(flash_err["max_abs_err"].values()),
         "ms": fm["ms"], "strided_ms": fm["strided_ms"],
         "plain_ms": fm["plain_ms"],
         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
         "library_ms": fm["library_ms"],
         "family_variant_launches": fams["launches"],
         "mesh_launches": par["prefill"]["launches"],
-        "d112": {k: fz[k] for k in ("B", "H", "Hkv", "S", "D", "variant",
-                                    "ms", "strided_ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}}
+        "d112": {k: fz[k] for k in timed_keys},
+        "float16": {"launches": prefill16["launches"],
+                    "dtype_launches": prefill16["dtype_launches"],
+                    **{k: flash_times["main_f16"][k] for k in timed_keys}},
+        "timed": {name: {k: t[k] for k in ("dtype", "width", *timed_keys)}
+                  for name, t in flash_times.items()
+                  if name not in ("main", "zamba2_d112", "main_f16")},
+        "max_abs_err_by_dtype": flash_err["max_abs_err"],
+        "head_dims_held": flash_err["head_dims"]}
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,15 @@ The same numpy inputs, made from a seed, go through the Pallas kernel of
 tests run it) and through the port: its plain version
 `ref.flash_attention_ref` and its entry point `ops.flash_attention` on CPU
 tensors.  Tolerances are the reference's own (`tests/test_kernels.py`):
-2e-5 in float32, 2e-2 in bfloat16 (one rounding of the output).  The CUDA
+2e-5 in float32, 2e-2 in bfloat16 (one rounding of the output).  The
+reference states none for float16; 5e-3 here: both sides compute in
+float32 from the same float16 inputs and round the output once, so they
+part by at most one float16 ulp of an output (2^-9 = 2e-3 for outputs
+up to 4), and the card's kernel adds its rounding of P to float16 (2^-11
+a weight, times |v| of about 4 at most), so 5e-3 holds the kernel too
+with room for neither a dropped tile nor a bf16/f16 mix-up.  The CUDA
 kernel itself is held against the plain version on the card by the
-`card` test at the end and by `chip_smoke.py`.
+`card` tests at the end and by `chip_smoke.py`.
 """
 import numpy as np
 import pytest
@@ -23,7 +29,7 @@ try:                                     # the card test needs no JAX
 except ImportError:                      # pragma: no cover
     jnp = jfa = None
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 5e-3}
 
 
 @pytest.fixture
@@ -62,7 +68,7 @@ def _port(fn, arrays, dtype, **kw):
     (1, 4, 4, 64, 128),       # head_dim 128
     (2, 2, 2, 192, 32),       # non-pow2 seq (block 64)
 ])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_shapes_dtypes(pallas, B, H, Hkv, S, D, dtype):
     arrays = _inputs((B, H, S, D), (B, Hkv, S, D), B * H * S + D)
     want = _reference(pallas, arrays, dtype, causal=True, block_q=64,
@@ -149,14 +155,23 @@ def test_ops_keeps_the_reference_block_contract():
 def test_wrapper_checks_and_routes_only_cpu_tensors_to_plain(monkeypatch):
     q = torch.zeros((1, 4, 8, 32))
     kv = torch.zeros((1, 2, 8, 32))
+    # float16 and any head dim up to the cap run, as in the Pallas kernel
+    assert fa.flash_attention(q.half(), kv.half(), kv.half()).dtype == \
+        torch.float16
+    assert fa.flash_attention(torch.zeros((1, 4, 8, 48)),
+                              torch.zeros((1, 2, 8, 48)),
+                              torch.zeros((1, 2, 8, 48))).shape[-1] == 48
     with pytest.raises(TypeError):
-        fa.flash_attention(q.half(), kv.half(), kv.half())
+        fa.flash_attention(q.double(), kv.double(), kv.double())
     with pytest.raises(TypeError):
         fa.flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_attention(q.half(), kv.half(), kv.bfloat16())
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(torch.zeros((1, 4, 8, 48)),
-                           torch.zeros((1, 2, 8, 48)),
-                           torch.zeros((1, 2, 8, 48)))
+        D = fa.MAX_HEAD_DIM + 8
+        fa.flash_attention(torch.zeros((1, 4, 8, D)),
+                           torch.zeros((1, 2, 8, D)),
+                           torch.zeros((1, 2, 8, D)))
     with pytest.raises(ValueError):
         fa.flash_attention(q, torch.zeros((1, 3, 8, 32)),
                            torch.zeros((1, 3, 8, 32)))
@@ -188,7 +203,7 @@ def _bshd_views(arrays, dtype):
     (1, 8, 2, 192, 32, 100),
     (2, 4, 4, 64, 128, 0),
 ])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_strided_views_match_pallas(pallas, dtype, B, H, Hkv,
                                                     S, D, window):
     """(B,S,H,D)-transposed inputs give a (B,S,H,D) output, no copies."""
@@ -204,19 +219,42 @@ def test_flash_attention_strided_views_match_pallas(pallas, dtype, B, H, Hkv,
     assert np.abs(out.float().numpy() - want).max() < TOL[dtype]
 
 
-@pytest.mark.parametrize("D", fa.HEAD_DIMS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def _designed(dtype, D):
+    """The variant rule, written out: tensor cores for 16-bit types at
+    D % 8 == 0 up to 256 (wgmma from 64, mma below), float32 FMA for the
+    rest."""
+    if dtype == "float32" or D % 8 or D > 256:
+        return "simt"
+    return "wgmma" if D >= 64 else "mma"
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 112, 128, 256, 1, 8, 63, 72,
+                               264, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_variant_is_the_designed_kernel(dtype, D):
-    want = {"float32": "simt", "bfloat16": "wgmma" if D >= 64 else "mma"}
-    assert fa.variant(getattr(torch, dtype), D) == want[dtype]
-    assert fa.variant(getattr(torch, dtype), D) in fa.VARIANTS
+    name = fa.variant(getattr(torch, dtype), D)
+    assert name == _designed(dtype, D) and name in fa.VARIANTS
+    w = fa.width(name, D)
+    assert w in fa.WIDTHS[name] and D <= w
+    if name == "wgmma":       # the launcher's Q K^T step counts: (w/2, w]
+        assert 2 * D > w
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    ("float16", 128, "wgmma"), ("bfloat16", 48, "mma"),
+    ("float32", 8, "simt"), ("bfloat16", 512, "simt"),
+    ("bfloat16", 96, "wgmma"), ("float32", 120, "simt"),
+])
+def test_variant_takes_what_the_reference_computes(dtype, D, want):
+    """Inputs the Pallas kernel computes and the port once refused (float16,
+    D outside 16/32/64/112/128/256): each has a kernel now."""
+    assert fa.variant(getattr(torch, dtype), D) == want
 
 
 @pytest.mark.parametrize("dtype,D,error", [
-    ("float16", 128, TypeError), ("float64", 64, TypeError),
-    ("int32", 128, TypeError), ("bfloat16", 48, ValueError),
-    ("float32", 8, ValueError), ("bfloat16", 512, ValueError),
-    ("bfloat16", 96, ValueError), ("float32", 120, ValueError),
+    ("float64", 64, TypeError), ("int32", 128, TypeError),
+    ("bfloat16", 0, ValueError), ("float16", 520, ValueError),
+    ("float32", 1024, ValueError),
 ])
 def test_variant_raises_on_other_inputs(dtype, D, error):
     with pytest.raises(error):
@@ -224,7 +262,7 @@ def test_variant_raises_on_other_inputs(dtype, D, error):
 
 
 @pytest.mark.parametrize("window", [0, 32])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_head_dim_112_matches_pallas(pallas, dtype, window):
     """zamba2-7b's head_dim: the Pallas kernel (interpret mode) takes any
     D; the port's plain version and its entry point on CPU tensors (the
@@ -238,9 +276,43 @@ def test_flash_attention_head_dim_112_matches_pallas(pallas, dtype, window):
     assert np.abs(plain - want).max() < TOL[dtype]
     q, k, v = _bshd_views(arrays, dtype)
     out = ops.flash_attention(q, k, v, causal=True, window=window)
-    assert fa.variant(q.dtype, 112) == ("wgmma" if dtype == "bfloat16"
-                                        else "simt")
+    assert fa.variant(q.dtype, 112) == ("simt" if dtype == "float32"
+                                        else "wgmma")
     assert out.transpose(1, 2).is_contiguous()
+    assert np.abs(out.float().numpy() - want).max() < TOL[dtype]
+
+
+# the head dims chip_smoke.py's phase 7 holds beyond the models' 16-256
+# (every branch of `variant`; mostly empty last TMA boxes), each with its
+# (B, H, Hkv, S, window) here: GQA everywhere, a window on some (S a
+# multiple of 64, as Pallas's blocks must divide it)
+_NEW_D_SHAPES = {8: (2, 4, 2, 128, 0), 40: (1, 4, 2, 128, 32),
+                 48: (1, 4, 1, 128, 0), 80: (1, 4, 2, 128, 0),
+                 96: (2, 2, 1, 128, 50), 100: (1, 4, 2, 128, 0),
+                 120: (1, 2, 2, 128, 0), 136: (1, 4, 2, 128, 64),
+                 160: (1, 2, 1, 128, 0), 192: (1, 4, 2, 64, 0),
+                 200: (1, 2, 1, 128, 100), 320: (1, 2, 1, 64, 0),
+                 512: (1, 2, 1, 64, 0)}
+
+
+@pytest.mark.parametrize("D", sorted(_NEW_D_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_new_head_dims_match_pallas(pallas, dtype, D):
+    """Every head dim of phase 7 beyond the models' own, in the three
+    dtypes: the plain version and the entry point on CPU tensors (q as
+    the (B,H,S,D) view of a (B,S,H,D) tensor) against the Pallas kernel
+    in interpret mode, on the same numpy inputs."""
+    B, H, Hkv, S, window = _NEW_D_SHAPES[D]
+    arrays = _inputs((B, H, S, D), (B, Hkv, S, D), 3 * D + H)
+    want = _reference(pallas, arrays, dtype, causal=True, window=window,
+                      block_q=64, block_k=64)
+    plain = _port(ref.flash_attention_ref, arrays, dtype, causal=True,
+                  window=window, block_k=64)
+    assert np.abs(plain - want).max() < TOL[dtype]
+    q, k, v = _bshd_views(arrays, dtype)
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              block_q=64, block_k=64)
+    assert out.dtype == q.dtype and out.transpose(1, 2).is_contiguous()
     assert np.abs(out.float().numpy() - want).max() < TOL[dtype]
 
 
@@ -250,33 +322,46 @@ def _strided(kind):
         return torch.zeros((1, 4, 64, 64))[..., ::2]
     if kind == "row_stride_72_bytes":          # bf16 rows 36 apart
         return torch.zeros((1, 4, 64, 36), dtype=torch.bfloat16)[..., :32]
-    if kind == "start_off_16_bytes":
-        return torch.zeros(4 * 64 * 32 + 1)[1:].view(1, 4, 64, 32)
+    if kind == "start_off_16_bytes":           # bf16, 2 bytes past one
+        return torch.zeros(4 * 64 * 32 + 1, dtype=torch.bfloat16)[1:].view(
+            1, 4, 64, 32)
     if kind == "row_stride_80_bytes":          # bf16 rows 40 apart
         return torch.zeros((1, 4, 64, 40), dtype=torch.bfloat16)[..., :32]
     if kind == "bshd_view":
         return torch.zeros((1, 64, 4, 32)).transpose(1, 2)
+    if kind == "simt_start_off_4_bytes":       # f32, one element past
+        return torch.zeros(4 * 64 * 32 + 1)[1:].view(1, 4, 64, 32)
+    if kind == "simt_row_stride_132_bytes":    # f32 rows 33 apart
+        return torch.zeros((1, 4, 64, 33))[..., :32]
+    if kind == "simt_last_dim_strided":        # f16 D=20: simt, still dense
+        return torch.zeros((1, 4, 64, 40), dtype=torch.float16)[..., ::2]
     raise AssertionError(kind)
 
 
 @pytest.mark.parametrize("kind,ok", [
     ("last_dim_strided", False), ("row_stride_72_bytes", False),
     ("start_off_16_bytes", False), ("row_stride_80_bytes", True),
-    ("bshd_view", True),
+    ("bshd_view", True), ("simt_start_off_4_bytes", True),
+    ("simt_row_stride_132_bytes", True), ("simt_last_dim_strided", False),
 ])
 def test_wrapper_refuses_strides_the_tma_cannot_take(kind, ok):
-    """The card's TMA needs a dense last dimension, strides of 16-byte
-    multiples and a 16-byte aligned start; the wrapper holds CPU tensors
-    to the same rules, so the CPU tests show what the card refuses."""
+    """Every kernel needs a dense last dimension.  The card's TMA (wgmma)
+    and the mma kernel's 16-byte loads need strides of 16-byte multiples
+    and a 16-byte aligned start; the simt kernel reads element by element
+    and takes any stride.  The wrapper holds CPU tensors to the rules of
+    the variant that would run them, so the CPU tests show what the card
+    refuses."""
     q = _strided(kind)
-    kv = torch.randn((1, 2, 64, 32)).to(q.dtype)
+    D = q.shape[-1]
+    name = fa.variant(q.dtype, D)
+    kv = torch.randn((1, 2, 64, D)).to(q.dtype)
     if not ok:
         with pytest.raises(ValueError):
-            fa.layout_strides(q, "q")
+            fa.layout_strides(q, "q", name)
         with pytest.raises(ValueError):
             fa.flash_attention(q, kv, kv)
         return
-    assert fa.layout_strides(q, "q") == [32] + list(q.stride()[1:3])
+    assert fa.layout_strides(q, "q", name) == [D] + list(q.stride()[1:3])
     q.copy_(torch.randn(q.shape).to(q.dtype))
     want = fa.flash_attention(q.contiguous(), kv, kv).float()
     got = fa.flash_attention(q, kv, kv).float()
@@ -375,10 +460,25 @@ CARD_CASES = [
     (1, 4, 4, 100, 100, 112, 0, True),
     (2, 4, 4, 300, 300, 112, 64, False),
     (1, 32, 32, 1024, 1024, 112, 0, True),
+    # every branch of `variant` beyond the models' head dims: mma at a
+    # width above D (8, 40, 48), wgmma on mostly empty last boxes (80, 96,
+    # 120, 136, 160, 200) and simt for 16-bit types (100, 320, 512)
+    (1, 4, 2, 200, 200, 8, 0, True),
+    (2, 4, 1, 192, 300, 40, 64, True),
+    (1, 8, 2, 256, 256, 48, 0, False),
+    (1, 4, 2, 300, 300, 80, 100, False),
+    (2, 8, 2, 1024, 1024, 96, 0, True),
+    (1, 4, 4, 130, 130, 100, 0, True),
+    (1, 4, 2, 100, 400, 120, 0, True),
+    (1, 4, 2, 300, 300, 136, 64, True),
+    (1, 2, 1, 256, 256, 160, 0, True),
+    (1, 4, 2, 200, 200, 200, 50, True),
+    (1, 2, 1, 130, 130, 320, 0, True),
+    (1, 2, 2, 100, 100, 512, 0, True),
 ]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,window,causal", CARD_CASES)
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, B, H, Hkv,
                                             Sq, Sk, D, window, causal):
@@ -390,12 +490,13 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, B, H, Hkv,
     torch.cuda.synchronize()
     name = fa.variant(td, D)
     assert fa.VARIANT_LAUNCHES[name] == launches[name] + 1
+    assert fa.DTYPE_LAUNCHES[f"{name}/{dtype}"] >= 1
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert (got.float() - want.float()).abs().max() < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [32, 112, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("D", [32, 112, 128, 256, 48, 100, 136, 320])
 def test_flash_kernel_strided_views_on_card(cuda_device, dtype, D):
     arrays = _inputs((2, 8, 300, D), (2, 2, 300, D), D)
     q, k, v = (t.to(cuda_device) for t in _bshd_views(arrays, dtype))

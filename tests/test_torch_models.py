@@ -14,7 +14,10 @@ kernel's plain version, since these tensors lie on the CPU.
 Tolerances: float32 compute agrees to 1e-5 (the two packages sum in other
 orders); bfloat16 compute to 3 % of the largest logit, since the two
 frameworks round to bfloat16 at other places (about 2 bf16 ulps of the
-largest logit were seen at these sizes).
+largest logit were seen at these sizes); float16 compute to 5e-3 of the
+largest logit: the bfloat16 limit scaled by float16's 8 times finer
+rounding (2^-11 against 2^-8) is 3.75e-3, taken with room; 1.1e-3 to
+1.5e-3 (1-1.5 float16 ulps of the largest logit) were seen at these sizes.
 """
 import dataclasses
 import functools
@@ -44,6 +47,7 @@ from repro_torch.train import steps as tsteps  # noqa: E402
 
 DENSE = ["yi-9b", "gemma3-12b", "qwen3-4b", "qwen2-7b"]
 BF16_REL = 3e-2
+F16_REL = 5e-3
 
 
 def _params(arch, seed=0):
@@ -101,6 +105,48 @@ def test_forward_matches_reference_bf16(arch, impl):
     got = TR.unembed(tcfg, tp, tx, trc)
     assert got.dtype == torch.bfloat16
     assert np.abs(_f32(got) - want).max() < BF16_REL * np.abs(want).max()
+
+
+def _batch(cfg, B, S, seed):
+    """Tokens, and whisper's frames or paligemma's patches, from a seed."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)}
+    if cfg.enc_layers:
+        b["frames"] = rng.standard_normal((B, cfg.enc_frames, cfg.d_model),
+                                          dtype=np.float32)
+    if cfg.n_patches:
+        b["patches"] = rng.standard_normal((B, cfg.n_patches, cfg.d_model),
+                                           dtype=np.float32)
+    return b
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "yi-9b", "qwen2-7b",
+                                  "zamba2-7b", "phi3.5-moe", "whisper-tiny"])
+def test_forward_and_unembed_match_reference_f16_flash(arch, monkeypatch):
+    """float16 compute on attn_impl="flash", the reference's Pallas kernel
+    in interpret mode against the port's entry point on CPU tensors: the
+    final hidden states and the logits within F16_REL of the largest, and
+    every flash call of the port made in float16."""
+    cfg, tcfg, jp, tp = _params(arch)
+    rc, trc = _rcs(seq_len=64, global_batch=2, kind="prefill",
+                   attn_impl="flash", compute_dtype="float16", remat="none")
+    b = _batch(cfg, 2, 64, 5)
+    x, *_ = JR.forward(cfg, jp, {k: jnp.asarray(v) for k, v in b.items()}, rc)
+    want = _f32(JR.unembed(cfg, jp, x, rc))
+    dtypes = []
+    real = port_fa.flash_attention
+    monkeypatch.setattr(port_fa, "flash_attention",
+                        lambda q, k, v, **kw: dtypes.append(q.dtype) or
+                        real(q, k, v, **kw))
+    tx, *_ = TR.forward(tcfg, tp, {k: torch.from_numpy(v)
+                                   for k, v in b.items()}, trc)
+    got = TR.unembed(tcfg, tp, tx, trc)
+    assert tx.dtype == got.dtype == torch.float16
+    assert dtypes and set(dtypes) == {torch.float16}
+    assert np.isfinite(want).all()
+    xs = _f32(x)
+    assert np.abs(_f32(tx) - xs).max() < F16_REL * np.abs(xs).max()
+    assert np.abs(_f32(got) - want).max() < F16_REL * np.abs(want).max()
 
 
 def test_flash_path_is_taken_only_with_a_static_window(monkeypatch):
