@@ -34,18 +34,24 @@ the last line:
      float32, bfloat16 and float16, against its plain version on the card
      (2e-5 in float32, 2e-2 in bfloat16, 5e-3 in float16), over B,
      (H, Hkv), S, D (zamba2's 112 among them), window, causal, Sq != Sk,
-     FLASH_EDGES, strided (B,S,H,D) views and NEW_HEAD_DIMS (8 to 512:
-     mma at a width above D, wgmma on mostly empty last TMA boxes, simt
-     for 16-bit types), after one short call of each compiled kernel;
+     FLASH_EDGES, strided (B,S,H,D) views, NEW_HEAD_DIMS (8 to 1024:
+     wgmma at width 64 and on mostly empty last TMA boxes, mma at
+     D % 8 != 0 at each width, simt for 16-bit types above 256 and in
+     column chunks to 1024), the layouts the TMA cannot take (LAYOUTS: a
+     last dimension of stride 2, rows D + 4 apart, a start one element
+     off, a (B,S,D,H) tensor's view) and B*H = 65,600 (element by element
+     there), after one short call of each compiled kernel;
   8. at the prefill shapes of qwen3-4b (B=2, S=4096, in bfloat16, float16
-     and float32, and one layer of prefill_32k: B=1, S=32768), a
-     gemma3-12b global layer (D=256, B=2, S=4096), zamba2-7b's shared
-     block (D=112, H=Hkv=32, B=2, S=4096) and qwen3-4b's shape at D=96,
-     80 (wgmma at width 128), 48 (mma) and 100 (simt): the kernel against
-     its plain version, element by element within a limit scaled to each
-     output, then its times beside the operations bound, the plain
-     version and scaled_dot_product_attention in the same dtype (a
-     yardstick the port never calls);
+     and float32 at D=128 and 64, and one layer of prefill_32k: B=1,
+     S=32768), a gemma3-12b global layer (D=256, B=2, S=4096), zamba2-7b's
+     shared block (D=112, H=Hkv=32, B=2, S=4096) and qwen3-4b's shape at
+     D=96, 80 (wgmma at width 128), 48 (wgmma at width 64), 100 (mma) and
+     320 (simt): the kernel against its plain version, element by element
+     within a limit scaled to each output, then its times beside the bound
+     (the largest of the products at the type's peak, the bytes, and one
+     exp2 a kept pair at 16 a clock an SM at nvidia-smi's clocks.max.sm),
+     the plain version and scaled_dot_product_attention in the same dtype
+     (a yardstick the port never calls);
   9. the main path, prefill: qwen3-4b at full width and depth (random f32
      parameters from a seed, bf16 compute) through build_prefill_step
      with attn_impl="flash" on 2 prompts of 4096 tokens; the wgmma kernel
@@ -152,7 +158,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the H100 SXM's peak rates, the denominators of every bound below
 from repro_torch.kernels.hardware import (  # noqa: E402
-    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S)
+    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S,
+    exp2_per_s)
 
 MAIN_MIB = 512
 STRIPE = 1 << 20
@@ -163,12 +170,17 @@ def emit(phase: str, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi's clocks.max.sm), the clock
+    of the exponentials' bound."""
+    return float(nvidia_smi("clocks.max.sm").split()[0])
 
 
 def rows(torch, k, n, seed, device):
@@ -480,11 +492,14 @@ FLASH_REL_TOL = {"float32": 2.0 ** -17, "bfloat16": 2.0 ** -7,
                  "float16": 2.0 ** -9}
 FLASH_ABS_TOL = {"float32": 2e-5, "bfloat16": 1e-4, "float16": 1e-4}
 # the head dims phase 7 holds beyond the models' 16-256 (every branch of
-# `variant`: mma at a width above D, wgmma on mostly empty last TMA boxes,
-# simt for 16-bit types) and the shapes it holds each at, (B, H, Hkv, Sq,
+# `variant`: wgmma at width 64 (8-56) and on mostly empty last TMA boxes,
+# mma for D % 8 != 0 at each width (20, 100, 250), simt for 16-bit types
+# above 256 and in column chunks beyond 128 (up to 1024)) and the shapes
+# it holds each at, (B, H, Hkv, Sq,
 # Sk, window, causal, strided): GQA, a window, Sq != Sk (Sq > Sk too),
 # a window without causal on strided views, a longer sequence
-NEW_HEAD_DIMS = (8, 40, 48, 80, 96, 100, 120, 136, 160, 192, 200, 320, 512)
+NEW_HEAD_DIMS = (8, 20, 24, 40, 48, 56, 80, 96, 100, 120, 136, 160, 192,
+                 200, 250, 320, 512, 520, 768, 1024)
 NEW_HEAD_DIM_SHAPES = ((1, 4, 2, 192, 192, 0, True, False),
                        (2, 4, 4, 300, 300, 100, True, False),
                        (1, 8, 2, 100, 257, 0, True, False),
@@ -494,16 +509,35 @@ NEW_HEAD_DIM_SHAPES = ((1, 4, 2, 192, 192, 0, True, False),
 
 
 def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev, strided=False):
-    """q (B,H,Sq,D), k, v (B,Hkv,Sk,D) from `seed`; `strided` gives the
-    (B,H,S,D) views of (B,S,H,D) tensors, as the model passes them."""
+    """q (B,H,Sq,D), k, v (B,Hkv,Sk,D) from `seed`.  `strided`: True gives
+    the (B,H,S,D) views of (B,S,H,D) tensors, as the model passes them;
+    the layouts the TMA cannot take (LAYOUTS): "col2" a last dimension of
+    stride 2, "row_pad4" rows D + 4 elements apart, "off1" a start one
+    element past an aligned one, "perm" the dense (B,H,S,D) view of a
+    (B,S,D,H) tensor (column stride H; the output, empty_like(q), takes
+    the same strides)."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    layouts = {
+        False: (lambda h, S: (B, h, S, D), lambda x, h, S: x),
+        True: (lambda h, S: (B, S, h, D), lambda x, h, S: x.transpose(1, 2)),
+        "col2": (lambda h, S: (B, h, S, 2 * D), lambda x, h, S: x[..., ::2]),
+        "row_pad4": (lambda h, S: (B, h, S, D + 4),
+                     lambda x, h, S: x[..., :D]),
+        "off1": (lambda h, S: (B * h * S * D + 1,),
+                 lambda x, h, S: x[1:].view(B, h, S, D)),
+        "perm": (lambda h, S: (B, S, D, h),
+                 lambda x, h, S: x.permute(0, 3, 1, 2))}
+    shape, view = layouts[strided]
 
     def mk(heads, S):
-        if strided:
-            return torch.randn(B, S, heads, D, generator=g, device=dev).to(
-                dtype).transpose(1, 2)
-        return torch.randn(B, heads, S, D, generator=g, device=dev).to(dtype)
+        x = torch.randn(shape(heads, S), generator=g, device=dev).to(dtype)
+        return view(x, heads, S)
     return mk(H, Sq), mk(Hkv, Sk), mk(Hkv, Sk)
+
+
+# the layouts the TMA cannot take, which the mma (16-bit) and simt kernels
+# read in place (see qkv)
+LAYOUTS = ("col2", "row_pad4", "off1", "perm")
 
 
 # K3's edges beyond the grid of check_flash, (B, H, Hkv, Sq, Sk, D, window,
@@ -552,19 +586,31 @@ def check_flash(torch, fa, ref, dev) -> dict:
     cases += [(B, H, Hkv, Sq, Sk, D, w, c, strided)
               for D in NEW_HEAD_DIMS
               for B, H, Hkv, Sq, Sk, w, c, strided in NEW_HEAD_DIM_SHAPES]
+    # the layouts the TMA cannot take, read in place by mma and simt
+    cases += [(2, 4, 2, Sq, Sk, D, w, c, layout)
+              for layout in LAYOUTS for D in (20, 32, 64, 100, 128, 320)
+              for Sq, Sk, w, c in ((300, 300, 0, True), (192, 257, 100,
+                                                         False))]
+    # B*H above 65535 (grid x): wgmma/simt at D=64, mma/simt at D=100
+    cases += [(2, 32800, 8200, 16, 16, D, 0, True, False) for D in (64, 100)]
     n, scaled, held = 0, [], {}
+    by_variant = dict.fromkeys(fa.VARIANTS, 0.0)
     before = dict(fa.VARIANT_LAUNCHES)
     for dname in FLASH_TOL:
         dtype = getattr(torch, dname)
         for i, (B, H, Hkv, Sq, Sk, D, w, c, strided) in enumerate(cases):
             q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, i, dev, strided)
+            name = fa.route(q, k, v)
             got = fa.flash_attention(q, k, v, causal=c, window=w)
             want = ref.flash_attention_ref(q, k, v, causal=c, window=w)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            if dname != "float32" and Sk >= 1000 and (
+            many = B * H > 65535
+            if many or dname != "float32" and Sk >= 1000 and (
                     B, H, Hkv, Sq, Sk, D, w, c) in FLASH_EDGES:
-                # at long S a fixed limit is loose: hold it element by element
+                # at long S a fixed limit is loose, and over B*H = 65,600
+                # rows of 16 keys outputs reach past 4, where one bf16
+                # rounding exceeds it: hold these element by element
                 check = check_flash_scaled(torch, ref, got, want, q, k, v,
                                            causal=c, window=w)
                 scaled.append({"dtype": dname, "B": B, "H": H, "Hkv": Hkv,
@@ -577,46 +623,57 @@ def check_flash(torch, fa, ref, dev) -> dict:
                         f"Sq={Sq} Sk={Sk} D={D} window={w} causal={c} "
                         f"strided={strided} differs from its plain version:"
                         f" {check}")
-            if not err <= FLASH_TOL[dname]:
+            if not many and not err <= FLASH_TOL[dname]:
                 raise AssertionError(
                     f"flash_attention {dname} B={B} H={H} Hkv={Hkv} Sq={Sq} "
                     f"Sk={Sk} D={D} window={w} causal={c} strided={strided}"
-                    f" ({fa.variant(dtype, D)}): max abs err {err} > "
+                    f" ({name}): max abs err {err} > "
                     f"{FLASH_TOL[dname]}")
             if Sq > Sk and c:            # rows before the first key are 0
                 if got[:, :, :Sq - Sk].abs().max() != 0:
                     raise AssertionError("a row that keeps no key is not 0")
-            worst[dname] = max(worst[dname], err)
-            held.setdefault(fa.variant(dtype, D), set()).add((dname, D))
+            if not many:
+                worst[dname] = max(worst[dname], err)
+                by_variant[name] = max(by_variant[name], err)
+            held.setdefault(name, set()).add((dname, D))
             n += 1
+            del q, k, v, got, want
     ran = {k: v - before[k] for k, v in fa.VARIANT_LAUNCHES.items()}
     head_dims = {name: {dn: sorted(D for d, D in pairs if d == dn)
                         for dn in FLASH_TOL}
                  for name, pairs in sorted(held.items())}
     emit("kernel_check", kernel="flash_attention", shapes=n,
-         max_abs_err=worst, tolerance=FLASH_TOL, variant_launches=ran,
+         max_abs_err=worst, max_abs_err_by_variant=by_variant,
+         tolerance=FLASH_TOL, variant_launches=ran,
          head_dims=head_dims, edges_over_scaled_limit=scaled)
     if not all(ran.values()):
         raise AssertionError(f"a flash variant was never checked: {ran}")
-    return {"max_abs_err": worst, "shapes": n,
+    return {"max_abs_err": worst, "by_variant": by_variant, "shapes": n,
             "head_dims": sorted({D for pairs in held.values()
                                  for _, D in pairs})}
 
 
-def flash_cost(B, H, Hkv, S, D, dtype) -> tuple[float, float, float, str]:
-    """flops and bytes of causal attention at Sq == Sk == S in `dtype` (a
-    name), and the bound (ms) with what sets it: the operations at the
-    card's peak for the type (the tensor cores' for 16-bit types, FMA for
-    float32)."""
-    flops = 4.0 * B * H * D * (S * (S + 1) / 2)    # QK^T and PV, kept pairs
+def flash_cost(B, H, Hkv, S, D, dtype, clock_mhz) -> dict:
+    """flops, bytes and exponentials of causal attention at Sq == Sk == S
+    in `dtype` (a name), and the bound (ms): the largest of three terms,
+    the products at the card's peak for the type (the tensor cores' for
+    16-bit types, FMA for float32), the bytes (each input read once, the
+    output written once) at the memory rate, and one exp2 a kept (query,
+    key) pair at the special function units' rate at `clock_mhz`.
+    `bound_by` is "operations" (products or exp2) or "bytes", `term` the
+    term itself."""
+    pairs = B * H * (S * (S + 1) / 2)
+    flops = 4.0 * D * pairs                        # QK^T and PV, kept pairs
     itemsize = 4 if dtype == "float32" else 2
     nbytes = itemsize * (2 * B * H * S * D + 2 * B * Hkv * S * D)
     peak = F32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S
-    by_ops = flops / peak * 1e3
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if by_ops >= by_bytes:
-        return flops, nbytes, by_ops, "operations"
-    return flops, nbytes, by_bytes, "bytes"
+    terms = {"products": flops / peak * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "exp2": pairs / exp2_per_s(clock_mhz) * 1e3}
+    term = max(terms, key=terms.get)
+    return {"flops": flops, "bytes": nbytes, "exp2": pairs,
+            "bound_ms": terms[term], "terms_ms": terms, "term": term,
+            "bound_by": "bytes" if term == "bytes" else "operations"}
 
 
 def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
@@ -648,11 +705,13 @@ def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
 
 
 # K3's timed shapes, causal: the qwen3-4b prefill of the main path in bf16
-# and float16 (phase 9b) and float32, one layer of qwen3-4b's prefill_32k,
-# a global layer of gemma3-12b (D=256), zamba2-7b's shared block (D=112,
-# H = Hkv = 32), and head dims off the compiled widths at the main path's
-# shape: 96 and 80 on the 128-wide wgmma pipeline, 48 on mma, 100 on simt
-# (name, dtype, B, H, Hkv, S, D, reps)
+# and float16 (phase 9b) and float32 (D=128 and 64), one layer of
+# qwen3-4b's prefill_32k, a global layer of gemma3-12b (D=256), zamba2-7b's
+# shared block (D=112, H = Hkv = 32), and head dims off the compiled widths
+# at the main path's shape: 96 and 80 on the 128-wide wgmma pipeline, 48 on
+# the 64-wide one, 100 on mma, 320 on simt; each name ends in the variant
+# that runs it where that is not wgmma (name, dtype, B, H, Hkv, S, D,
+# reps)
 FLASH_TIMED = (("main", "bfloat16", 2, 32, 8, 4096, 128, 9),
                ("prefill_32k", "bfloat16", 1, 32, 8, 32768, 128, 3),
                ("gemma3_d256", "bfloat16", 2, 16, 8, 4096, 256, 9),
@@ -660,9 +719,11 @@ FLASH_TIMED = (("main", "bfloat16", 2, 32, 8, 4096, 128, 9),
                ("main_f16", "float16", 2, 32, 8, 4096, 128, 9),
                ("d96", "bfloat16", 2, 32, 8, 4096, 96, 9),
                ("d80", "bfloat16", 2, 32, 8, 4096, 80, 9),
-               ("d48_mma", "bfloat16", 2, 32, 8, 4096, 48, 3),
-               ("d100_simt", "bfloat16", 2, 32, 8, 4096, 100, 3),
-               ("main_f32", "float32", 2, 32, 8, 4096, 128, 3))
+               ("d48_wgmma", "bfloat16", 2, 32, 8, 4096, 48, 9),
+               ("d100_mma", "bfloat16", 2, 32, 8, 4096, 100, 9),
+               ("d320_simt", "bfloat16", 2, 32, 8, 4096, 320, 3),
+               ("main_f32", "float32", 2, 32, 8, 4096, 128, 3),
+               ("f32_d64", "float32", 2, 32, 8, 4096, 64, 3))
 
 
 def time_flash(torch, fa, ref, dev) -> dict:
@@ -673,6 +734,7 @@ def time_flash(torch, fa, ref, dev) -> dict:
     the library call (scaled_dot_product_attention in the same dtype, a
     yardstick only) are timed."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    clock = sm_clock_mhz()
     out = {}
     for name, dname, B, H, Hkv, S, D, reps in FLASH_TIMED:
         q, k, v = qkv(torch, B, H, Hkv, S, S, D, getattr(torch, dname), 7,
@@ -687,7 +749,7 @@ def time_flash(torch, fa, ref, dev) -> dict:
         pool = [(q, k, v)]
         views = [tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
                        for t in (q, k, v))]
-        flops, nbytes, b, by = flash_cost(B, H, Hkv, S, D, dname)
+        cost = flash_cost(B, H, Hkv, S, D, dname, clock)
         kern = time_on_card(torch, lambda t: fa.flash_attention(*t), pool,
                             reps)
         strided = time_on_card(torch, lambda t: fa.flash_attention(*t),
@@ -696,16 +758,23 @@ def time_flash(torch, fa, ref, dev) -> dict:
                              pool, reps)
         lib = time_on_card(torch, lambda t: sdpa(*t, is_causal=True,
                                                  enable_gqa=True), pool, reps)
+        variant = fa.route(q, k, v)
         out[name] = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
-                     "dtype": dname, "variant": fa.variant(q.dtype, D),
-                     "width": fa.width(fa.variant(q.dtype, D), D),
-                     "check": check, "flops": flops, "bytes": nbytes,
+                     "dtype": dname, "variant": variant,
+                     "strided_variant": fa.route(*views[0]),
+                     "width": fa.width(variant, D),
+                     "check": check, "flops": cost["flops"],
+                     "bytes": cost["bytes"], "exp2": cost["exp2"],
                      "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
                      "strided_ms": strided["graph_ms"],
                      "plain_ms": plain["graph_ms"],
-                     "library_ms": lib["graph_ms"], "bound_ms": b,
-                     "bound_by": by, "bound_share": b / kern["graph_ms"],
-                     "tflops": flops / kern["graph_ms"] / 1e9}
+                     "library_ms": lib["graph_ms"],
+                     "bound_ms": cost["bound_ms"],
+                     "bound_by": cost["bound_by"], "bound_term": cost["term"],
+                     "bound_terms_ms": cost["terms_ms"],
+                     "bound_share": cost["bound_ms"] / kern["graph_ms"],
+                     "sm_clock_mhz": clock,
+                     "tflops": cost["flops"] / kern["graph_ms"] / 1e9}
         del q, k, v, pool, views
         torch.cuda.empty_cache()
     emit("kernel_time", kernel="flash_attention", **out)
@@ -2491,32 +2560,32 @@ def parallel(torch, fa, dev, smi) -> dict:
     return out
 
 
-# one head dim per wgmma kernel: width 64; width 128 at 5-8 k16 steps of
-# Q K^T; width 256 at 12 and 16
-WGMMA_FIRST_DIMS = [64, 72, 96, 112, 128, 136, 256]
+# one head dim per wgmma kernel: width 64 at 1-4 k16 steps of Q K^T; width
+# 128 at 5-8; width 256 at 12 and 16
+WGMMA_FIRST_DIMS = [8, 24, 40, 56, 72, 96, 112, 128, 136, 256]
 
 
 def first_flash_calls(torch, fa, ref, dev):
     """One short call of each compiled kernel, checked before anything
-    heavier runs: a fault of the wgmma pipeline shows here in seconds.
-    wgmma has a kernel per width and Q K^T step count (WGMMA_FIRST_DIMS
-    holds one D of each; 72 and 136 leave a last TMA box mostly empty),
-    mma and simt one per width (mma at width / 2 + 8, simt at width - 4,
-    which no tensor-core variant takes)."""
+    heavier runs: a fault of a pipeline shows here in seconds.  wgmma has
+    a kernel per width and Q K^T step count (WGMMA_FIRST_DIMS holds one D
+    of each; most leave a last TMA box mostly empty), mma one per width
+    (at width / 2 + 4, which is no multiple of 8), simt one per column
+    chunk in float32 (at width - 4) and one for 16-bit types (D = 300)."""
     for dname in FLASH_TOL:
         dtype = getattr(torch, dname)
-        dims = []
-        if dname != "float32":
-            dims += WGMMA_FIRST_DIMS
-            dims += [w // 2 + 8 for w in fa.WIDTHS["mma"]]
-        dims += [w - 4 for w in fa.WIDTHS["simt"]]
+        if dname == "float32":
+            dims = [w - 4 for w in fa.WIDTHS["simt"]]
+        else:
+            dims = WGMMA_FIRST_DIMS + [w // 2 + 4 for w in fa.WIDTHS["mma"]]
+            dims += [300]
         for D in dims:
             q, k, v = qkv(torch, 1, 2, 1, 300, 300, D, dtype, D, dev)
+            name = fa.route(q, k, v)
             got = fa.flash_attention(q, k, v)
             torch.cuda.synchronize()
             err = float((got.float() - ref.flash_attention_ref(q, k, v)
                          .float()).abs().max())
-            name = fa.variant(dtype, D)
             emit("kernel_first_call", kernel="flash_attention", dtype=dname,
                  D=D, variant=name, width=fa.width(name, D),
                  max_abs_err=err)
@@ -2646,7 +2715,16 @@ def run(mode: str = "") -> int:
 
     k4, fm, fz = times[4], flash_times["main"], flash_times["zamba2_d112"]
     timed_keys = ("B", "H", "Hkv", "S", "D", "variant", "ms", "strided_ms",
-                  "plain_ms", "bound_ms", "bound_by", "library_ms")
+                  "plain_ms", "bound_ms", "bound_by", "bound_term",
+                  "library_ms")
+    # each variant at its timed shape: wgmma on the main path, mma at bf16
+    # D=100, simt at f32 D=128
+    variants = [{"name": name, "shape": shape,
+                 "launches": prefill["variant_launches"].get(name, 0),
+                 "max_abs_err": flash_err["by_variant"][name],
+                 **{k: flash_times[shape][k] for k in timed_keys}}
+                for name, shape in (("wgmma", "main"), ("mma", "d100_mma"),
+                                    ("simt", "main_f32"))]
     print(json.dumps({"kernels": [{
         "name": "xor_parity", "route": "cuda",
         "source": "src/repro_torch/csrc/xor_parity.cu",
@@ -2673,6 +2751,7 @@ def run(mode: str = "") -> int:
         "plain_ms": fm["plain_ms"],
         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
         "library_ms": fm["library_ms"],
+        "variants": variants,
         "family_variant_launches": fams["launches"],
         "mesh_launches": par["prefill"]["launches"],
         "d112": {k: fz[k] for k in timed_keys},

@@ -9,17 +9,19 @@
 // (window > 0, with or without causal).  A masked key weighs exactly 0, so
 // a row that keeps no key is 0.  Query head h reads key/value head
 // h / (H / Hkv) by index, with no copy.  Every tensor is addressed through
-// its batch, head and row strides (the last dimension is contiguous), so
-// (B,S,H,D) activations are read and written in place through their
-// transposed views.  Like the Pallas kernel, it takes float16, bfloat16
-// and float32 and any head dim D, here from 1 to 512.
+// its batch, head, row and column strides, so (B,S,H,D) activations,
+// strided and misaligned views are read and written in place.  Like the
+// Pallas kernel, it takes float16, bfloat16 and float32, any head dim D
+// and any B*H (b*H + h is the grid's x everywhere).
 //
-// Bound: operations.  Per (query, kept key) pair the kernel does 4*D
-// flops and reads each input once, so at the prefill shapes of qwen3-4b
-// (B=2, S=4096, H=32, D=128, causal: 2.75e11 flop a layer) the least time
-// is 0.278 ms at 989 TFLOP/s bf16 or fp16 against 0.05 ms to move the
-// bytes at 3.35 TB/s.  Only Hopper's warpgroup MMA (`wgmma`) reaches that
-// rate.
+// Bound: at D >= 64 in a 16-bit type, operations.  Per (query, kept key)
+// pair the kernel does 4*D flops and one exp2 and reads each input once,
+// so at the prefill shapes of qwen3-4b (B=2, S=4096, H=32, D=128, causal:
+// 2.75e11 flop a layer) the least time is 0.278 ms at 989 TFLOP/s bf16 or
+// fp16 against 0.128 ms for the 5.4e8 exp2 (16 a clock an SM) and 0.05 ms
+// to move the bytes at 3.35 TB/s; below D = 64 the exp2 set it.  Only
+// Hopper's warpgroup MMA (`wgmma`) reaches the tensor rate.  In float32
+// the bound is the FMA rate (67 TFLOP/s): 4.1 ms there.
 //
 // The TPU kernel's grid (B*H, Sq/bq, Sk/bk) runs in order on one core and
 // carries the softmax state in VMEM across its third dimension.  Here one
@@ -27,14 +29,18 @@
 // in a loop, with the softmax state in registers.  Only the tiles that
 // some row of the block can see are visited (the causal and window bounds
 // of the loop), which skips what the TPU kernel skips with `pl.when`.
-// Three kernels, chosen by the wrapper's `variant(dtype, D)`; each is
-// compiled for a few pipeline widths W and runs any D <= W, the columns
-// past D read as zeros and never stored:
+// Every kernel masks element by element only on tiles that cross the
+// causal diagonal, the window edge or the end of the keys, takes exp2 with
+// scale * log2(e) folded into one FMA, and starts the query tiles with the
+// most keys first (the slow grid dimension, last tile first), so the tail
+// of the grid holds the short ones.  Three kernels, chosen by the
+// wrapper's `route` by dtype, D and layout:
 //
-//   * float16 or bfloat16, D % 8 == 0, 64 <= D <= 256 (`flash_fwd_wgmma`,
-//     W = 64, 128 or 256), the model path.  FlashAttention-3's shape: a
-//     block of 3 warpgroups owns 128 query rows.  What each choice does
-//     about the bound:
+//   * `flash_fwd_wgmma`: float16 or bfloat16, D % 8 == 0, D <= 256, on
+//     layouts the TMA takes (dense last dimension, 16-byte aligned start
+//     and strides), at width W = 64, 128 or 256; the model path.
+//     FlashAttention-3's shape: a block of 3 warpgroups owns 128 query
+//     rows.  What each choice does about the bound:
 //       - a producer warpgroup (one thread) keeps K/V tiles in flight by
 //         TMA into a 2-stage shared-memory ring under mbarriers, so no
 //         load waits for a product and the computing warps spend no
@@ -49,39 +55,60 @@
 //         ever written;
 //       - KV tiles of 128 keys (64 at W=256, for registers and shared
 //         memory: 160 KB at W=128, 192 KB at W=256, one block an SM);
-//       - D below W (zamba2's 112, or 72, 96, 136 ...): the tensor maps
-//         have an inner dimension of D, so the 64-column boxes read the
-//         columns past D as TMA's out-of-bounds zeros (nothing is padded
-//         or copied in device memory), and only the boxes that hold data
-//         are loaded.  Q K^T takes the ceil(D/16) k16 steps that hold
-//         data (at W = 256 whole panels of 4), the step count a template
-//         parameter, so each count is a kernel of its own with no branch
-//         in its pipeline; P V runs at N=W and its columns past D are not
-//         stored;
-//       - the per-element mask runs only on tiles that cross the causal
-//         diagonal, the window edge or the end of the keys, as two
-//         compares a logit against per-row bounds (each register's column
-//         is a compile-time constant); TMA's out-of-bounds zero fill gives
-//         the ragged last tile its zeros;
-//       - exp2 with scale * log2(e) folded into one FMA a weight;
-//       - the grid puts the query tile in its slow dimension, last tile
-//         first, so the blocks with the most keys start in the first wave
-//         and the tail holds the short ones.
+//       - D below W (8-56 at W = 64, zamba2's 112, or 72, 96, 136 ...):
+//         the tensor maps have an inner dimension of D, so the 64-column
+//         boxes read the columns past D as TMA's out-of-bounds zeros
+//         (nothing is padded or copied in device memory), and only the
+//         boxes that hold data are loaded.  Q K^T takes the ceil(D/16) k16
+//         steps that hold data (at W = 256 whole panels of 4), the step
+//         count a template parameter, so each count is a kernel of its own
+//         with no branch in its pipeline; P V runs at N=W and its columns
+//         past D are not stored.
 //     The two consumers run independently, so one's softmax overlaps the
 //     other's products.  FlashAttention-3's overlap inside a warpgroup
 //     (the next tile's Q K^T issued before this tile's softmax) and a
 //     ping-pong of the consumers on named barriers were measured slower or
 //     no faster (ptxas spills the larger live set and serialises the
 //     wgmma); PERF.md has the numbers.
-//   * float16 or bfloat16, D % 8 == 0, D < 64 (`flash_fwd_mma`, W = 16, 32
-//     or 64): mma.sync m16n8k16, 4 warps x 16 query rows, 64 keys a tile,
-//     synchronous 16-byte tile loads that write zeros past D.
-//   * float32 at any D, and float16 or bfloat16 where no tensor-core route
-//     applies (D % 8 != 0, or D > 256) (`flash_fwd_simt`, W = 32 ... 512):
-//     plain FMA in float32 from tiles converted to float32 in shared
-//     memory, 4 warps x 4 query rows, 32 keys a tile (one per lane).
-//     Shared memory (about 320 D bytes) sets the cap: D = 512 takes 164
-//     KB of the 227 KB a block may have.  Right, but slow.
+//   * `flash_fwd_mma`: float16 or bfloat16 at D <= 256 on what the TMA
+//     cannot take (D % 8 != 0, strides or a start off 16 bytes, a strided
+//     last dimension), at W = 32, 64, 96, 112, 128, 160, 192 or 256.
+//     Bound as above; what it does about it without the TMA:
+//       - mma.sync m16n8k16: 4 warps, each 32 query rows (two 16-row
+//         tiles, so every K and V fragment feeds two products) up to
+//         W = 128 and 16 above (for registers), 64 keys a tile (32 at
+//         256); every product runs all W/16 steps (zeros past D), so no
+//         branch breaks the schedule;
+//       - K and V through a 2-stage ring by cp.async, tile t + 1's copies
+//         in flight during tile t's products: 16 bytes a copy where rows,
+//         strides and start allow, 8 or 4 where they are only so aligned,
+//         element by element otherwise; rows padded 16 bytes past W, so the
+//         8 rows an ldmatrix reads fall on 8 bank groups, and zeros past
+//         D.  8-byte copies cost 35 % at D=112 (1.40 against 1.04 ms);
+//         16-byte copies of the covering aligned chunks, shifted into place
+//         by the copying threads, measured slower still (1.61 ms at D=100),
+//         and so did a 3-stage ring of 32-key tiles with one barrier a tile
+//         (1.54 ms);
+//       - Q's fragments by ldmatrix (kept in registers at W <= 64), K's by
+//         ldmatrix, V's by ldmatrix.trans;
+//       - the output staged in Q's rows, then stored through o's strides
+//         16, 8, 4 or 2 bytes a copy.
+//     wgmma fed by cp.async from 128 producer threads into TMA's swizzle
+//     measured 22 % slower than this at D=100 (1.65 against 1.35 ms;
+//     PERF.md).
+//   * `flash_fwd_simt`: float32 at any D, and float16 or bfloat16 above
+//     D = 256: float32 FMA, no TF32, bound by the FMA rate.  A block of 4
+//     warps owns 64 query rows; thread (rg, kg) holds an 8 x 4 register
+//     tile of S (rows rg + 8 i, keys kg + 16 j) and an 8 x DC/16 tile of O,
+//     so every 16-byte shared load feeds 8 or 16 FMAs.  DC (32, 64 or 128)
+//     output columns a block, a grid dimension of ceil(D / DC) column
+//     chunks over D, each recomputing S over all of D in 32-column chunks:
+//     any D runs.  K chunks, V half-tiles (and Q chunks where Q does not
+//     stay in shared memory with two blocks an SM) stream through a
+//     3-slot ring by cp.async (16 bytes a copy where the layout allows,
+//     else 4), one barrier a step; 16-bit inputs come raw by cp.async and
+//     each thread converts its own copies to float32 in shared memory.  P
+//     goes through shared memory into P V.
 //
 // 16-bit products are exact in float32, so Q K^T differs from the
 // reference only in summation order; P is rounded to q's type for the P V
@@ -117,9 +144,14 @@ struct Params {
   int B, H, Hkv, Sq, Sk, D;
   int causal, window;
   float scale;
-  // element strides of batch, head and row; the last dimension is dense
-  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-      o_ss;
+  // element strides of batch, head, row and column (a dimension of size 1
+  // may have any)
+  int64_t q_sb, q_sh, q_ss, q_sd, k_sb, k_sh, k_ss, k_sd, v_sb, v_sh, v_ss,
+      v_sd, o_sb, o_sh, o_ss, o_sd;
+  // elements a copy of the mma and simt kernels moves: 8, 4 or 2 (16 bytes'
+  // worth at most, the column stride 1, start, strides and D multiples of
+  // it), or 1 (element by element, any strides)
+  int q_vec, k_vec, v_vec, o_vec;
 };
 
 template <typename T>
@@ -164,35 +196,222 @@ __device__ __forceinline__ void kv_range(const Params& p, int q_first,
   if (p.window > 0) kbeg = max(0, q_first - p.window + 1);
 }
 
+// ------------------------------------------------------- copies and fragments
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// N bytes (4, 8 or 16) from global `src` to shared `dst`, asynchronously;
+// zeros when !ok (then nothing is read).
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         bool ok) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(N), "r"(ok ? N : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// four 8x8 16-bit matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and register i receives matrix i (`.trans`:
+// transposed)
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Thread tid's share of `rows` x `per_row` items, i = tid, tid + kThreads,
+// ...: calls f(r, j) for each, the row and column stepped without a
+// division per item.
+template <typename F>
+__device__ __forceinline__ void for_items(int rows, int per_row, int tid,
+                                          F&& f) {
+  const int dr = kThreads / per_row, dc = kThreads - dr * per_row;
+  int r = tid / per_row, j = tid - r * per_row;
+  while (r < rows) {
+    f(r, j);
+    j += dc;
+    r += dr;
+    if (j >= per_row) {
+      j -= per_row;
+      ++r;
+    }
+  }
+}
+
 // ------------------------------------------------------------ float32 FMA
 
 namespace simt {
-constexpr int kRows = 4;             // query rows per warp
-constexpr int kBQ = 4 * kRows;       // query rows per block
-constexpr int kBK = 32;              // keys per tile, one per lane
-// floats of a shared-memory row of Q and V: D rounded up to whole float4
-// reads (zeros past D); a K row has 4 more, so that the lanes' float4
-// reads of their own rows spread over the banks
-__host__ __device__ inline int row(int D) { return (D + 3) / 4 * 4; }
-inline size_t smem_bytes(int D) {
-  const int r = row(D);
-  return sizeof(float) * (kBQ * r + kBK * (r + 4) + kBK * r);
+constexpr int kBQ = 64;           // query rows a block
+constexpr int kBK = 64;           // keys a tile
+constexpr int kKC = 32;           // D columns of a K (or streamed Q) chunk
+constexpr int kLdC = kKC + 4;     // row stride of such a chunk (floats)
+constexpr int kLdP = kBK + 16;    // row stride of P: the two rows a warp
+                                  // writes at once fall on other banks
+// shared memory a block may take so that two fit on an SM (228 KB, less
+// 1 KB reserved a block)
+constexpr int kTwoBlocks = 233472 / 2 - 1024;
+constexpr int kSlots = 3;         // the copy ring
+// floats of a ring slot: a K chunk and a streamed Q chunk, or half a V
+// tile (kBK / 2 keys x DC columns)
+template <int DC>
+__host__ __device__ constexpr int slot_floats() {
+  return 2 * kBQ * kLdC > (kBK / 2) * (DC + 4) ? 2 * kBQ * kLdC
+                                               : (kBK / 2) * (DC + 4);
+}
+__host__ __device__ inline int q_cols(int D) {
+  return (D + kKC - 1) / kKC * kKC;
+}
+// floats of the raw 16-bit staging of a step: 4096 elements, a K chunk
+// and a streamed Q chunk (2 x 64 x 32) or half a V tile at DC = 128
+// (32 x 128)
+constexpr int kRawFloats = kBK * kKC;
+// shared memory without Q, and whether Q (D rounded up to kKC, as float32)
+// stays in shared memory: where two blocks still fit an SM; else its
+// chunks stream through the ring beside K's
+template <typename T, int DC>
+__host__ __device__ constexpr int base_bytes() {
+  return 4 * (kSlots * slot_floats<DC>() + kBQ * kLdP +
+              (std::is_same_v<T, float> ? 0 : kRawFloats));
+}
+template <typename T, int DC>
+__host__ __device__ inline bool q_resident(int D) {
+  return base_bytes<T, DC>() + 4 * kBQ * (q_cols(D) + 4) <= kTwoBlocks;
+}
+template <typename T, int DC>
+size_t smem_bytes(int D) {
+  return base_bytes<T, DC>() +
+         (q_resident<T, DC>(D) ? 4 * kBQ * (q_cols(D) + 4) : 0);
+}
+
+// Copies the rows x cols block at columns [col0, col0 + cols) of a float32
+// tensor (row r, column c at src + r * ss + c * sd) into dst (row stride ld)
+// by cp.async: 16 bytes a copy when vec4 (column stride 1, start, strides
+// and D multiples of 4 elements), else 4; rows from `valid` and columns from
+// D on are zeros.
+__device__ __forceinline__ void copy_f32(float* dst, int ld, const float* src,
+                                         int64_t ss, int64_t sd, int rows,
+                                         int cols, int valid, int col0, int D,
+                                         bool vec4, int tid) {
+  if (vec4) {
+    const int per_row = cols / 4;
+    for (int i = tid; i < rows * per_row; i += kThreads) {
+      const int r = i / per_row, c = (i - r * per_row) * 4, col = col0 + c;
+      const bool ok = r < valid && col < D;
+      cp_async<16>(smem_u32(dst + r * ld + c), ok ? src + r * ss + col : src,
+                   ok);
+    }
+  } else {
+    for (int i = tid; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols, col = col0 + c;
+      const bool ok = r < valid && col < D;
+      cp_async<4>(smem_u32(dst + r * ld + c),
+                  ok ? src + r * ss + (int64_t)col * sd : src, ok);
+    }
+  }
+}
+
+// The same block of a 16-bit tensor, converted on its way into shared
+// memory.  With vec 8, 4 or 2 (elements a copy: column stride 1, start,
+// strides and D multiples of it) `copy16` brings the raw 16-bit block into
+// `raw` (rows x cols, dense) by cp.async, and `convert16`, once this
+// thread's copies have landed, writes the elements it copied into dst as
+// float32: no registers hold the block in between.  With vec 1 (any
+// strides) `convert16` loads element by element from src itself.
+template <typename T>
+__device__ __forceinline__ void copy16(uint16_t* raw, const T* src,
+                                       int64_t ss, int rows, int cols,
+                                       int valid, int col0, int D, int vec,
+                                       int tid) {
+  if (vec == 1) return;
+  const int per_row = cols / vec;
+  for (int i = tid; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * vec, col = col0 + c;
+    const bool ok = r < valid && col < D;
+    const T* g = ok ? src + r * ss + col : src;
+    const uint32_t d = smem_u32(raw + r * cols + c);
+    if (vec == 8) cp_async<16>(d, g, ok);
+    else if (vec == 4) cp_async<8>(d, g, ok);
+    else cp_async<4>(d, g, ok);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void convert16(float* dst, int ld,
+                                          const uint16_t* raw, const T* src,
+                                          int64_t ss, int64_t sd, int rows,
+                                          int cols, int valid, int col0,
+                                          int D, int vec, int tid) {
+  if (vec == 1) {
+    for (int i = tid; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols, col = col0 + c;
+      dst[r * ld + c] = r < valid && col < D
+                            ? to_f32(src[r * ss + (int64_t)col * sd])
+                            : 0.f;
+    }
+    return;
+  }
+  const int per_row = cols / vec;
+  for (int i = tid; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * vec;
+    const T* x = reinterpret_cast<const T*>(raw + r * cols + c);
+    for (int e = 0; e < vec; ++e) dst[r * ld + c + e] = to_f32(x[e]);
+  }
 }
 }  // namespace simt
 
-// T: the inputs' and output's type; W: a multiple of 32 >= D, the
-// accumulator columns a lane holds (W / 32).
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads)
+// T: the inputs' and output's type; DC: the output columns a block computes
+// (32, 64 or 128; a grid dimension of ceil(D / DC) column chunks covers D).
+// Thread (rg, kg) = (tid / 16, tid % 16) holds rows rg + 8 i (i < 8) of the
+// block: the scores of keys kg + 16 j (j < 4) of the tile, and O at
+// DC / 16 columns.
+template <typename T, int DC>
+__global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_simt(const Params p) {
   using namespace simt;
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  constexpr int kSlot = slot_floats<DC>();
+  constexpr int kCols = DC / 16;          // O columns a thread holds
+  constexpr int kLdV = DC + 4;
   extern __shared__ __align__(16) float smem[];
-  const int D = p.D, R = row(D);
-  float* Qs = smem;                  // [kBQ][R]
-  float* Ks = Qs + kBQ * R;          // [kBK][R + 4]
-  float* Vs = Ks + kBK * (R + 4);    // [kBK][R]
+  float* ring = smem;                     // [kSlots][kSlot]
+  float* Ps = ring + kSlots * kSlot;      // [kBQ][kLdP]
+  uint16_t* raw = reinterpret_cast<uint16_t*>(Ps + kBQ * kLdP);  // 16-bit
+  float* Qs = Ps + kBQ * kLdP + (kF32 ? 0 : kRawFloats);  // [kBQ][dq + 4],
+                                                         // when resident
 
-  const int bh = blockIdx.y;
+  const int D = p.D, dq = q_cols(D), nkc = dq / kKC;
+  const bool q_res = q_resident<T, DC>(D);
+  const int ldq = q_res ? dq + 4 : kLdC;
+  const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
   const T* q = (const T*)p.q + b * p.q_sb + h * p.q_sh;
@@ -200,109 +419,240 @@ __global__ void __launch_bounds__(kThreads)
   const T* v = (const T*)p.v + b * p.v_sb + hk * p.v_sh;
   T* o = (T*)p.o + b * p.o_sb + h * p.o_sh;
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // last tile first
+  const int c0 = blockIdx.z * DC;
   const int off = p.Sk - p.Sq;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp * kRows;
-
-  for (int i = tid; i < kBQ * R; i += kThreads) {
-    const int r = i / R, c = i % R;
-    Qs[i] = q0 + r < p.Sq && c < D ? to_f32(q[(q0 + r) * p.q_ss + c]) : 0.f;
-  }
-
+  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;
   int kbeg, kend;
   kv_range(p, q0 + off, min(q0 + kBQ, p.Sq) - 1 + off, kbeg, kend);
+  const int t_first = kbeg / kBK;
+  const int n_tiles = kend > kbeg ? (kend - 1) / kBK + 1 - t_first : 0;
+  // each key tile is nkc steps of Q K^T over D, then two of P V
+  const int spt = nkc + 2, n_steps = n_tiles * spt;
 
-  constexpr int kCols = W / 32;  // output columns per lane
-  float acc[kRows][kCols];
-  float m[kRows], l[kRows];  // l: this lane's share of the row sum
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int k0 = (kbeg / kBK) * kBK; k0 < kend; k0 += kBK) {
-    __syncthreads();  // Q is in; the previous tile is consumed
-    for (int i = tid; i < kBK * R; i += kThreads) {
-      const int r = i / R, c = i % R;
-      const bool in = k0 + r < p.Sk && c < D;
-      Ks[r * (R + 4) + c] = in ? to_f32(k[(k0 + r) * p.k_ss + c]) : 0.f;
-      Vs[r * R + c] = in ? to_f32(v[(k0 + r) * p.v_ss + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* kr = Ks + lane * (R + 4);
-#pragma unroll 4
-    for (int d = 0; d < R; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(Qs + (wr + r) * R + d);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
+  // Q, converted to float32 and kept whole when it fits
+  if (q_res) {
+    if constexpr (kF32) {
+      copy_f32(Qs, ldq, q + q0 * p.q_ss, p.q_ss, p.q_sd, kBQ, dq,
+               p.Sq - q0, 0, D, p.q_vec == 4, tid);
+    } else {
+      for (int i = tid; i < kBQ * dq; i += kThreads) {
+        const int r = i / dq, c = i - r * dq;
+        Qs[r * ldq + c] = q0 + r < p.Sq && c < D
+                              ? to_f32(q[(q0 + r) * p.q_ss + c * p.q_sd])
+                              : 0.f;
       }
     }
+  }
 
-    const int kpos = k0 + lane;
-    float pr[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = kept(p, q0 + wr + r + off, kpos);
-      const float x = ok ? s[r] * p.scale : kNegInf;
-      float mx = x;
-#pragma unroll
-      for (int sh = 16; sh > 0; sh >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, sh));
-      const float mn = fmaxf(m[r], mx);
-      const float e = ok ? expf(x - mn) : 0.f;
-      const float alpha = expf(m[r] - mn);
-      m[r] = mn;
-      l[r] = l[r] * alpha + e;
-      pr[r] = e;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
+  // issues the copies of step j: into its slot (float32), or raw into the
+  // 16-bit staging
+  auto issue = [&](int j) {
+    float* slot = ring + (j % kSlots) * kSlot;
+    const int tile = j / spt, r = j - tile * spt;
+    const int k0 = (t_first + tile) * kBK;
+    if (r < nkc) {
+      if constexpr (kF32) {
+        copy_f32(slot, kLdC, k + k0 * p.k_ss, p.k_ss, p.k_sd, kBK, kKC,
+                 p.Sk - k0, r * kKC, D, p.k_vec == 4, tid);
+        if (!q_res)
+          copy_f32(slot + kBK * kLdC, kLdC, q + q0 * p.q_ss, p.q_ss, p.q_sd,
+                   kBQ, kKC, p.Sq - q0, r * kKC, D, p.q_vec == 4, tid);
+      } else {
+        copy16(raw, k + k0 * p.k_ss, p.k_ss, kBK, kKC, p.Sk - k0, r * kKC,
+               D, p.k_vec, tid);
+        if (!q_res)
+          copy16(raw + kBK * kKC, q + q0 * p.q_ss, p.q_ss, kBQ, kKC,
+                 p.Sq - q0, r * kKC, D, p.q_vec, tid);
+      }
+    } else {
+      const int kv0 = k0 + (r - nkc) * (kBK / 2);
+      if constexpr (kF32)
+        copy_f32(slot, kLdV, v + kv0 * p.v_ss, p.v_ss, p.v_sd, kBK / 2, DC,
+                 p.Sk - kv0, c0, D, p.v_vec == 4, tid);
+      else
+        copy16(raw, v + kv0 * p.v_ss, p.v_ss, kBK / 2, DC, p.Sk - kv0, c0, D,
+               p.v_vec, tid);
     }
+  };
+  // 16-bit: once this thread's copies of step j have landed, converts
+  // them into the step's slot
+  auto land = [&](int j) {
+    if constexpr (!kF32) {
+      cp_wait<0>();
+      float* slot = ring + (j % kSlots) * kSlot;
+      const int tile = j / spt, r = j - tile * spt;
+      const int k0 = (t_first + tile) * kBK;
+      if (r < nkc) {
+        convert16(slot, kLdC, raw, k + k0 * p.k_ss, p.k_ss, p.k_sd, kBK, kKC,
+                  p.Sk - k0, r * kKC, D, p.k_vec, tid);
+        if (!q_res)
+          convert16(slot + kBK * kLdC, kLdC, raw + kBK * kKC,
+                    q + q0 * p.q_ss, p.q_ss, p.q_sd, kBQ, kKC, p.Sq - q0,
+                    r * kKC, D, p.q_vec, tid);
+      } else {
+        const int kv0 = k0 + (r - nkc) * (kBK / 2);
+        convert16(slot, kLdV, raw, v + kv0 * p.v_ss, p.v_ss, p.v_sd, kBK / 2,
+                  DC, p.Sk - kv0, c0, D, p.v_vec, tid);
+      }
+    }
+  };
 
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pj[kRows];
+  float s[8][4], acc[8][kCols], m[8], l[8];  // l: this thread's share
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) pj[r] = __shfl_sync(kFull, pr[r], j);
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) {
-          const float vv = Vs[j * R + d];
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  }
+  const float sl2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
+  const float kMinusInf = __int_as_float(0xff800000);
+
+  if (n_steps > 0) issue(0);
+  cp_commit();
+  if (n_steps > 0) land(0);  // after the commit: a wait sees only groups
+  // One barrier a step: step j + 1's copies go into the slot of step
+  // j - 2, which every thread has left once it passed step j - 1's barrier.
+  for (int j = 0; j < n_steps; ++j) {
+    if (j + 1 < n_steps) issue(j + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* slot = ring + (j % kSlots) * kSlot;
+    const int tile = j / spt, r = j - tile * spt;
+    const int k0 = (t_first + tile) * kBK;
+    if (r < nkc) {
+      // S += Q K^T over D columns [32 r, 32 r + 32)
+      if (r == 0) {
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[r][c] = fmaf(pj[r], vv, acc[r][c]);
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+      }
+      const float* qc = q_res ? Qs + r * kKC : slot + kBK * kLdC;
+#pragma unroll 2
+      for (int d = 0; d < kKC; d += 4) {
+        float4 kv[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          kv[jj] = *reinterpret_cast<const float4*>(
+              slot + (kg + 16 * jj) * kLdC + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qc + (rg + 8 * i) * ldq + d);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            s[i][jj] = fmaf(qv.x, kv[jj].x, s[i][jj]);
+            s[i][jj] = fmaf(qv.y, kv[jj].y, s[i][jj]);
+            s[i][jj] = fmaf(qv.z, kv[jj].z, s[i][jj]);
+            s[i][jj] = fmaf(qv.w, kv[jj].w, s[i][jj]);
+          }
+        }
+      }
+      if (r == nkc - 1) {
+        // online softmax in base 2; the per-element mask only on a tile
+        // that crosses the diagonal, the window edge or the end of the keys
+        const int pos_lo = q0 + off, pos_hi = pos_lo + kBQ - 1;
+        const bool edge = k0 + kBK > p.Sk ||
+                          (p.causal && k0 + kBK - 1 > pos_lo) ||
+                          (p.window > 0 && pos_hi - k0 >= p.window);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int qpos = q0 + rg + 8 * i + off;
+          float mx = m[i];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            if (edge && !kept(p, qpos, k0 + kg + 16 * jj))
+              s[i][jj] = kMinusInf;
+            mx = fmaxf(mx, s[i][jj]);
+          }
+#pragma unroll
+          for (int sh = 8; sh > 0; sh >>= 1)  // the 16 threads of a row
+            mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, sh));
+          const float al = ex2((m[i] - mx) * sl2), ms = mx * sl2;
+          m[i] = mx;
+          float rs = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float pr = ex2(fmaf(s[i][jj], sl2, -ms));
+            rs += pr;
+            Ps[(rg + 8 * i) * kLdP + kg + 16 * jj] = pr;
+          }
+          l[i] = l[i] * al + rs;
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) acc[i][c] *= al;
+        }
+        // P is read after the next step's barrier
+      }
+    } else {
+      // O += P V over keys [32 h, 32 h + 32) of the tile
+      const float* ps = Ps + (r - nkc) * (kBK / 2);
+#pragma unroll 2
+      for (int kk = 0; kk < kBK / 2; kk += 4) {
+        if constexpr (kCols == 2) {
+          float2 vv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            vv[e] = *reinterpret_cast<const float2*>(slot + (kk + e) * kLdV +
+                                                     2 * kg);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 pv = *reinterpret_cast<const float4*>(
+                ps + (rg + 8 * i) * kLdP + kk);
+            const float pe[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[i][0] = fmaf(pe[e], vv[e].x, acc[i][0]);
+              acc[i][1] = fmaf(pe[e], vv[e].y, acc[i][1]);
+            }
+          }
+        } else {
+          constexpr int G = kCols / 4;
+          float4 vv[4][G];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              vv[e][g] = *reinterpret_cast<const float4*>(
+                  slot + (kk + e) * kLdV + 64 * g + 4 * kg);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 pv = *reinterpret_cast<const float4*>(
+                ps + (rg + 8 * i) * kLdP + kk);
+            const float pe[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+#pragma unroll
+              for (int g = 0; g < G; ++g) {
+                acc[i][4 * g + 0] = fmaf(pe[e], vv[e][g].x, acc[i][4 * g + 0]);
+                acc[i][4 * g + 1] = fmaf(pe[e], vv[e][g].y, acc[i][4 * g + 1]);
+                acc[i][4 * g + 2] = fmaf(pe[e], vv[e][g].z, acc[i][4 * g + 2]);
+                acc[i][4 * g + 3] = fmaf(pe[e], vv[e][g].w, acc[i][4 * g + 3]);
+              }
+          }
         }
       }
     }
+    if (j + 1 < n_steps) land(j + 1);
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    float tot = l[r];
+  for (int i = 0; i < 8; ++i) {
+    float tot = l[i];
 #pragma unroll
-    for (int sh = 16; sh > 0; sh >>= 1)
-      tot += __shfl_xor_sync(kFull, tot, sh);
-    const float denom = tot == 0.f ? 1.f : tot;
-    const int row = q0 + wr + r;
-    if (row < p.Sq) {
+    for (int sh = 8; sh > 0; sh >>= 1) tot += __shfl_xor_sync(kFull, tot, sh);
+    const float inv = 1.f / (tot == 0.f ? 1.f : tot);
+    const int row = q0 + rg + 8 * i;
+    if (row >= p.Sq) continue;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) o[row * p.o_ss + d] = from_f32<T>(acc[r][c] / denom);
-      }
+    for (int c = 0; c < kCols; ++c) {
+      const int col = c0 + (kCols == 2 ? 2 * kg + c
+                                       : 64 * (c / 4) + 4 * kg + c % 4);
+      if (col < D)
+        o[row * p.o_ss + col * p.o_sd] = from_f32<T>(acc[i][c] * inv);
     }
   }
 }
@@ -310,72 +660,117 @@ __global__ void __launch_bounds__(kThreads)
 // --------------------------------- float16 / bfloat16 tensor cores, mma.sync
 
 namespace tc {
-constexpr int kBQ = 64;  // 4 warps x 16 query rows
-constexpr int kBK = 64;  // keys per tile
+// 16-row tiles of queries a warp owns at width W: two up to 128 (each K and
+// V fragment then feeds two products), one above (for registers)
 template <int W>
-__host__ __device__ constexpr int stride() {
-  return W + 8;  // 16-bit elements per shared-memory row
+__host__ __device__ constexpr int mt() {
+  return W <= 128 ? 2 : 1;
+}
+template <int W>
+__host__ __device__ constexpr int bq() {
+  return 4 * 16 * mt<W>();  // query rows a block: 4 warps
+}
+// keys a tile (fewer at 256, for registers)
+template <int W>
+__host__ __device__ constexpr int bk() {
+  return W == 256 ? 32 : 64;
+}
+// bytes of a tile row: W columns and 16 bytes of padding, so that rows
+// are an odd number of 16-byte chunks apart and the 8 rows an ldmatrix
+// reads at one chunk fall on 8 bank groups (W a multiple of 16)
+template <int W>
+__host__ __device__ constexpr int pitch() {
+  return 2 * W + 16;
 }
 template <int W>
 constexpr size_t smem_bytes() {
-  return 2 * (kBQ + 2 * kBK) * stride<W>();
+  return (size_t)pitch<W>() * (bq<W>() + 4 * bk<W>());  // Q, 2 stages of
+                                                         // K and V
+}
+// byte offset of 16-byte chunk `chunk` (columns 8 chunk ...) of row r
+template <int W>
+__device__ __forceinline__ int at(int r, int chunk) {
+  return r * pitch<W>() + (chunk << 4);
+}
+
+// rows x D elements of a 16-bit tensor (row r, column c at src + r * ss +
+// c * sd) into the tile `dst`; rows from `valid` on are zeros.
+// vec 8, 4 or 2 (elements a copy; column stride 1, and start, strides and D
+// multiples of it) copies by cp.async of 16, 8 or 4 bytes; vec 1 loads
+// element by element through registers (any start, any strides).
+template <int W, int ROWS>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const uint16_t* src, int64_t ss,
+                                          int64_t sd, int valid, int D,
+                                          int vec, int tid) {
+  if (vec == 1) {
+    for_items(ROWS, D, tid, [&](int r, int c) {
+      *reinterpret_cast<uint16_t*>(dst + at<W>(r, c >> 3) + (c & 7) * 2) =
+          r < valid ? src[r * ss + (int64_t)c * sd] : uint16_t(0);
+    });
+    return;
+  }
+  for_items(ROWS, D / vec, tid, [&](int r, int j) {
+    const int c = j * vec;
+    const bool ok = r < valid;
+    const uint16_t* g = ok ? src + r * ss + c : src;
+    const uint32_t s = smem_u32(dst + at<W>(r, c >> 3) + (c & 7) * 2);
+    if (vec == 8) cp_async<16>(s, g, ok);
+    else if (vec == 4) cp_async<8>(s, g, ok);
+    else cp_async<4>(s, g, ok);
+  });
+}
+
+// zeros in columns [D, W) of a tile's rows: the products run all W
+// columns
+template <int W>
+__device__ __forceinline__ void zero_pad(unsigned char* tile, int rows, int D,
+                                         int tid) {
+  if (D < W)
+    for_items(rows, W - D, tid, [&](int r, int j) {
+      const int c = D + j;
+      *reinterpret_cast<uint16_t*>(tile + at<W>(r, c >> 3) + (c & 7) * 2) =
+          0;
+    });
 }
 }  // namespace tc
 
 // c += a (16x16, row) * b (16x8, col) in T (f16 or bf16), float32
 // accumulate.
 template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
 #define FLASH_MMA(TY)                                                      \
   asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "  \
                "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"   \
                : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])            \
-               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1))
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
   if constexpr (kIsF16<T>) FLASH_MMA("f16");
   else FLASH_MMA("bf16");
 #undef FLASH_MMA
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(const uint16_t* lo,
-                                          const uint16_t* hi) {
-  return uint32_t(*lo) | (uint32_t(*hi) << 16);
-}
-
-// rows x W 16-bit elements from global `src` (row r at src + r*ld; rows
-// past `valid` and columns past D read as 0) into shared `dst` with the
-// padded stride, 16 bytes a thread (D is a multiple of 8).
-template <int W>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          int64_t ld, int rows, int valid,
-                                          int D, int tid) {
-  constexpr int kChunks = W / 8;
-  for (int i = tid; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid && c < D)
-      val = *reinterpret_cast<const uint4*>(src + r * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * tc::stride<W>() + c) = val;
-  }
-}
-
+// T: f16 or bf16; W: the pipeline width (32, 64, 96, 112, 128, 160, 192
+// or 256), any D <= W.  Warp w owns query rows MT 16 w ... of the block, in MT tiles of
+// 16; every product runs all W / 16 steps (the columns past D are zeros),
+// so no branch breaks the schedule.
 template <typename T, int W>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma(const Params p) {
+__global__ void __launch_bounds__(kThreads, W <= 128 ? 2 : 1)
+    flash_fwd_mma(const Params p) {
   using namespace tc;
-  constexpr int S = stride<W>();
+  constexpr int MT = mt<W>(), BQ = bq<W>(), BK = bk<W>();
+  constexpr int NT = BK / 8;             // 8-key tiles of S
+  constexpr int KS = W / 16;             // k16 steps of Q K^T, 16-column
+                                         // pairs of P V
+  constexpr bool kQRegs = W <= 64;       // Q's fragments kept in registers
+  constexpr int kTileQ = BQ * pitch<W>(), kTileKV = BK * pitch<W>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);  // [kBQ][S]
-  uint16_t* Ks = Qs + kBQ * S;                            // [kBK][S]
-  uint16_t* Vs = Ks + kBK * S;                            // [kBK][S]
+  unsigned char* Qs = smem_raw;          // [BQ][W + 8]
+  unsigned char* Ks = Qs + kTileQ;       // [2 stages][BK][W + 8]
+  unsigned char* Vs = Ks + 2 * kTileKV;  // [2 stages][BK][W + 8]
 
   const int D = p.D;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
   const uint16_t* q = (const uint16_t*)p.q + b * p.q_sb + h * p.q_sh;
@@ -383,130 +778,239 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma(const Params p) {
   const uint16_t* v = (const uint16_t*)p.v + b * p.v_sb + hk * p.v_sh;
   uint16_t* o = (uint16_t*)p.o + b * p.o_sb + h * p.o_sh;
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last tile first
   const int off = p.Sk - p.Sq;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int wr = warp * 16;
-  const int row0 = q0 + wr + g, row1 = row0 + 8;  // this thread's rows
-  const int qp0 = row0 + off, qp1 = row1 + off;
-
-  load_tile<W>(Qs, q + q0 * p.q_ss, p.q_ss, kBQ, p.Sq - q0, D, tid);
-
+  const int g = lane >> 2, t = lane & 3;    // mma fragment coordinates
+  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix row and matrix
+  const int wr = warp * 16 * MT;            // this warp's first row
+  const int pos_lo = q0 + wr + off, pos_hi = pos_lo + 16 * MT - 1;
   int kbeg, kend;
-  kv_range(p, q0 + off, min(q0 + kBQ, p.Sq) - 1 + off, kbeg, kend);
+  kv_range(p, q0 + off, min(q0 + BQ, p.Sq) - 1 + off, kbeg, kend);
+  const int t_first = kbeg / BK;
+  const int n_tiles = kend > kbeg ? (kend - 1) / BK + 1 - t_first : 0;
 
-  float acc[W / 8][4];
+  zero_pad<W>(Qs, BQ, D, tid);
+  zero_pad<W>(Ks, 2 * BK, D, tid);
+  zero_pad<W>(Vs, 2 * BK, D, tid);
+  load_tile<W, BQ>(Qs, q + q0 * p.q_ss, p.q_ss, p.q_sd, p.Sq - q0, D,
+                   p.q_vec, tid);
+  auto load_kv = [&](int it) {
+    const int k0 = (t_first + it) * BK, s = it & 1;
+    load_tile<W, BK>(Ks + s * kTileKV, k + k0 * p.k_ss, p.k_ss, p.k_sd,
+                     p.Sk - k0, D, p.k_vec, tid);
+    load_tile<W, BK>(Vs + s * kTileKV, v + k0 * p.v_ss, p.v_ss, p.v_sd,
+                     p.Sk - k0, D, p.v_vec, tid);
+  };
+  if (n_tiles > 0) load_kv(0);
+  cp_commit();
+
+  float acc[MT][W / 8][4];
+  float m[MT][2], l[MT][2];  // rows g and g + 8 of each tile: running max
+                             // (raw logits), this thread's share of the sum
 #pragma unroll
-  for (int dt = 0; dt < W / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;  // rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+  for (int mi = 0; mi < MT; ++mi) {
+    m[mi][0] = m[mi][1] = kNegInf;
+    l[mi][0] = l[mi][1] = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < W / 8; ++dt)
+      acc[mi][dt][0] = acc[mi][dt][1] = acc[mi][dt][2] = acc[mi][dt][3] = 0.f;
+  }
+  uint32_t qf[kQRegs ? MT : 1][kQRegs ? KS : 1][4];
+  const float sl2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
+  const float kMinusInf = __int_as_float(0xff800000);
+  const uint32_t q_base = smem_u32(Qs);
+  // this lane's ldmatrix row of Q's A fragments (matrix lm: rows + 8 (lm &
+  // 1), columns + 8 (lm >> 1))
+  const int q_row = wr + lr + ((lm & 1) << 3);
 
-  for (int k0 = (kbeg / kBK) * kBK; k0 < kend; k0 += kBK) {
-    __syncthreads();  // Q is in; the previous tile is consumed
-    load_tile<W>(Ks, k + k0 * p.k_ss, p.k_ss, kBK, p.Sk - k0, D, tid);
-    load_tile<W>(Vs, v + k0 * p.v_ss, p.v_ss, kBK, p.Sk - k0, D, tid);
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile it + 1 goes into the other stage, freed by the last barrier
+    if (it + 1 < n_tiles) load_kv(it + 1);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
+    const int s = it & 1;
+    const int k0 = (t_first + it) * BK;
+    const uint32_t kb = smem_u32(Ks + s * kTileKV);
+    const uint32_t vb = smem_u32(Vs + s * kTileKV);
+    if constexpr (kQRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            ldsm_x4(q_base + at<W>(q_row + 16 * mi, 2 * kk + (lm >> 1)),
+                    qf[mi][kk]);
+      }
+    }
 
-    // S = Q K^T for this warp's 16 rows x 64 keys: 8 tiles of 16x8, over
-    // the k16 steps that hold data
-    float s[8][4];
+    // S = Q K^T (16 MT rows x BK keys a warp)
+    float sc[MT][NT][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int kk = 0; kk < W; kk += 16) {
-      if (kk < D) {
-        const uint16_t* qa = Qs + (wr + g) * S + kk + 2 * t;
-        const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * S);
-        const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * S + 8);
+      for (int nt = 0; nt < NT; ++nt)
+        sc[mi][nt][0] = sc[mi][nt][1] = sc[mi][nt][2] = sc[mi][nt][3] = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const uint16_t* kb = Ks + (nt * 8 + g) * S + kk + 2 * t;
-          mma16816<T>(s[nt], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) a[mi][x] = qf[mi][kk][x];
+        } else {
+          ldsm_x4(q_base + at<W>(q_row + 16 * mi, 2 * kk + (lm >> 1)),
+                  a[mi]);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // keys 16 np + 8 (lm >> 1) + lr, columns 16 kk + 8 (lm & 1): the
+        // b0, b1 fragments of key tiles 2 np and 2 np + 1
+        uint32_t bf[4];
+        ldsm_x4(kb + at<W>(16 * np + ((lm >> 1) << 3) + lr, 2 * kk + (lm & 1)),
+                bf);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          mma16816<T>(sc[mi][2 * np], a[mi], bf[0], bf[1]);
+          mma16816<T>(sc[mi][2 * np + 1], a[mi], bf[2], bf[3]);
         }
       }
     }
 
-    // scale and mask (masked -> -inf, so its weight is exactly 0), row max
-    const float kMinusInf = __int_as_float(0xff800000);
-    float mx0 = kNegInf, mx1 = kNegInf;
+    // the per-element mask, only where the tile crosses the diagonal, the
+    // window edge or the end of the keys for some row of this warp
+    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > pos_lo) ||
+                      (p.window > 0 && pos_hi - k0 >= p.window);
+    float al[MT][2];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int mi = 0; mi < MT; ++mi) {
+      const int qp0 = pos_lo + 16 * mi + g, qp1 = qp0 + 8;
+      if (edge) {
+        // key base + c of a row is kept iff lo <= c <= hi
+        const int base = k0 + 2 * t;
+        const int hi0 = min(p.Sk - 1, p.causal ? qp0 : 0x7fffffff) - base;
+        const int hi1 = min(p.Sk - 1, p.causal ? qp1 : 0x7fffffff) - base;
+        const int lo0 =
+            p.window > 0 ? qp0 - p.window + 1 - base : -0x7fffffff;
+        const int lo1 =
+            p.window > 0 ? qp1 - p.window + 1 - base : -0x7fffffff;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kpos = k0 + nt * 8 + 2 * t + e;
-        s[nt][e] = kept(p, qp0, kpos) ? s[nt][e] * p.scale : kMinusInf;
-        s[nt][2 + e] = kept(p, qp1, kpos) ? s[nt][2 + e] * p.scale : kMinusInf;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * nt + e;
+            if (c > hi0 || c < lo0) sc[mi][nt][e] = kMinusInf;
+            if (c > hi1 || c < lo1) sc[mi][nt][2 + e] = kMinusInf;
+          }
+        }
       }
-    }
-#pragma unroll
-    for (int sh = 1; sh < 4; sh <<= 1) {  // the 4 threads of a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, sh));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, sh));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = expf(s[nt][e] - mn0);
-        s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
-        rs0 += s[nt][e];
-        rs1 += s[nt][2 + e];
-      }
-    }
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
-#pragma unroll
-    for (int dt = 0; dt < W / 8; ++dt) {
-      acc[dt][0] *= al0;
-      acc[dt][1] *= al0;
-      acc[dt][2] *= al1;
-      acc[dt][3] *= al1;
-    }
 
-    // O += P V: P (16 x 64, in T) from the S registers, V from shared; the
-    // 8-column tiles past D are skipped
+      // online softmax in base 2: p = 2^(s * sl2 - m * sl2)
+      float mx0 = m[mi][0], mx1 = m[mi][1];
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint32_t a0 = pack<T>(s[2 * kc][0], s[2 * kc][1]);
-      const uint32_t a1 = pack<T>(s[2 * kc][2], s[2 * kc][3]);
-      const uint32_t a2 = pack<T>(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      const uint32_t a3 = pack<T>(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      for (int nt = 0; nt < NT; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(sc[mi][nt][0], sc[mi][nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[mi][nt][2], sc[mi][nt][3]));
+      }
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {  // the 4 threads of a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, sh));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, sh));
+      }
+      al[mi][0] = ex2((m[mi][0] - mx0) * sl2);
+      al[mi][1] = ex2((m[mi][1] - mx1) * sl2);
+      m[mi][0] = mx0;
+      m[mi][1] = mx1;
+      const float ms0 = mx0 * sl2, ms1 = mx1 * sl2;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[mi][nt][e] = ex2(fmaf(sc[mi][nt][e], sl2, -ms0));
+          sc[mi][nt][2 + e] = ex2(fmaf(sc[mi][nt][2 + e], sl2, -ms1));
+          rs0 += sc[mi][nt][e];
+          rs1 += sc[mi][nt][2 + e];
+        }
+      }
+      l[mi][0] = l[mi][0] * al[mi][0] + rs0;
+      l[mi][1] = l[mi][1] * al[mi][1] + rs1;
 #pragma unroll
       for (int dt = 0; dt < W / 8; ++dt) {
-        if (dt * 8 < D) {
-          const uint16_t* vb = Vs + (kc * 16 + 2 * t) * S + dt * 8 + g;
-          mma16816<T>(acc[dt], a0, a1, a2, a3, pack2(vb, vb + S),
-                      pack2(vb + 8 * S, vb + 9 * S));
+        acc[mi][dt][0] *= al[mi][0];
+        acc[mi][dt][1] *= al[mi][0];
+        acc[mi][dt][2] *= al[mi][1];
+        acc[mi][dt][3] *= al[mi][1];
+      }
+    }
+
+    // O += P V: P (16 x BK a tile, in T) from the S registers; V's B
+    // fragments by ldmatrix.trans, two 8-column tiles at a time
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        a[mi][0] = pack<T>(sc[mi][2 * kc][0], sc[mi][2 * kc][1]);
+        a[mi][1] = pack<T>(sc[mi][2 * kc][2], sc[mi][2 * kc][3]);
+        a[mi][2] = pack<T>(sc[mi][2 * kc + 1][0], sc[mi][2 * kc + 1][1]);
+        a[mi][3] = pack<T>(sc[mi][2 * kc + 1][2], sc[mi][2 * kc + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < KS; ++dp) {
+        // keys 16 kc + 8 (lm & 1) + lr, columns 16 dp + 8 (lm >> 1)
+        uint32_t bf[4];
+        ldsm_x4_t(vb + at<W>(16 * kc + ((lm & 1) << 3) + lr, 2 * dp + (lm >> 1)),
+                  bf);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          mma16816<T>(acc[mi][2 * dp], a[mi], bf[0], bf[1]);
+          mma16816<T>(acc[mi][2 * dp + 1], a[mi], bf[2], bf[3]);
         }
       }
     }
+    __syncthreads();  // this stage may be refilled
   }
+  cp_wait<0>();
+  __syncthreads();  // every copy has landed: Q's rows may be reused
 
+  // epilogue: normalise, stage this warp's rows in its own Q rows, then
+  // copy them out through o's strides with o's widest copy
 #pragma unroll
-  for (int sh = 1; sh < 4; sh <<= 1) {
-    l0 += __shfl_xor_sync(kFull, l0, sh);
-    l1 += __shfl_xor_sync(kFull, l1, sh);
+  for (int mi = 0; mi < MT; ++mi) {
+    float l0 = l[mi][0], l1 = l[mi][1];
+#pragma unroll
+    for (int sh = 1; sh < 4; sh <<= 1) {
+      l0 += __shfl_xor_sync(kFull, l0, sh);
+      l1 += __shfl_xor_sync(kFull, l1, sh);
+    }
+    const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
+    const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+    const int r0 = wr + 16 * mi + g;
+#pragma unroll
+    for (int dt = 0; dt < W / 8; ++dt) {
+      if (8 * dt >= D) continue;
+      *reinterpret_cast<uint32_t*>(Qs + at<W>(r0, dt) + 4 * t) =
+          pack<T>(acc[mi][dt][0] * inv0, acc[mi][dt][1] * inv0);
+      *reinterpret_cast<uint32_t*>(Qs + at<W>(r0 + 8, dt) + 4 * t) =
+          pack<T>(acc[mi][dt][2] * inv1, acc[mi][dt][3] * inv1);
+    }
   }
-  const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
-#pragma unroll
-  for (int dt = 0; dt < W / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (col >= D) continue;
-    if (row0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(o + row0 * p.o_ss + col) =
-          pack<T>(acc[dt][0] / d0, acc[dt][1] / d0);
-    if (row1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(o + row1 * p.o_ss + col) =
-          pack<T>(acc[dt][2] / d1, acc[dt][3] / d1);
+  __syncwarp();
+  const int ov = p.o_vec, per_row = D / ov;
+  for (int i = lane; i < 16 * MT * per_row; i += 32) {
+    const int r = i / per_row, c = (i - r * per_row) * ov;
+    const int row = q0 + wr + r;
+    if (row >= p.Sq) continue;
+    const unsigned char* sp = Qs + at<W>(wr + r, c >> 3) + (c & 7) * 2;
+    uint16_t* gp = o + row * p.o_ss + (int64_t)c * p.o_sd;
+    if (ov == 8) *reinterpret_cast<uint4*>(gp) = *reinterpret_cast<const uint4*>(sp);
+    else if (ov == 4) *reinterpret_cast<uint2*>(gp) = *reinterpret_cast<const uint2*>(sp);
+    else if (ov == 2) *reinterpret_cast<uint32_t*>(gp) = *reinterpret_cast<const uint32_t*>(sp);
+    else *gp = *reinterpret_cast<const uint16_t*>(sp);
   }
 }
 
@@ -537,10 +1041,6 @@ constexpr size_t smem_bytes() {
   return 1024 + q_bytes<W>() + 2 * kStages * kv_bytes<W>() + 64;
 }
 }  // namespace wg
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -622,12 +1122,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The accumulator operands of a wgmma: N/2 floats a thread ("+f"), and
@@ -1003,19 +1497,6 @@ int set_smem(Kernel kernel, bool& attr_set, size_t smem) {
   return 0;
 }
 
-// a kernel of 128 threads on a grid (query tiles of `rows_per_block`,
-// B*H); `max_smem` is its largest dynamic shared memory, `smem` this
-// launch's
-template <typename Kernel>
-int run(Kernel kernel, bool& attr_set, size_t max_smem, size_t smem,
-        int rows_per_block, const Params& p, cudaStream_t stream) {
-  const int e = set_smem(kernel, attr_set, max_smem);
-  if (e) return e;
-  const dim3 grid((p.Sq + rows_per_block - 1) / rows_per_block, p.B * p.H);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -1038,12 +1519,16 @@ EncodeTiled encoder() {
 
 // A 16-bit tensor (B, heads, S, D) of type T with element strides sb, sh,
 // ss as the 4-d map (D, S, heads, B); boxes of 64 columns x `rows`,
-// 128-byte swizzle, columns past D and rows past S read as zeros.
+// 128-byte swizzle, columns past D and rows past S read as zeros.  A
+// dimension of size 1 (stride 0 here) gets the stride of a dense layout.
 template <typename T>
 bool encode(CUtensorMap* map, const void* base, int D, int S, int heads,
             int B, int64_t sb, int64_t sh, int64_t ss, int rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
+  if (S == 1) ss = D;
+  if (heads == 1) sh = ss * S;
+  if (B == 1) sb = sh * heads;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
@@ -1059,18 +1544,26 @@ bool encode(CUtensorMap* map, const void* base, int D, int S, int heads,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int W>
+template <typename T, int DC>
 int launch_simt(const Params& p, cudaStream_t stream) {
   static bool attr = false;
-  return run(flash_fwd_simt<T, W>, attr, simt::smem_bytes(W),
-             simt::smem_bytes(p.D), simt::kBQ, p, stream);
+  const int e = set_smem(flash_fwd_simt<T, DC>, attr, simt::kTwoBlocks);
+  if (e) return e;
+  const dim3 grid(p.B * p.H, (p.Sq + simt::kBQ - 1) / simt::kBQ,
+                  (p.D + DC - 1) / DC);
+  flash_fwd_simt<T, DC>
+      <<<grid, kThreads, simt::smem_bytes<T, DC>(p.D), stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int W>
 int launch_mma(const Params& p, cudaStream_t stream) {
   static bool attr = false;
-  return run(flash_fwd_mma<T, W>, attr, tc::smem_bytes<W>(),
-             tc::smem_bytes<W>(), tc::kBQ, p, stream);
+  const int e = set_smem(flash_fwd_mma<T, W>, attr, tc::smem_bytes<W>());
+  if (e) return e;
+  const dim3 grid(p.B * p.H, (p.Sq + tc::bq<W>() - 1) / tc::bq<W>());
+  flash_fwd_mma<T, W><<<grid, kThreads, tc::smem_bytes<W>(), stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int W, int KS>
@@ -1093,16 +1586,23 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The wgmma kernel for D in (W/2, W] (D = 64 at W = 64), by the k16 steps
-// of its Q K^T: each step count is a kernel of its own, so no branch sits
-// in the pipeline and each keeps the registers of one product chain (one
-// kernel with a branch between step counts spilled 2.2 KB at W = 256 and
-// ran D=112 3 % slower).  At W = 256 the steps come in whole panels, 12
-// or 16, which keeps the build to 7 wgmma kernels a type.
+// The wgmma kernel for D at width W, by the k16 steps of its Q K^T: each
+// step count is a kernel of its own, so no branch sits in the pipeline and
+// each keeps the registers of one product chain (one kernel with a branch
+// between step counts spilled 2.2 KB at W = 256 and ran D=112 3 % slower).
+// W = 64 takes D 8-64 at 1-4 steps, W = 128 D 72-128 at 5-8; at W = 256
+// the steps come in whole panels, 12 or 16.  10 wgmma kernels a type.
 template <typename T>
 int launch_wgmma_d(const Params& p, int width, cudaStream_t st) {
   const int ks = (p.D + 15) / 16;
-  if (width == 64 && p.D == 64) return launch_wgmma<T, 64, 4>(p, st);
+  if (width == 64) {
+    switch (ks) {
+      case 1: return launch_wgmma<T, 64, 1>(p, st);
+      case 2: return launch_wgmma<T, 64, 2>(p, st);
+      case 3: return launch_wgmma<T, 64, 3>(p, st);
+      case 4: return launch_wgmma<T, 64, 4>(p, st);
+    }
+  }
   if (width == 128 && ks >= 5) {
     switch (ks) {
       case 5: return launch_wgmma<T, 128, 5>(p, st);
@@ -1118,62 +1618,89 @@ int launch_wgmma_d(const Params& p, int width, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
-// variant 0 = simt (W 32, 64, 128, 256, 512), 1 = mma (W 16, 32, 64; T
-// 16-bit), 2 = wgmma (W 64, 128, 256; T 16-bit)
+// variant 0 = simt (column chunk 32, 64 or 128 for float32, 128 for a
+// 16-bit type), 1 = mma (W 32, 64, 96, 112, 128, 160, 192, 256; 16-bit),
+// 2 = wgmma (W 64, 128, 256; 16-bit)
 template <typename T>
 int launch_t(const Params& p, int variant, int width, cudaStream_t st) {
-  const int D = p.D;
-  if (variant == 0) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (variant != 0) return (int)cudaErrorInvalidValue;
     switch (width) {
       case 32: return launch_simt<T, 32>(p, st);
       case 64: return launch_simt<T, 64>(p, st);
       case 128: return launch_simt<T, 128>(p, st);
-      case 256: return launch_simt<T, 256>(p, st);
-      case 512: return launch_simt<T, 512>(p, st);
       default: return (int)cudaErrorInvalidValue;
     }
-  }
-  if constexpr (!std::is_same_v<T, float>) {
-    if (D % 8) return (int)cudaErrorInvalidValue;
+  } else {
+    if (variant == 0)
+      return width == 128 ? launch_simt<T, 128>(p, st)
+                          : (int)cudaErrorInvalidValue;
+    if (p.D > width) return (int)cudaErrorInvalidValue;
     if (variant == 1) {
       switch (width) {
-        case 16: return launch_mma<T, 16>(p, st);
         case 32: return launch_mma<T, 32>(p, st);
         case 64: return launch_mma<T, 64>(p, st);
+        case 96: return launch_mma<T, 96>(p, st);
+        case 112: return launch_mma<T, 112>(p, st);
+        case 128: return launch_mma<T, 128>(p, st);
+        case 160: return launch_mma<T, 160>(p, st);
+        case 192: return launch_mma<T, 192>(p, st);
+        case 256: return launch_mma<T, 256>(p, st);
         default: return (int)cudaErrorInvalidValue;
       }
     }
-    if (variant == 2) return launch_wgmma_d<T>(p, width, st);
+    if (variant == 2) {
+      if (p.D % 8 || p.q_sd != 1 || p.k_sd != 1 || p.v_sd != 1 ||
+          p.o_sd != 1)
+        return (int)cudaErrorInvalidValue;
+      return launch_wgmma_d<T>(p, width, st);
+    }
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+}
+
+bool copy_ok(int vec, int D, int64_t sd) {
+  return vec == 1 || ((vec == 2 || vec == 4 || vec == 8) && D % vec == 0 &&
+                      sd == 1);
 }
 
 }  // namespace
 
 // q (B,H,Sq,D), k and v (B,Hkv,Sk,D), o (B,H,Sq,D), each addressed by its
-// element strides (batch, head, row; `strides` holds 12 of them in the
-// order q, k, v, o) with a dense last dimension, on the current device.
-// dtype 0 = float32, 1 = bfloat16, 2 = float16.  variant 0 = float32 FMA
-// (any D; starts and strides aligned to the element), 1 = mma.sync (D < 64,
-// D % 8 == 0), 2 = TMA + wgmma (64 <= D <= 256, D % 8 == 0); 1 and 2 take
-// 16-bit types with 16-byte aligned starts and strides.  `width` is the
-// compiled pipeline width that runs D (D <= width).  Launches on `stream`
-// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
-// for arguments the kernel does not take.
+// element strides (batch, head, row, column; `strides` holds 16 of them in
+// the order q, k, v, o), on the current device; `vecs` holds q's, k's, v's
+// and o's elements a copy (see Params).  dtype 0 = float32, 1 = bfloat16,
+// 2 = float16.  variant:
+//   0 = simt, float32 FMA: float32 at any D (width 32, 64 or 128: the
+//       output columns a block computes, D beyond it split over the grid),
+//       and 16-bit types at D > 256 (width 128); any strides;
+//   1 = mma.sync: 16-bit, D <= width (32, 64, 96, 112, 128, 160, 192 or
+//       256), any strides;
+//   2 = TMA + wgmma: 16-bit, D % 8 == 0 and D <= width (64, 128 or 256),
+//       column stride 1, 16-byte aligned starts and other strides (what the
+//       TMA and the 16-byte stores take; the caller checks).
+// B*H may be any int; Sq at most 65535 query tiles of 64 (128 for wgmma).
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for arguments no kernel takes.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int Hkv, int Sq, int Sk, int D,
-                                      const int64_t* strides, int causal,
-                                      int window, float scale, int dtype,
-                                      int variant, int width, void* stream) {
+                                      const int64_t* strides, const int* vecs,
+                                      int causal, int window, float scale,
+                                      int dtype, int variant, int width,
+                                      void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 ||
-      window < 0 || D < 1 || D > width || variant < 0 || variant > 2)
+      window < 0 || D < 1 || variant < 0 || variant > 2 ||
+      (int64_t)B * H > 0x7fffffff || (Sq + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
-  if (variant < 2 && (int64_t)B * H > 65535) return (int)cudaErrorInvalidValue;
   const int64_t* s = strides;
   const Params p{q, k, v, o, B, H, Hkv, Sq, Sk, D, causal ? 1 : 0, window,
                  scale, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
-                 s[9], s[10], s[11]};
+                 s[9], s[10], s[11], s[12], s[13], s[14], s[15], vecs[0],
+                 vecs[1], vecs[2], vecs[3]};
+  if (!copy_ok(p.q_vec, D, p.q_sd) || !copy_ok(p.k_vec, D, p.k_sd) ||
+      !copy_ok(p.v_vec, D, p.v_sd) || !copy_ok(p.o_vec, D, p.o_sd))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case 0: return launch_t<float>(p, variant, width, st);

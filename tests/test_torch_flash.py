@@ -155,12 +155,13 @@ def test_ops_keeps_the_reference_block_contract():
 def test_wrapper_checks_and_routes_only_cpu_tensors_to_plain(monkeypatch):
     q = torch.zeros((1, 4, 8, 32))
     kv = torch.zeros((1, 2, 8, 32))
-    # float16 and any head dim up to the cap run, as in the Pallas kernel
+    # float16 and any head dim run, as in the Pallas kernel
     assert fa.flash_attention(q.half(), kv.half(), kv.half()).dtype == \
         torch.float16
-    assert fa.flash_attention(torch.zeros((1, 4, 8, 48)),
-                              torch.zeros((1, 2, 8, 48)),
-                              torch.zeros((1, 2, 8, 48))).shape[-1] == 48
+    for D in (48, 520):
+        assert fa.flash_attention(torch.zeros((1, 4, 8, D)),
+                                  torch.zeros((1, 2, 8, D)),
+                                  torch.zeros((1, 2, 8, D))).shape[-1] == D
     with pytest.raises(TypeError):
         fa.flash_attention(q.double(), kv.double(), kv.double())
     with pytest.raises(TypeError):
@@ -168,10 +169,9 @@ def test_wrapper_checks_and_routes_only_cpu_tensors_to_plain(monkeypatch):
     with pytest.raises(TypeError, match="one dtype"):
         fa.flash_attention(q.half(), kv.half(), kv.bfloat16())
     with pytest.raises(ValueError, match="head_dim"):
-        D = fa.MAX_HEAD_DIM + 8
-        fa.flash_attention(torch.zeros((1, 4, 8, D)),
-                           torch.zeros((1, 2, 8, D)),
-                           torch.zeros((1, 2, 8, D)))
+        fa.flash_attention(torch.zeros((1, 4, 8, 0)),
+                           torch.zeros((1, 2, 8, 0)),
+                           torch.zeros((1, 2, 8, 0)))
     with pytest.raises(ValueError):
         fa.flash_attention(q, torch.zeros((1, 3, 8, 32)),
                            torch.zeros((1, 3, 8, 32)))
@@ -220,12 +220,12 @@ def test_flash_attention_strided_views_match_pallas(pallas, dtype, B, H, Hkv,
 
 
 def _designed(dtype, D):
-    """The variant rule, written out: tensor cores for 16-bit types at
-    D % 8 == 0 up to 256 (wgmma from 64, mma below), float32 FMA for the
-    rest."""
-    if dtype == "float32" or D % 8 or D > 256:
+    """The variant rule, written out, for layouts the TMA takes: tensor
+    cores for 16-bit types up to D = 256 (wgmma at D % 8 == 0, mma
+    otherwise), float32 FMA for float32 and above 256."""
+    if dtype == "float32" or D > 256:
         return "simt"
-    return "wgmma" if D >= 64 else "mma"
+    return "wgmma" if D % 8 == 0 else "mma"
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 112, 128, 256, 1, 8, 63, 72,
@@ -235,26 +235,31 @@ def test_variant_is_the_designed_kernel(dtype, D):
     name = fa.variant(getattr(torch, dtype), D)
     assert name == _designed(dtype, D) and name in fa.VARIANTS
     w = fa.width(name, D)
-    assert w in fa.WIDTHS[name] and D <= w
-    if name == "wgmma":       # the launcher's Q K^T step counts: (w/2, w]
-        assert 2 * D > w
+    narrower = [x for x in fa.WIDTHS[name] if x < w]
+    assert w in fa.WIDTHS[name] and all(x < D for x in narrower)
+    if name == "simt":        # D beyond the widest: column chunks
+        assert D <= w or w == fa.WIDTHS["simt"][-1]
+    else:
+        assert D <= w
+    if name == "wgmma":       # the launcher's Q K^T step counts: 1-4 at
+        assert w == 64 or 2 * D > w   # width 64, (w/2, w] above
 
 
 @pytest.mark.parametrize("dtype,D,want", [
-    ("float16", 128, "wgmma"), ("bfloat16", 48, "mma"),
+    ("float16", 128, "wgmma"), ("bfloat16", 48, "wgmma"),
     ("float32", 8, "simt"), ("bfloat16", 512, "simt"),
     ("bfloat16", 96, "wgmma"), ("float32", 120, "simt"),
+    ("float16", 520, "simt"), ("float32", 1024, "simt"),
 ])
 def test_variant_takes_what_the_reference_computes(dtype, D, want):
     """Inputs the Pallas kernel computes and the port once refused (float16,
-    D outside 16/32/64/112/128/256): each has a kernel now."""
+    D outside 16/32/64/112/128/256, D above 512): each has a kernel now."""
     assert fa.variant(getattr(torch, dtype), D) == want
 
 
 @pytest.mark.parametrize("dtype,D,error", [
     ("float64", 64, TypeError), ("int32", 128, TypeError),
-    ("bfloat16", 0, ValueError), ("float16", 520, ValueError),
-    ("float32", 1024, ValueError),
+    ("bfloat16", 0, ValueError),
 ])
 def test_variant_raises_on_other_inputs(dtype, D, error):
     with pytest.raises(error):
@@ -283,7 +288,8 @@ def test_flash_attention_head_dim_112_matches_pallas(pallas, dtype, window):
 
 
 # the head dims chip_smoke.py's phase 7 holds beyond the models' 16-256
-# (every branch of `variant`; mostly empty last TMA boxes), each with its
+# (every branch of `variant`: wgmma at width 64 and on mostly empty last
+# TMA boxes, mma, simt for 16-bit types), each with its
 # (B, H, Hkv, S, window) here: GQA everywhere, a window on some (S a
 # multiple of 64, as Pallas's blocks must divide it)
 _NEW_D_SHAPES = {8: (2, 4, 2, 128, 0), 40: (1, 4, 2, 128, 32),
@@ -293,6 +299,23 @@ _NEW_D_SHAPES = {8: (2, 4, 2, 128, 0), 40: (1, 4, 2, 128, 32),
                  160: (1, 2, 1, 128, 0), 192: (1, 4, 2, 64, 0),
                  200: (1, 2, 1, 128, 100), 320: (1, 2, 1, 64, 0),
                  512: (1, 2, 1, 64, 0)}
+
+
+@pytest.mark.parametrize("D", [520, 768, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_head_dims_above_512_match_pallas(pallas, dtype, D):
+    """D above 512, which the card's simt kernel runs in column chunks of
+    128 (no cap on D): the entry point on CPU tensors, q as the (B,H,S,D)
+    view of a (B,S,H,D) tensor, against the Pallas kernel in interpret
+    mode on the same numpy inputs."""
+    arrays = _inputs((1, 4, 64, D), (1, 2, 64, D), D)
+    want = _reference(pallas, arrays, dtype, causal=True, block_q=64,
+                      block_k=64)
+    q, k, v = _bshd_views(arrays, dtype)
+    assert fa.route(q, k, v) == "simt"
+    out = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    assert out.dtype == q.dtype and out.transpose(1, 2).is_contiguous()
+    assert np.abs(out.float().numpy() - want).max() < TOL[dtype]
 
 
 @pytest.mark.parametrize("D", sorted(_NEW_D_SHAPES))
@@ -317,7 +340,8 @@ def test_flash_attention_new_head_dims_match_pallas(pallas, dtype, D):
 
 
 def _strided(kind):
-    """A q of shape (1, 4, 64, 32) laid out as `kind`."""
+    """A q of shape (1, 4, 64, D) (D = 32, or 20 for the last) laid out as
+    `kind`, zeros."""
     if kind == "last_dim_strided":
         return torch.zeros((1, 4, 64, 64))[..., ::2]
     if kind == "row_stride_72_bytes":          # bf16 rows 36 apart
@@ -333,46 +357,85 @@ def _strided(kind):
         return torch.zeros(4 * 64 * 32 + 1)[1:].view(1, 4, 64, 32)
     if kind == "simt_row_stride_132_bytes":    # f32 rows 33 apart
         return torch.zeros((1, 4, 64, 33))[..., :32]
-    if kind == "simt_last_dim_strided":        # f16 D=20: simt, still dense
+    if kind == "simt_last_dim_strided":        # f16 D=20, column stride 2
         return torch.zeros((1, 4, 64, 40), dtype=torch.float16)[..., ::2]
     raise AssertionError(kind)
 
 
-@pytest.mark.parametrize("kind,ok", [
-    ("last_dim_strided", False), ("row_stride_72_bytes", False),
-    ("start_off_16_bytes", False), ("row_stride_80_bytes", True),
-    ("bshd_view", True), ("simt_start_off_4_bytes", True),
-    ("simt_row_stride_132_bytes", True), ("simt_last_dim_strided", False),
+@pytest.mark.parametrize("kind,kernel", [
+    ("last_dim_strided", "simt"), ("row_stride_72_bytes", "mma"),
+    ("start_off_16_bytes", "mma"), ("row_stride_80_bytes", "wgmma"),
+    ("bshd_view", "simt"), ("simt_start_off_4_bytes", "simt"),
+    ("simt_row_stride_132_bytes", "simt"), ("simt_last_dim_strided", "mma"),
 ])
-def test_wrapper_refuses_strides_the_tma_cannot_take(kind, ok):
-    """Every kernel needs a dense last dimension.  The card's TMA (wgmma)
-    and the mma kernel's 16-byte loads need strides of 16-byte multiples
-    and a 16-byte aligned start; the simt kernel reads element by element
-    and takes any stride.  The wrapper holds CPU tensors to the rules of
-    the variant that would run them, so the CPU tests show what the card
-    refuses."""
+def test_wrapper_computes_layouts_the_tma_cannot_take(pallas, kind, kernel):
+    """Every layout computes, in place.  The card's TMA (wgmma) takes a
+    dense last dimension, strides of 16-byte multiples and a 16-byte
+    aligned start; the mma (16-bit) and simt (float32) kernels read any
+    strides, 16, 8 or 4 bytes a copy where the layout allows and element
+    by element where not.  The route the card takes is shown here, and
+    the CPU result equals the Pallas kernel's on the same logical
+    values."""
     q = _strided(kind)
-    D = q.shape[-1]
-    name = fa.variant(q.dtype, D)
-    kv = torch.randn((1, 2, 64, D)).to(q.dtype)
-    if not ok:
-        with pytest.raises(ValueError):
-            fa.layout_strides(q, "q", name)
-        with pytest.raises(ValueError):
-            fa.flash_attention(q, kv, kv)
-        return
-    assert fa.layout_strides(q, "q", name) == [D] + list(q.stride()[1:3])
-    q.copy_(torch.randn(q.shape).to(q.dtype))
-    want = fa.flash_attention(q.contiguous(), kv, kv).float()
-    got = fa.flash_attention(q, kv, kv).float()
-    assert (got - want).abs().max() < TOL[str(q.dtype).split(".")[1]]
+    D, dname = q.shape[-1], str(q.dtype).removeprefix("torch.")
+    arrays = _inputs((1, 4, 64, D), (1, 2, 64, D), 64 + D)
+    q.copy_(torch.from_numpy(arrays[0]).to(q.dtype))
+    k, v = (torch.from_numpy(a).to(q.dtype) for a in arrays[1:])
+    assert fa.route(q, k, v) == kernel
+    assert fa.layout_strides(q) == [0, *q.stride()[1:]]
+    assert fa.tma_layout(q) == (kind in ("row_stride_80_bytes",
+                                         "bshd_view"))
+    want = _reference(pallas, [q.float().numpy(), *arrays[1:]], dname,
+                      causal=True, block_q=64, block_k=64)
+    got = fa.flash_attention(q, k, v).float().numpy()
+    assert np.abs(got - want).max() < TOL[dname]
 
 
 def test_size_one_dims_take_any_stride():
     q = torch.randn((1, 4, 1, 32)).as_strided((1, 4, 1, 32), (3, 32, 5, 1))
     kv = torch.randn((1, 2, 8, 32))
-    assert fa.layout_strides(q, "q") == [32, 32, 32]
+    assert fa.layout_strides(q) == [0, 32, 0, 1]
+    assert fa.tma_layout(q)
     assert fa.flash_attention(q, kv, kv).shape == q.shape
+
+
+@pytest.mark.parametrize("dtype,D,layout,kernel,elems", [
+    ("bfloat16", 48, "contiguous", "wgmma", 8),
+    ("bfloat16", 100, "contiguous", "mma", 4),
+    ("bfloat16", 320, "contiguous", "simt", 8),
+    ("bfloat16", 128, "row_72_bytes", "mma", 4),
+    ("float16", 128, "bshd", "wgmma", 8),
+    ("float16", 8, "contiguous", "wgmma", 8),
+    ("bfloat16", 128, "start_off_2_bytes", "mma", 1),
+    ("bfloat16", 64, "last_dim_strided", "mma", 1),
+    ("float16", 256, "contiguous", "wgmma", 8),
+    ("bfloat16", 264, "contiguous", "simt", 8),
+    ("float32", 64, "contiguous", "simt", 4),
+    ("float32", 100, "start_off_4_bytes", "simt", 1),
+])
+def test_route_follows_dtype_head_dim_and_layout(dtype, D, layout, kernel,
+                                                 elems):
+    """The rule the card follows, on CPU tensors: the variant by dtype, D
+    and layout (the 72-byte rows are an overlapping view, read only), and
+    the elements one copy of mma and simt moves."""
+    td = getattr(torch, dtype)
+    n = 2 * 4 * 64 * D
+    if layout == "contiguous":
+        q = torch.zeros((2, 4, 64, D), dtype=td)
+    elif layout == "bshd":
+        q = torch.zeros((2, 64, 4, D), dtype=td).transpose(1, 2)
+    elif layout == "row_72_bytes":             # rows 36 elements apart
+        q = torch.zeros(n, dtype=td).as_strided((2, 4, 64, D),
+                                                (4 * 64 * 36, 64 * 36, 36, 1))
+    elif layout.startswith("start_off"):
+        q = torch.zeros(n + 1, dtype=td)[1:].view(2, 4, 64, D)
+    else:                                      # last_dim_strided
+        q = torch.zeros((2, 4, 64, 2 * D), dtype=td)[..., ::2]
+    kv = torch.zeros((2, 2, 64, D), dtype=td)
+    assert fa.route(q, kv, kv) == kernel
+    assert fa.copy_elems(q) == elems
+    assert fa.tma_layout(q) == (layout in ("contiguous", "bshd")
+                                and D * q.element_size() % 16 == 0)
 
 
 @pytest.mark.parametrize("kind,strides", [
@@ -460,9 +523,10 @@ CARD_CASES = [
     (1, 4, 4, 100, 100, 112, 0, True),
     (2, 4, 4, 300, 300, 112, 64, False),
     (1, 32, 32, 1024, 1024, 112, 0, True),
-    # every branch of `variant` beyond the models' head dims: mma at a
-    # width above D (8, 40, 48), wgmma on mostly empty last boxes (80, 96,
-    # 120, 136, 160, 200) and simt for 16-bit types (100, 320, 512)
+    # every branch of `variant` beyond the models' head dims: wgmma at
+    # width 64 (8, 40, 48), on mostly empty last boxes (80, 96, 120, 136,
+    # 160, 200), mma at D % 8 != 0 (100), simt for 16-bit types above 256
+    # and in column chunks (320, 512, 520, 1024)
     (1, 4, 2, 200, 200, 8, 0, True),
     (2, 4, 1, 192, 300, 40, 64, True),
     (1, 8, 2, 256, 256, 48, 0, False),
@@ -475,6 +539,8 @@ CARD_CASES = [
     (1, 4, 2, 200, 200, 200, 50, True),
     (1, 2, 1, 130, 130, 320, 0, True),
     (1, 2, 2, 100, 100, 512, 0, True),
+    (1, 2, 1, 130, 130, 520, 0, True),
+    (1, 4, 2, 100, 300, 1024, 64, True),
 ]
 
 
@@ -504,4 +570,56 @@ def test_flash_kernel_strided_views_on_card(cuda_device, dtype, D):
     want = ref.flash_attention_ref(q, k, v, window=100)
     torch.cuda.synchronize()
     assert got.transpose(1, 2).is_contiguous()
+    assert (got.float() - want.float()).abs().max() < TOL[dtype]
+
+
+# one unit of the type's rounding of an output, relative: where outputs
+# reach past 2 (few keys a row, over many rows) one rounding of a bf16
+# output exceeds the absolute TOL
+REL = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("D", [64, 100])
+def test_flash_kernel_many_heads_on_card(cuda_device, dtype, D):
+    """B*H = 65,600, above the 65,535 of a grid's y dimension: every
+    kernel puts b*H + h in x."""
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, td) for a in
+               _inputs((2, 32800, 16, D), (2, 8200, 16, D), D))
+    got = fa.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v).float()
+    torch.cuda.synchronize()
+    assert ((got.float() - want).abs()
+            <= TOL[dtype] + REL[dtype] * want.abs()).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("kind", ["col2", "row_pad4", "off1", "perm"])
+@pytest.mark.parametrize("D", [20, 32, 100, 128])
+def test_flash_kernel_layouts_the_tma_cannot_take_on_card(cuda_device, dtype,
+                                                          kind, D):
+    """The layouts the TMA cannot take, read in place by mma (16-bit) and
+    simt (float32): a last dimension of stride 2, rows D + 4 elements
+    apart, a start one element past an aligned one, and the dense view of
+    a (B,S,D,H) tensor, whose output (empty_like(q)) has a column stride
+    of H."""
+    td = getattr(torch, dtype)
+    B, H, Hkv, S = 2, 4, 2, 300
+    shape = {"col2": lambda h: (B, h, S, 2 * D),
+             "row_pad4": lambda h: (B, h, S, D + 4),
+             "off1": lambda h: (B * h * S * D + 1,),
+             "perm": lambda h: (B, S, D, h)}[kind]
+    view = {"col2": lambda x, h: x[..., ::2],
+            "row_pad4": lambda x, h: x[..., :D],
+            "off1": lambda x, h: x[1:].view(B, h, S, D),
+            "perm": lambda x, h: x.permute(0, 3, 1, 2)}[kind]
+    rng = np.random.default_rng(D)
+    q, k, v = (view(torch.from_numpy(rng.standard_normal(
+        shape(h), dtype=np.float32)).to(cuda_device, td), h)
+        for h in (H, Hkv, Hkv))
+    assert fa.route(q, k, v) == ("simt" if dtype == "float32" else "mma")
+    got = fa.flash_attention(q, k, v, window=100)
+    want = ref.flash_attention_ref(q, k, v, window=100)
+    torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max() < TOL[dtype]
