@@ -12,8 +12,15 @@ the last line:
      bit-exact, over K in {1..5, 8, 16, 17, 24} rows and N from 1 to
      4194304 lanes, with every missing row reconstructed from row views
      (no concatenation), rows strided inside a larger tensor, and rows
-     off a 16-byte boundary; then the largest call of phase 12, K=3 rows
-     of 518,782,976 bytes (N = 129,695,744 lanes), checked and timed;
+     off a 16-byte boundary; then every other integer row type the
+     Pallas kernel takes (int8, uint8, int16, uint16, uint32, int64,
+     uint64: the XOR stored in int32 lanes as the Pallas kernel stores
+     it) bit for bit, in 16-byte lanes and element by element (rows one
+     element off 16 bytes), each missing row rebuilt from the survivors
+     in the row type and the int32 parity, and K1 on uint8 and int64 rows
+     at K=4, N=262144 timed beside its byte bound; then the largest call
+     of phase 12, K=3 rows of 518,782,976 bytes (N = 129,695,744 lanes),
+     checked and timed;
   4. kernel times at the shapes of the main path (CUDA events, median;
      replayed from a CUDA graph for the card's own time, and issued from
      Python), beside the memory bound, the copy floor (a device-to-device
@@ -40,14 +47,26 @@ the last line:
      column chunks to 1024), the layouts the TMA cannot take (LAYOUTS: a
      last dimension of stride 2, rows D + 4 apart, a start one element
      off, a (B,S,D,H) tensor's view) and B*H = 65,600 (element by element
-     there), after one short call of each compiled kernel;
+     there), after one short call of each compiled kernel; then the
+     other types the Pallas kernel computes, on the PerTensor simt
+     kernel (each operand read in its own type, the output in q's): each
+     of the five float8 formats alone and 11 mixes (MIXED) at
+     TYPED_SHAPES, windows -1 and -7 (no window, as in Pallas) on every
+     route, float8 tensors as (B,S,H,D) views, one byte off an aligned
+     start and with a column stride of 2, each element by element
+     against the plain version (a float8 output within one rounding of
+     its type), and at one key a row the kernel's float8 and 16-bit
+     rounding of 2^20 float32 bit patterns and its decoding of every
+     float8 byte;
   8. at the prefill shapes of qwen3-4b (B=2, S=4096, in bfloat16, float16
      and float32 at D=128 and 64, and one layer of prefill_32k: B=1,
      S=32768), a gemma3-12b global layer (D=256, B=2, S=4096), zamba2-7b's
      shared block (D=112, H=Hkv=32, B=2, S=4096) and qwen3-4b's shape at
      D=96, 80 (wgmma at width 128), 48 (wgmma at width 64), 100 (mma) and
-     320 (simt): the kernel against its plain version, element by element
-     within a limit scaled to each output, then its times beside the bound
+     320 (simt), and q bf16 with float8 (e4m3fn) k and v and all three
+     e4m3fn (PerTensor simt; no library call takes them): the kernel
+     against its plain version, element by element within a limit scaled
+     to each output, then its times beside the bound
      (the largest of the products at the type's peak, the bytes, and one
      exp2 a kept pair at 16 a clock an SM at nvidia-smi's clocks.max.sm),
      the plain version and scaled_dot_product_attention in the same dtype
@@ -158,8 +177,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the H100 SXM's peak rates, the denominators of every bound below
 from repro_torch.kernels.hardware import (  # noqa: E402
-    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S,
-    exp2_per_s)
+    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, FP8_FLOPS_PER_S, HBM_BYTES_PER_S,
+    INT32_OPS_PER_S, exp2_per_s)
 
 MAIN_MIB = 512
 STRIPE = 1 << 20
@@ -243,6 +262,87 @@ def check_kernel(torch, parity, ref, dev) -> int:
     emit("kernel_check", kernel="xor_parity", shapes=shapes,
          max_abs_err=worst, bit_exact=True)
     return worst
+
+
+# phase 3's integer rows: every row type the Pallas kernel takes besides
+# int32 (it stores the XOR in int32: int8/int16 sign-extended, uint8/uint16
+# zero-extended, uint32 by its bits, 64-bit types by their low 32 bits)
+INT_ROW_TYPES = ("int8", "uint8", "int16", "uint16", "uint32", "int64",
+                 "uint64")
+INT_TIMED = ("uint8", "int64")          # timed at K=4, N=262144
+
+
+def int_rows(torch, k, n, dname, seed, device):
+    """(k, n) random rows of the integer type `dname` on `device`: random
+    bytes, viewed as the type."""
+    item = getattr(torch, dname).itemsize
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 256, (k, n * item), dtype=torch.uint8,
+                      generator=g, device=device)
+    return x.view(getattr(torch, dname))
+
+
+def check_int_rows(torch, parity, ref, dev) -> dict:
+    """Phase 3 on every other integer row type: the kernel against its
+    plain version, bit for bit, in 16-byte lanes (rows on 16 bytes, whole
+    16-byte rows) and element by element (rows one element off a 16-byte
+    boundary, or a row length that is no multiple of 16 bytes), and every
+    missing row rebuilt from the survivors in the row type and the int32
+    parity (one launch for each of the two types and one over their int32
+    results); then K1 on uint8 and int64 rows at K=4, N=262144 timed
+    beside its bound (the rows' bytes in, N int32 out)."""
+    shapes, launches = 0, parity.LAUNCHES
+    for dname in INT_ROW_TYPES:
+        td = getattr(torch, dname)
+        for k in (1, 2, 3, 4, 5, 17):
+            for n in (1, 37, 4097, 262144, 262147):
+                x = int_rows(torch, k, n, dname, k * 7919 + n, dev)
+                buf = torch.empty(k * n + 1, dtype=td, device=dev)
+                buf[1:].copy_(x.reshape(-1))
+                for rows_ in (x, buf[1:].view(k, n)):
+                    p = parity.xor_parity(rows_)
+                    want = ref.xor_parity_ref(rows_)
+                    torch.cuda.synchronize()
+                    if not torch.equal(p, want):
+                        raise AssertionError(
+                            f"xor_parity {dname} K={k} N={n} differs from "
+                            "the plain version")
+                    for miss in range(min(k, 4) if k > 1 else 0):
+                        surv = [rows_[i] for i in range(k) if i != miss]
+                        got = parity.reconstruct(surv, p)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, ref.to_int32(rows_[miss])):
+                            raise AssertionError(
+                                f"reconstruct {dname} K={k} N={n} row "
+                                f"{miss} differs")
+                    shapes += 1
+    checked = parity.LAUNCHES - launches
+    times = {}
+    n = STRIPE // 4
+    for dname in INT_TIMED:
+        item = getattr(torch, dname).itemsize
+        count = -(-(96 << 20) // (4 * n * item))   # > 96 MiB of inputs
+        pool = [int_rows(torch, 4, n, dname, 31 * i, dev)
+                for i in range(count)]
+        kern = time_on_card(torch, parity.xor_parity, pool)
+        plain = time_on_card(torch, ref.xor_parity_ref, pool)
+        nbytes = 4 * n * item + n * 4
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = 3 * n / INT32_OPS_PER_S * 1e3
+        times[dname] = {"K": 4, "N": n, "bytes": nbytes,
+                        "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
+                        "plain_ms": plain["graph_ms"],
+                        "bound_ms": max(b, by_ops),
+                        "bound_by": "bytes" if b >= by_ops else "operations",
+                        "bound_share": max(b, by_ops) / kern["graph_ms"],
+                        "library_ms": None}
+        del pool
+    torch.cuda.empty_cache()
+    out = {"types": list(INT_ROW_TYPES), "shapes": shapes,
+           "launches": checked, "bit_exact": True, "max_abs_err": 0,
+           "timed": times}
+    emit("kernel_check_int_rows", kernel="xor_parity", **out)
+    return out
 
 
 def time_on_card(torch, fn, pool, reps=15) -> dict:
@@ -509,7 +609,10 @@ NEW_HEAD_DIM_SHAPES = ((1, 4, 2, 192, 192, 0, True, False),
 
 
 def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev, strided=False):
-    """q (B,H,Sq,D), k, v (B,Hkv,Sk,D) from `seed`.  `strided`: True gives
+    """q (B,H,Sq,D), k, v (B,Hkv,Sk,D) from `seed`, all of `dtype` or each
+    of its own where `dtype` is a tuple of three (a float8 tensor rounded
+    from normal samples as the reference rounds, float8_e8m0fnu, which
+    has no sign, from their magnitudes).  `strided`: True gives
     the (B,H,S,D) views of (B,S,H,D) tensors, as the model passes them;
     the layouts the TMA cannot take (LAYOUTS): "col2" a last dimension of
     stride 2, "row_pad4" rows D + 4 elements apart, "off1" a start one
@@ -528,11 +631,22 @@ def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev, strided=False):
         "perm": (lambda h, S: (B, S, D, h),
                  lambda x, h, S: x.permute(0, 3, 1, 2))}
     shape, view = layouts[strided]
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,) * 3
 
-    def mk(heads, S):
-        x = torch.randn(shape(heads, S), generator=g, device=dev).to(dtype)
-        return view(x, heads, S)
-    return mk(H, Sq), mk(Hkv, Sk), mk(Hkv, Sk)
+    def mk(heads, S, dt):
+        x = torch.randn(shape(heads, S), generator=g, device=dev)
+        if dt == torch.float8_e8m0fnu:
+            x = x.abs()
+        return view(plain().round_to(x, dt), heads, S)
+    return (mk(H, Sq, dtypes[0]), mk(Hkv, Sk, dtypes[1]),
+            mk(Hkv, Sk, dtypes[2]))
+
+
+def plain():
+    """The kernels' plain versions (`repro_torch.kernels.ref`), imported
+    where first used: the script's first lines import no torch."""
+    from repro_torch.kernels import ref
+    return ref
 
 
 # the layouts the TMA cannot take, which the mma (16-bit) and simt kernels
@@ -653,20 +767,200 @@ def check_flash(torch, fa, ref, dev) -> dict:
                                  for _, D in pairs})}
 
 
+# phase 7's other types: each float8 format alone and the mixes below
+# (each operand read in its own type, the output in q's), all on the
+# PerTensor simt kernel, at TYPED_SHAPES (B, H, Hkv, Sq, Sk, D, window,
+# causal: GQA, a window, Sq < Sk without causal, column chunks over
+# D = 320, a longer sequence); negative windows (-1, -7: no window, as in
+# the Pallas kernel) on each route; the float8 layouts a model or a view
+# gives (TYPED_LAYOUTS); and, at one key a row, the encoder of every
+# narrow output and the decoder of every float8 byte (`typed_sweeps`)
+FLOAT8 = ("float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+          "float8_e5m2fnuz", "float8_e8m0fnu")
+MIXED = (("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
+         ("float32", "bfloat16", "bfloat16"),
+         ("float16", "bfloat16", "float32"),
+         ("float8_e5m2", "float16", "float32"),
+         ("float32", "float8_e4m3fnuz", "float8_e5m2fnuz"),
+         ("bfloat16", "float32", "float32"),
+         ("float8_e4m3fn", "bfloat16", "bfloat16"),
+         ("float16", "float8_e8m0fnu", "float8_e5m2"),
+         ("float8_e8m0fnu", "float32", "float8_e8m0fnu"),
+         ("float8_e4m3fnuz", "float8_e4m3fnuz", "bfloat16"),
+         ("bfloat16", "bfloat16", "float8_e5m2fnuz"))
+TYPED_SHAPES = ((1, 4, 2, 192, 192, 64, 100, True),
+                (2, 8, 2, 300, 300, 128, 0, True),
+                (1, 4, 4, 100, 257, 40, 0, False),
+                (2, 4, 1, 130, 130, 320, 64, True),
+                (1, 32, 8, 1024, 1024, 128, 0, True))
+NEGATIVE_WINDOWS = (-1, -7)
+NEGATIVE_WINDOW_TYPES = (("bfloat16",) * 3, ("float16",) * 3,
+                         ("float32",) * 3, ("float8_e4m3fn",) * 3,
+                         ("bfloat16", "float8_e4m3fn", "float8_e4m3fn"))
+# float8 q, k, v as (B,H,S,D) views of (B,S,H,D) tensors (16-byte copies),
+# one byte past an aligned start and with a column stride of 2 (element
+# by element)
+TYPED_LAYOUTS = (True, "off1", "col2")
+
+
+def bits(torch, t):
+    """The raw bits of a tensor as int64 (1, 2 or 4 bytes an element)."""
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    mask = {1: 0xFF, 2: 0xFFFF, 4: 0xFFFFFFFF}[t.element_size()]
+    return t.view(view[t.element_size()]).to(torch.int64) & mask
+
+
+def rounding_steps(torch, got, want) -> int:
+    """Element by element, how many values of the (8- or 16-bit) type two
+    tensors of it are apart (-0 == +0), the largest; NaN must sit in the
+    same places (else a large number)."""
+    nan = torch.isnan(plain().decode(got))
+    if not torch.equal(nan, torch.isnan(plain().decode(want))):
+        return 1 << 30
+
+    def key(t):               # monotone in the value; e8m0 has no sign
+        b = bits(torch, t)
+        if t.dtype == torch.float8_e8m0fnu:
+            return b
+        top = 1 << (8 * t.element_size() - 1)
+        return torch.where(b & top != 0, -(b & (top - 1)), b & (top - 1))
+    steps = (key(got) - key(want)).abs().masked_fill(nan, 0)
+    return int(steps.max()) if steps.numel() else 0
+
+
+def typed_error(torch, got, want) -> tuple[float, float]:
+    """(error, limit) of the kernel's output against the plain version's,
+    element by element: for a float8 output the largest count of
+    roundings apart, within 1 (both compute in float32 and differ only in
+    the order of their sums, far below a float8 step, even a subnormal
+    one); else the largest absolute difference, within FLASH_TOL (a
+    16-bit type's steps near 0 are finer than float32's order of sums)."""
+    dname = str(got.dtype).removeprefix("torch.")
+    if dname in FLASH_TOL:
+        return float((got.float() - want.float()).abs().max()), \
+            FLASH_TOL[dname]
+    return float(rounding_steps(torch, got, want)), 1.0
+
+
+def typed_sweeps(torch, fa, ref, dev) -> dict:
+    """One key a row, q and k zero, so every weight is exactly 1 and the
+    output is v rounded to q's type: the kernel's encoder for each narrow
+    output type against `ref.round_to` over 2^20 random float32 bit
+    patterns and float32's edges (bit for bit for float8 but the sign of
+    a NaN, value for value for 16-bit), and its decoder of every float8 byte against the
+    table (v each of the 256 bytes, a float32 output)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randint(-2 ** 31, 2 ** 31, (4096 * 256,), dtype=torch.int64,
+                      generator=g, device=dev).to(torch.int32).view(
+                          torch.float32)
+    x[:10] = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1e-45,
+                           -1e-45, 1e-39, 3.4e38, 464.0], device=dev)
+    v = x.view(1, 4096, 1, 256)
+    z = torch.zeros_like(v)
+    out = {}
+    for dname in FLOAT8 + ("bfloat16", "float16"):
+        td = getattr(torch, dname)
+        # q of byte 0 (0, or 2^-127 in e8m0fnu): with k zero every score is 0
+        qz = torch.zeros(v.shape, dtype=torch.uint8 if td.itemsize == 1
+                         else td, device=dev).view(td)
+        got = fa.flash_attention(qz, z, v)
+        # the sum of products starts at +0, so -0 comes out +0
+        want = ref.round_to(x + 0.0, td).view(got.shape)
+        torch.cuda.synchronize()
+        steps = rounding_steps(torch, got, want)
+        # bit for bit but NaN, whose sign the products need not keep
+        nan = torch.isnan(plain().decode(want))
+        exact = bool(torch.equal(bits(torch, got).masked_fill(nan, 0),
+                                 bits(torch, want).masked_fill(nan, 0)))
+        if steps or (td.itemsize == 1 and not exact):
+            raise AssertionError(f"the kernel rounds to {dname} unlike the "
+                                 f"plain version: {steps} steps apart")
+        out[dname] = {"values": x.numel(), "bit_exact": exact}
+    for dname in FLOAT8:
+        codes = torch.arange(256, dtype=torch.uint8, device=dev).view(
+            getattr(torch, dname))
+        zz = torch.zeros((1, 8, 1, 32), device=dev)
+        got = fa.flash_attention(zz, zz, codes.view(1, 8, 1, 32)).reshape(-1)
+        want = ref.decode_table(codes.dtype, dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got.nan_to_num(0.5), want.nan_to_num(0.5)):
+            raise AssertionError(f"the kernel decodes {dname} unlike the "
+                                 "table")
+        out[dname]["decoded"] = 256
+    return out
+
+
+def check_flash_types(torch, fa, ref, dev) -> dict:
+    """Phase 7, the other types: every float8 format and each MIXED
+    combination at TYPED_SHAPES, both negative windows on every route
+    (against the plain version at window 0), the float8 TYPED_LAYOUTS,
+    and `typed_sweeps`; each held element by element (`typed_error`)
+    against the plain version on the card, each launch counted by its
+    four types."""
+    before = dict(fa.DTYPE_LAUNCHES)
+    combos = [(d,) * 3 for d in FLOAT8] + list(MIXED)
+    cases = [(combo, shape, False, None) for combo in combos
+             for shape in TYPED_SHAPES]
+    cases += [(combo, (2, 8, 2, 300, 300, D, w, True), False, w)
+              for combo in NEGATIVE_WINDOW_TYPES for D in (64, 100)
+              for w in NEGATIVE_WINDOWS]
+    cases += [((d, d, "bfloat16"), (2, 4, 2, 192, 257, 64, 100, True),
+               layout, None)
+              for d in ("float8_e4m3fn", "float8_e5m2") for layout in
+              TYPED_LAYOUTS]
+    worst = {}
+    for i, (combo, shape, layout, neg) in enumerate(cases):
+        B, H, Hkv, Sq, Sk, D, w, c = shape
+        dts = tuple(getattr(torch, d) for d in combo)
+        q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dts, 1000 + i, dev,
+                      layout)
+        name = fa.route(q, k, v)
+        got = fa.flash_attention(q, k, v, causal=c, window=w)
+        want = ref.flash_attention_ref(q, k, v, causal=c,
+                                       window=0 if neg else w)
+        torch.cuda.synchronize()
+        err, limit = typed_error(torch, got, want)
+        if not err <= limit:
+            raise AssertionError(
+                f"flash_attention {combo} {shape} layout={layout} ({name}):"
+                f" {err} > {limit} against the plain version")
+        key = ",".join(combo) if neg is None else f"{','.join(combo)} " \
+            f"window<0"
+        worst[key] = max(worst.get(key, 0.0), err)
+        del q, k, v, got, want
+    sweeps = typed_sweeps(torch, fa, ref, dev)
+    ran = {k: v - before.get(k, 0) for k, v in fa.DTYPE_LAUNCHES.items()
+           if v != before.get(k, 0)}
+    missing = [c for c in combos if fa.dtype_key(
+        "simt", *(getattr(torch, d) for d in c), getattr(torch, c[0]))
+        not in ran]
+    out = {"cases": len(cases), "combos": len(combos),
+           "max_err": worst, "dtype_launches": ran, "sweeps": sweeps}
+    emit("kernel_check_types", kernel="flash_attention", **out)
+    if missing:
+        raise AssertionError(f"no simt launch for {missing}")
+    return out
+
+
 def flash_cost(B, H, Hkv, S, D, dtype, clock_mhz) -> dict:
     """flops, bytes and exponentials of causal attention at Sq == Sk == S
-    in `dtype` (a name), and the bound (ms): the largest of three terms,
-    the products at the card's peak for the type (the tensor cores' for
-    16-bit types, FMA for float32), the bytes (each input read once, the
-    output written once) at the memory rate, and one exp2 a kept (query,
-    key) pair at the special function units' rate at `clock_mhz`.
-    `bound_by` is "operations" (products or exp2) or "bytes", `term` the
-    term itself."""
+    in `dtype` (a name, or the names of q's, k's and v's types), and the
+    bound (ms): the largest of three terms, the products at the card's
+    peak for the widest input type (FMA for float32, the tensor cores'
+    for 16-bit types, their float8 rate where all three are float8), the
+    bytes (each input read once in its type, the output written once in
+    q's) at the memory rate, and one exp2 a kept (query, key) pair at the
+    special function units' rate at `clock_mhz`.  `bound_by` is
+    "operations" (products or exp2) or "bytes", `term` the term itself."""
     pairs = B * H * (S * (S + 1) / 2)
     flops = 4.0 * D * pairs                        # QK^T and PV, kept pairs
-    itemsize = 4 if dtype == "float32" else 2
-    nbytes = itemsize * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-    peak = F32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S
+    names = dtype if isinstance(dtype, tuple) else (dtype,) * 3
+    item = [4 if n == "float32" else 1 if n.startswith("float8") else 2
+            for n in names]
+    nbytes = (2 * item[0] * B * H * S * D
+              + (item[1] + item[2]) * B * Hkv * S * D)
+    peak = (F32_FLOPS_PER_S if max(item) == 4 else
+            BF16_FLOPS_PER_S if max(item) == 2 else FP8_FLOPS_PER_S)
     terms = {"products": flops / peak * 1e3,
              "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "exp2": pairs / exp2_per_s(clock_mhz) * 1e3}
@@ -690,8 +984,8 @@ def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
     fixed 2e-2 would pass a dropped or repeated KV tile."""
     dname = str(q.dtype).removeprefix("torch.")
     want = want.float()
-    weighted = ref.flash_attention_ref(q, k, v.abs(), causal=causal,
-                                       window=window).float()
+    weighted = ref.flash_attention_ref(q, k, ref.decode(v).abs(),
+                                       causal=causal, window=window).float()
     err = (got.float() - want).abs()
     mag = want.abs()
     limit = (FLASH_REL_TOL[dname] * (mag + weighted / 2)
@@ -778,6 +1072,59 @@ def time_flash(torch, fa, ref, dev) -> dict:
         del q, k, v, pool, views
         torch.cuda.empty_cache()
     emit("kernel_time", kernel="flash_attention", **out)
+    return out
+
+
+# phase 8's other types at the main path's shape, on the PerTensor simt
+# kernel: q bf16 with float8 (e4m3fn) k and v, and all three e4m3fn (name,
+# (q, k, v types), B, H, Hkv, S, D, reps).  No library call takes them.
+FLASH_TYPED_TIMED = (
+    ("bf16_q_e4m3fn_kv", ("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
+     2, 32, 8, 4096, 128, 3),
+    ("e4m3fn", ("float8_e4m3fn",) * 3, 2, 32, 8, 4096, 128, 3))
+
+
+def time_flash_types(torch, fa, ref, dev) -> dict:
+    """K3 at FLASH_TYPED_TIMED: the kernel held against its plain version
+    (a 16-bit output element by element by check_flash_scaled, a float8
+    one within one rounding), then both timed beside the bound."""
+    clock = sm_clock_mhz()
+    out = {}
+    for name, names, B, H, Hkv, S, D, reps in FLASH_TYPED_TIMED:
+        dts = tuple(getattr(torch, n) for n in names)
+        q, k, v = qkv(torch, B, H, Hkv, S, S, D, dts, 7, dev)
+        got = fa.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        if q.element_size() == 1:
+            steps = rounding_steps(torch, got, want)
+            check = {"rounding_steps": steps, "worst_over_limit": steps}
+        else:
+            check = check_flash_scaled(torch, ref, got, want, q, k, v)
+        emit("kernel_check", kernel="flash_attention", shape=name,
+             dtypes=names, B=B, S=S, D=D, **check)
+        if not check["worst_over_limit"] <= 1.0:
+            raise AssertionError(f"flash_attention at {name} differs from "
+                                 f"its plain version: {check}")
+        del got, want
+        cost = flash_cost(B, H, Hkv, S, D, names, clock)
+        kern = time_on_card(torch, lambda t: fa.flash_attention(*t),
+                            [(q, k, v)], reps)
+        plain_t = time_on_card(torch, lambda t: ref.flash_attention_ref(*t),
+                               [(q, k, v)], reps)
+        out[name] = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
+                     "dtypes": names, "variant": fa.route(q, k, v),
+                     "width": fa.width("simt", D), "check": check,
+                     "flops": cost["flops"], "bytes": cost["bytes"],
+                     "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
+                     "plain_ms": plain_t["graph_ms"], "library_ms": None,
+                     "bound_ms": cost["bound_ms"],
+                     "bound_by": cost["bound_by"], "bound_term": cost["term"],
+                     "bound_terms_ms": cost["terms_ms"],
+                     "bound_share": cost["bound_ms"] / kern["graph_ms"],
+                     "sm_clock_mhz": clock}
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit("kernel_time_types", kernel="flash_attention", **out)
     return out
 
 
@@ -2571,7 +2918,23 @@ def first_flash_calls(torch, fa, ref, dev):
     a kernel per width and Q K^T step count (WGMMA_FIRST_DIMS holds one D
     of each; most leave a last TMA box mostly empty), mma one per width
     (at width / 2 + 4, which is no multiple of 8), simt one per column
-    chunk in float32 (at width - 4) and one for 16-bit types (D = 300)."""
+    chunk in float32 (at width - 4) and one for 16-bit types (D = 300);
+    the PerTensor simt kernel at each column chunk (a mix at width - 4)
+    and on each float8 format (D = 60)."""
+    for combo, D in [(MIXED[0], w - 4) for w in fa.WIDTHS["simt"]] + [
+            ((d,) * 3, 60) for d in FLOAT8]:
+        q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
+                      tuple(getattr(torch, d) for d in combo), D, dev)
+        name = fa.route(q, k, v)
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err, limit = typed_error(torch, got,
+                                 ref.flash_attention_ref(q, k, v))
+        emit("kernel_first_call", kernel="flash_attention", dtypes=combo,
+             D=D, variant=name, width=fa.width(name, D), error=err,
+             limit=limit)
+        if not err <= limit:
+            raise AssertionError(f"{name} kernel, {combo}, D={D}: {err}")
     for dname in FLASH_TOL:
         dtype = getattr(torch, dname)
         if dname == "float32":
@@ -2662,7 +3025,9 @@ def run(mode: str = "") -> int:
 
     if mode == "--flash-only":
         first_flash_calls(torch, fa, ref, dev)
+        check_flash_types(torch, fa, ref, dev)
         check_flash(torch, fa, ref, dev)
+        time_flash_types(torch, fa, ref, dev)
         time_flash(torch, fa, ref, dev)
         return 0
     if mode == "--train-only":
@@ -2681,6 +3046,7 @@ def run(mode: str = "") -> int:
         parallel(torch, fa, dev, smi)
         return 0
     worst = check_kernel(torch, parity, ref, dev)
+    ints = check_int_rows(torch, parity, ref, dev)
     large = check_large_rows(torch, parity, ref, dev)
     times = time_kernel(torch, parity, ref, ops, dev)
     if mode == "--parity-only":
@@ -2699,7 +3065,9 @@ def run(mode: str = "") -> int:
     write_split(torch, ops, parity, dev)
 
     flash_err = check_flash(torch, fa, ref, dev)
+    flash_types = check_flash_types(torch, fa, ref, dev)
     flash_times = time_flash(torch, fa, ref, dev)
+    typed_times = time_flash_types(torch, fa, ref, dev)
     cfg, params = model_params(torch, dev)
     prefill = prefill_path(torch, fa, parity, cfg, params, dev)
     prefill16 = prefill_path(torch, fa, parity, cfg, params, dev,
@@ -2740,7 +3108,11 @@ def run(mode: str = "") -> int:
         "train_shape": {k: large[k] for k in (
             "K", "N", "ms", "plain_ms", "bound_ms", "bound_by")},
         "entry_launches": entry["launches"],
-        "moe_train_launches": fams["moe"]["trainer_launches"]}, {
+        "moe_train_launches": fams["moe"]["trainer_launches"],
+        "row_types": {"types": ints["types"], "shapes": ints["shapes"],
+                      "launches": 0, "checked_launches": ints["launches"],
+                      "max_abs_err": ints["max_abs_err"],
+                      "timed": ints["timed"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
@@ -2762,7 +3134,18 @@ def run(mode: str = "") -> int:
                   for name, t in flash_times.items()
                   if name not in ("main", "zamba2_d112", "main_f16")},
         "max_abs_err_by_dtype": flash_err["max_abs_err"],
-        "head_dims_held": flash_err["head_dims"]}
+        "head_dims_held": flash_err["head_dims"],
+        "other_types": {
+            "variant": "simt", "launches": 0,
+            "dtypes": [",".join(c) for c in
+                       [(d,) * 3 for d in FLOAT8] + list(MIXED)],
+            "checked_launches": flash_types["dtype_launches"],
+            "max_err": flash_types["max_err"],
+            "negative_windows": list(NEGATIVE_WINDOWS),
+            "timed": {name: {k: t[k] for k in (
+                "dtypes", "width", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_term", "library_ms", "check")}
+                for name, t in typed_times.items()}}}
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

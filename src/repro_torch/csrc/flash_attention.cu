@@ -11,8 +11,11 @@
 // h / (H / Hkv) by index, with no copy.  Every tensor is addressed through
 // its batch, head, row and column strides, so (B,S,H,D) activations,
 // strided and misaligned views are read and written in place.  Like the
-// Pallas kernel, it takes float16, bfloat16 and float32, any head dim D
-// and any B*H (b*H + h is the grid's x everywhere).
+// Pallas kernel, it takes any floating type for each of q, k and v (the
+// Pallas kernel casts each to float32 and rounds the output to q's type):
+// float32, bfloat16, float16 and the float8 formats e4m3fn, e5m2,
+// e4m3fnuz, e5m2fnuz and e8m0fnu, any head dim D and any B*H (b*H + h is
+// the grid's x everywhere).
 //
 // Bound: at D >= 64 in a 16-bit type, operations.  Per (query, kept key)
 // pair the kernel does 4*D flops and one exp2 and reads each input once,
@@ -96,8 +99,10 @@
 //     wgmma fed by cp.async from 128 producer threads into TMA's swizzle
 //     measured 22 % slower than this at D=100 (1.65 against 1.35 ms;
 //     PERF.md).
-//   * `flash_fwd_simt`: float32 at any D, and float16 or bfloat16 above
-//     D = 256: float32 FMA, no TF32, bound by the FMA rate.  A block of 4
+//   * `flash_fwd_simt`: float32 at any D, float16 or bfloat16 above
+//     D = 256, and (`flash_fwd_simt<PerTensor, DC>`, one kernel a column
+//     chunk) every float8 input and every mix of types: float32 FMA, no
+//     TF32, bound by the FMA rate.  A block of 4
 //     warps owns 64 query rows; thread (rg, kg) holds an 8 x 4 register
 //     tile of S (rows rg + 8 i, keys kg + 16 j) and an 8 x DC/16 tile of O,
 //     so every 16-byte shared load feeds 8 or 16 FMAs.  DC (32, 64 or 128)
@@ -106,9 +111,15 @@
 //     any D runs.  K chunks, V half-tiles (and Q chunks where Q does not
 //     stay in shared memory with two blocks an SM) stream through a
 //     3-slot ring by cp.async (16 bytes a copy where the layout allows,
-//     else 4), one barrier a step; 16-bit inputs come raw by cp.async and
-//     each thread converts its own copies to float32 in shared memory.  P
-//     goes through shared memory into P V.
+//     else 4), one barrier a step; 1- and 2-byte inputs come raw by
+//     cp.async (16, 8 or 4 bytes a copy, else element by element) and each
+//     thread converts its own copies to float32 in shared memory, a float8
+//     byte through its format's 256 values (a table per tensor in shared
+//     memory, made on the host from torch's decoding).  P goes through
+//     shared memory into P V.  The PerTensor kernel reads each tensor's
+//     type code from Params, so 3 kernels take the 8^4 combinations; it
+//     rounds its output as the reference's `astype` does (`encode_f8`:
+//     to nearest even, each format's own overflow, NaN and zero).
 //
 // 16-bit products are exact in float32, so Q K^T differs from the
 // reference only in summation order; P is rounded to q's type for the P V
@@ -148,11 +159,24 @@ struct Params {
   // may have any)
   int64_t q_sb, q_sh, q_ss, q_sd, k_sb, k_sh, k_ss, k_sd, v_sb, v_sh, v_ss,
       v_sd, o_sb, o_sh, o_ss, o_sd;
-  // elements a copy of the mma and simt kernels moves: 8, 4 or 2 (16 bytes'
-  // worth at most, the column stride 1, start, strides and D multiples of
-  // it), or 1 (element by element, any strides)
+  // elements a copy of the mma and simt kernels moves: 16, 8, 4 or 2 (16
+  // bytes' worth at most, the column stride 1, start, strides and D
+  // multiples of it), or 1 (element by element, any strides)
   int q_vec, k_vec, v_vec, o_vec;
+  // the type codes of q, k, v and o (read by the PerTensor simt kernel): 0
+  // float32, 1 bfloat16, 2 float16, 3 float8_e4m3fn, 4 float8_e5m2, 5
+  // float8_e4m3fnuz, 6 float8_e5m2fnuz, 7 float8_e8m0fnu
+  int q_type, k_type, v_type, o_type;
+  // the 256 values of q's, k's and v's float8 type, in device memory
+  // (null for a tensor that is not float8)
+  const float* lut[3];
 };
+
+// The simt kernel's element type that stands for "each tensor in the type
+// its code in Params names".
+struct PerTensor {};
+template <typename T>
+constexpr bool kPer = std::is_same_v<T, PerTensor>;
 
 template <typename T>
 constexpr bool kIsF16 = std::is_same_v<T, f16>;
@@ -178,6 +202,95 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   } else {
     __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&t);
+  }
+}
+
+// ------------------------------------------------------- float8 and codes
+
+__host__ __device__ inline int code_bytes(int code) {
+  return code == 0 ? 4 : code < 3 ? 2 : 1;
+}
+
+// 2^k for k in [-126, 127], from its bits (exact)
+__device__ __forceinline__ float pow2(int k) {
+  return __uint_as_float((uint32_t)(k + 127) << 23);
+}
+
+// float32 -> the float8 type `code` (3-7), as the reference's `astype`
+// rounds (XLA and ml_dtypes): to nearest, ties to even, at the format's
+// spacing at |x|, with its own overflow, NaN and zero.  e4m3fn: no
+// infinity, overflow and NaN give 0x7f | sign; e5m2: overflow gives
+// infinity; the fnuz formats: one NaN code 0x80 (overflow too) and no
+// negative zero.  e8m0fnu (exponent only, no sign, no zero): NaN 0xff for
+// x <= 0, infinities and NaN, else the exponent of x plus one when bit 22
+// of its mantissa is set and x is not a tie at 2^-127.
+__device__ __forceinline__ uint8_t encode_f8(float x, int code) {
+  const uint32_t b = __float_as_uint(x);
+  if (code == 7) {
+    const uint32_t e = b >> 23;
+    if (!(x > 0.f) || e == 255) return 0xff;
+    return (uint8_t)(e + ((b & 0x400000) && ((b & 0x3fffff) || e > 0)));
+  }
+  const uint32_t sign = (b >> 24) & 0x80;
+  const bool fnuz = code >= 5;
+  const int mb = code == 3 || code == 5 ? 3 : 2;
+  const int bias = code == 3 ? 7 : code == 4 ? 15 : code == 5 ? 8 : 16;
+  const float top = code == 3 ? 448.f : code == 5 ? 240.f : 57344.f;
+  const uint8_t nan = fnuz ? 0x80 : (uint8_t)(sign | (mb == 3 ? 0x7f : 0x7e));
+  if (isnan(x)) return nan;
+  const int emin = 1 - bias;  // the least normal exponent
+  const int e = max((int)((b >> 23) & 0xff) - 127, emin);
+  // |x| at the spacing 2^(e - mb), rounded: exact scalings by powers of two
+  const float y = rintf(fabsf(x) * pow2(mb - e)) * pow2(e - mb);
+  if (y > top) return code == 4 ? (uint8_t)(sign | 0x7c) : nan;
+  uint32_t mag = 0;
+  if (y != 0.f) {
+    const uint32_t yb = __float_as_uint(y);
+    const int ye = (int)(yb >> 23) - 127;
+    mag = ye >= emin ? ((uint32_t)(ye + bias) << mb) |
+                           ((yb >> (23 - mb)) & ((1u << mb) - 1))
+                     : (uint32_t)(y * pow2(mb - emin));
+  }
+  return fnuz && mag == 0 ? 0 : (uint8_t)(sign | mag);
+}
+
+// Element access of the simt kernel: T's own type, or for PerTensor the
+// type `code` names (a float8 byte through its 256-entry table `lut`).
+template <typename T>
+__device__ __forceinline__ int elem_bytes(int code) {
+  if constexpr (kPer<T>) return code_bytes(code);
+  else return (int)sizeof(T);
+}
+template <typename T>
+__device__ __forceinline__ bool is_f32(int code) {
+  if constexpr (kPer<T>) return code == 0;
+  else return std::is_same_v<T, float>;
+}
+template <typename T>
+__device__ __forceinline__ float load_f32(const char* p, int code,
+                                          const float* lut) {
+  if constexpr (kPer<T>) {
+    switch (code) {
+      case 0: return *reinterpret_cast<const float*>(p);
+      case 1: return to_f32(*reinterpret_cast<const bf16*>(p));
+      case 2: return to_f32(*reinterpret_cast<const f16*>(p));
+      default: return lut[*reinterpret_cast<const uint8_t*>(p)];
+    }
+  } else {
+    return to_f32(*reinterpret_cast<const T*>(p));
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store_f32(char* p, int code, float x) {
+  if constexpr (kPer<T>) {
+    switch (code) {
+      case 0: *reinterpret_cast<float*>(p) = x; break;
+      case 1: *reinterpret_cast<bf16*>(p) = from_f32<bf16>(x); break;
+      case 2: *reinterpret_cast<f16*>(p) = from_f32<f16>(x); break;
+      default: *reinterpret_cast<uint8_t*>(p) = encode_f8(x, code);
+    }
+  } else {
+    *reinterpret_cast<T*>(p) = from_f32<T>(x);
   }
 }
 
@@ -291,17 +404,24 @@ __host__ __device__ constexpr int slot_floats() {
 __host__ __device__ inline int q_cols(int D) {
   return (D + kKC - 1) / kKC * kKC;
 }
-// floats of the raw 16-bit staging of a step: 4096 elements, a K chunk
-// and a streamed Q chunk (2 x 64 x 32) or half a V tile at DC = 128
-// (32 x 128)
-constexpr int kRawFloats = kBK * kKC;
-// shared memory without Q, and whether Q (D rounded up to kKC, as float32)
-// stays in shared memory: where two blocks still fit an SM; else its
-// chunks stream through the ring beside K's
+// floats of the raw staging of the 1- and 2-byte inputs, room for 2-byte
+// elements: a K chunk (64 x 32), a streamed Q chunk (64 x 32, from byte
+// kRawQ) and half a V tile at DC = 128 (32 x 128, from byte kRawV).  Each
+// thread converts the copies it issued; K's, Q's and V's copies are laid
+// out differently, so each has its own region, and a thread's next copies
+// never land on bytes another thread has yet to convert.
+constexpr int kRawFloats = 2 * kBK * kKC;
+constexpr int kRawQ = kBK * kKC * 2;
+constexpr int kRawV = 2 * kRawQ;
+// shared memory without Q (the PerTensor kernel adds the float8 tables of
+// q, k and v, 256 floats each), and whether Q (D rounded up to kKC, as
+// float32) stays in shared memory: where two blocks still fit an SM; else
+// its chunks stream through the ring beside K's
 template <typename T, int DC>
 __host__ __device__ constexpr int base_bytes() {
   return 4 * (kSlots * slot_floats<DC>() + kBQ * kLdP +
-              (std::is_same_v<T, float> ? 0 : kRawFloats));
+              (std::is_same_v<T, float> ? 0 : kRawFloats) +
+              (kPer<T> ? 3 * 256 : 0));
 }
 template <typename T, int DC>
 __host__ __device__ inline bool q_resident(int D) {
@@ -340,56 +460,80 @@ __device__ __forceinline__ void copy_f32(float* dst, int ld, const float* src,
   }
 }
 
-// The same block of a 16-bit tensor, converted on its way into shared
-// memory.  With vec 8, 4 or 2 (elements a copy: column stride 1, start,
-// strides and D multiples of it) `copy16` brings the raw 16-bit block into
-// `raw` (rows x cols, dense) by cp.async, and `convert16`, once this
-// thread's copies have landed, writes the elements it copied into dst as
-// float32: no registers hold the block in between.  With vec 1 (any
-// strides) `convert16` loads element by element from src itself.
-template <typename T>
-__device__ __forceinline__ void copy16(uint16_t* raw, const T* src,
-                                       int64_t ss, int rows, int cols,
-                                       int valid, int col0, int D, int vec,
-                                       int tid) {
-  if (vec == 1) return;
+// The same block of a tensor of 1- or 2-byte elements (type `code`, `eb`
+// bytes an element, at byte address src), converted on its way into
+// shared memory.  Where `vec` elements make a copy of 16, 8 or 4 bytes
+// (column stride 1, start, strides and D multiples of it) `copy_raw`
+// brings the raw block into `raw` (rows x cols elements, dense) by
+// cp.async, and `convert_raw`, once this thread's copies have landed,
+// writes the elements it copied into dst as float32: no registers hold the
+// block in between.  Otherwise (any strides) `convert_raw` loads element by
+// element from src itself.  Rows from `valid` and columns from D on are
+// zeros.
+__device__ __forceinline__ void copy_raw(char* raw, const char* src,
+                                         int64_t ss, int rows, int cols,
+                                         int valid, int col0, int D, int vec,
+                                         int eb, int tid) {
+  const int bytes = vec * eb;
+  if (bytes < 4) return;
   const int per_row = cols / vec;
   for (int i = tid; i < rows * per_row; i += kThreads) {
     const int r = i / per_row, c = (i - r * per_row) * vec, col = col0 + c;
     const bool ok = r < valid && col < D;
-    const T* g = ok ? src + r * ss + col : src;
-    const uint32_t d = smem_u32(raw + r * cols + c);
-    if (vec == 8) cp_async<16>(d, g, ok);
-    else if (vec == 4) cp_async<8>(d, g, ok);
+    const char* g = ok ? src + (r * ss + col) * eb : src;
+    const uint32_t d = smem_u32(raw + (r * cols + c) * eb);
+    if (bytes == 16) cp_async<16>(d, g, ok);
+    else if (bytes == 8) cp_async<8>(d, g, ok);
     else cp_async<4>(d, g, ok);
   }
 }
 template <typename T>
-__device__ __forceinline__ void convert16(float* dst, int ld,
-                                          const uint16_t* raw, const T* src,
-                                          int64_t ss, int64_t sd, int rows,
-                                          int cols, int valid, int col0,
-                                          int D, int vec, int tid) {
-  if (vec == 1) {
+__device__ __forceinline__ void convert_raw(float* dst, int ld,
+                                            const char* raw, const char* src,
+                                            int64_t ss, int64_t sd, int rows,
+                                            int cols, int valid, int col0,
+                                            int D, int vec, int eb, int code,
+                                            const float* lut, int tid) {
+  if (vec * eb < 4) {
     for (int i = tid; i < rows * cols; i += kThreads) {
       const int r = i / cols, c = i - r * cols, col = col0 + c;
-      dst[r * ld + c] = r < valid && col < D
-                            ? to_f32(src[r * ss + (int64_t)col * sd])
-                            : 0.f;
+      dst[r * ld + c] =
+          r < valid && col < D
+              ? load_f32<T>(src + (r * ss + (int64_t)col * sd) * eb, code, lut)
+              : 0.f;
     }
     return;
   }
   const int per_row = cols / vec;
   for (int i = tid; i < rows * per_row; i += kThreads) {
     const int r = i / per_row, c = (i - r * per_row) * vec;
-    const T* x = reinterpret_cast<const T*>(raw + r * cols + c);
-    for (int e = 0; e < vec; ++e) dst[r * ld + c + e] = to_f32(x[e]);
+    const bool ok = r < valid && col0 + c < D;  // a copy lies in D or past
+    const char* x = raw + (r * cols + c) * eb;
+    for (int e = 0; e < vec; ++e)
+      dst[r * ld + c + e] = ok ? load_f32<T>(x + e * eb, code, lut) : 0.f;
   }
+}
+
+// Brings a block of a tensor of type `code` toward its float32 slot `dst`:
+// float32 straight into it, 1- and 2-byte types into `raw` (`land` then
+// converts them).
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int ld, char* raw,
+                                      const char* src, int64_t ss, int64_t sd,
+                                      int rows, int cols, int valid, int col0,
+                                      int D, int vec, int eb, int code,
+                                      int tid) {
+  if (is_f32<T>(code))
+    copy_f32(dst, ld, reinterpret_cast<const float*>(src), ss, sd, rows, cols,
+             valid, col0, D, vec == 4, tid);
+  else
+    copy_raw(raw, src, ss, rows, cols, valid, col0, D, vec, eb, tid);
 }
 }  // namespace simt
 
-// T: the inputs' and output's type; DC: the output columns a block computes
-// (32, 64 or 128; a grid dimension of ceil(D / DC) column chunks covers D).
+// T: the inputs' and output's type (PerTensor: each tensor's own, by its
+// code in Params); DC: the output columns a block computes (32, 64 or 128;
+// a grid dimension of ceil(D / DC) column chunks covers D).
 // Thread (rg, kg) = (tid / 16, tid % 16) holds rows rg + 8 i (i < 8) of the
 // block: the scores of keys kg + 16 j (j < 4) of the tile, and O at
 // DC / 16 columns.
@@ -404,9 +548,27 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                     // [kSlots][kSlot]
   float* Ps = ring + kSlots * kSlot;      // [kBQ][kLdP]
-  uint16_t* raw = reinterpret_cast<uint16_t*>(Ps + kBQ * kLdP);  // 16-bit
-  float* Qs = Ps + kBQ * kLdP + (kF32 ? 0 : kRawFloats);  // [kBQ][dq + 4],
-                                                         // when resident
+  char* raw = reinterpret_cast<char*>(Ps + kBQ * kLdP);  // 1- and 2-byte
+  float* luts = Ps + kBQ * kLdP + (kF32 ? 0 : kRawFloats);  // [3][256]
+  float* Qs = luts + (kPer<T> ? 3 * 256 : 0);  // [kBQ][dq + 4], resident
+
+  // each tensor's type code and element bytes (constants but for
+  // PerTensor), and its float8 table in shared memory
+  const int qt = kPer<T> ? p.q_type : 0, kt = kPer<T> ? p.k_type : 0,
+            vt = kPer<T> ? p.v_type : 0, ot = kPer<T> ? p.o_type : 0;
+  const int qb = elem_bytes<T>(qt), kb = elem_bytes<T>(kt),
+            vb = elem_bytes<T>(vt), ob = elem_bytes<T>(ot);
+  const float *lq = luts, *lk = luts + 256, *lv = luts + 512;
+  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;
+  if constexpr (kPer<T>) {
+    const int codes[3] = {qt, kt, vt};
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      if (codes[t] >= 3)
+        for (int i = tid; i < 256; i += kThreads)
+          luts[t * 256 + i] = p.lut[t][i];
+    __syncthreads();
+  }
 
   const int D = p.D, dq = q_cols(D), nkc = dq / kKC;
   const bool q_res = q_resident<T, DC>(D);
@@ -414,15 +576,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const T* q = (const T*)p.q + b * p.q_sb + h * p.q_sh;
-  const T* k = (const T*)p.k + b * p.k_sb + hk * p.k_sh;
-  const T* v = (const T*)p.v + b * p.v_sb + hk * p.v_sh;
-  T* o = (T*)p.o + b * p.o_sb + h * p.o_sh;
+  const char* q = (const char*)p.q + (b * p.q_sb + h * p.q_sh) * qb;
+  const char* k = (const char*)p.k + (b * p.k_sb + hk * p.k_sh) * kb;
+  const char* v = (const char*)p.v + (b * p.v_sb + hk * p.v_sh) * vb;
+  char* o = (char*)p.o + (b * p.o_sb + h * p.o_sh) * ob;
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // last tile first
   const int c0 = blockIdx.z * DC;
   const int off = p.Sk - p.Sq;
-  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;
   int kbeg, kend;
   kv_range(p, q0 + off, min(q0 + kBQ, p.Sq) - 1 + off, kbeg, kend);
   const int t_first = kbeg / kBK;
@@ -430,53 +591,45 @@ __global__ void __launch_bounds__(kThreads, 2)
   // each key tile is nkc steps of Q K^T over D, then two of P V
   const int spt = nkc + 2, n_steps = n_tiles * spt;
 
+  // the first row of each tensor's block
+  const char* qrow = q + q0 * p.q_ss * qb;
+
   // Q, converted to float32 and kept whole when it fits
   if (q_res) {
-    if constexpr (kF32) {
-      copy_f32(Qs, ldq, q + q0 * p.q_ss, p.q_ss, p.q_sd, kBQ, dq,
-               p.Sq - q0, 0, D, p.q_vec == 4, tid);
+    if (is_f32<T>(qt)) {
+      copy_f32(Qs, ldq, reinterpret_cast<const float*>(qrow), p.q_ss, p.q_sd,
+               kBQ, dq, p.Sq - q0, 0, D, p.q_vec == 4, tid);
     } else {
       for (int i = tid; i < kBQ * dq; i += kThreads) {
         const int r = i / dq, c = i - r * dq;
-        Qs[r * ldq + c] = q0 + r < p.Sq && c < D
-                              ? to_f32(q[(q0 + r) * p.q_ss + c * p.q_sd])
-                              : 0.f;
+        Qs[r * ldq + c] =
+            q0 + r < p.Sq && c < D
+                ? load_f32<T>(qrow + (r * p.q_ss + c * p.q_sd) * qb, qt, lq)
+                : 0.f;
       }
     }
   }
 
-  // issues the copies of step j: into its slot (float32), or raw into the
-  // 16-bit staging
+  // issues the copies of step j: float32 into its slot, 1- and 2-byte
+  // types raw into the staging
   auto issue = [&](int j) {
     float* slot = ring + (j % kSlots) * kSlot;
     const int tile = j / spt, r = j - tile * spt;
     const int k0 = (t_first + tile) * kBK;
     if (r < nkc) {
-      if constexpr (kF32) {
-        copy_f32(slot, kLdC, k + k0 * p.k_ss, p.k_ss, p.k_sd, kBK, kKC,
-                 p.Sk - k0, r * kKC, D, p.k_vec == 4, tid);
-        if (!q_res)
-          copy_f32(slot + kBK * kLdC, kLdC, q + q0 * p.q_ss, p.q_ss, p.q_sd,
-                   kBQ, kKC, p.Sq - q0, r * kKC, D, p.q_vec == 4, tid);
-      } else {
-        copy16(raw, k + k0 * p.k_ss, p.k_ss, kBK, kKC, p.Sk - k0, r * kKC,
-               D, p.k_vec, tid);
-        if (!q_res)
-          copy16(raw + kBK * kKC, q + q0 * p.q_ss, p.q_ss, kBQ, kKC,
-                 p.Sq - q0, r * kKC, D, p.q_vec, tid);
-      }
+      stage<T>(slot, kLdC, raw, k + k0 * p.k_ss * kb, p.k_ss, p.k_sd, kBK,
+               kKC, p.Sk - k0, r * kKC, D, p.k_vec, kb, kt, tid);
+      if (!q_res)
+        stage<T>(slot + kBK * kLdC, kLdC, raw + kRawQ, qrow, p.q_ss, p.q_sd,
+                 kBQ, kKC, p.Sq - q0, r * kKC, D, p.q_vec, qb, qt, tid);
     } else {
       const int kv0 = k0 + (r - nkc) * (kBK / 2);
-      if constexpr (kF32)
-        copy_f32(slot, kLdV, v + kv0 * p.v_ss, p.v_ss, p.v_sd, kBK / 2, DC,
-                 p.Sk - kv0, c0, D, p.v_vec == 4, tid);
-      else
-        copy16(raw, v + kv0 * p.v_ss, p.v_ss, kBK / 2, DC, p.Sk - kv0, c0, D,
-               p.v_vec, tid);
+      stage<T>(slot, kLdV, raw + kRawV, v + kv0 * p.v_ss * vb, p.v_ss,
+               p.v_sd, kBK / 2, DC, p.Sk - kv0, c0, D, p.v_vec, vb, vt, tid);
     }
   };
-  // 16-bit: once this thread's copies of step j have landed, converts
-  // them into the step's slot
+  // once this thread's copies of step j have landed, converts the 1- and
+  // 2-byte ones into the step's slot
   auto land = [&](int j) {
     if constexpr (!kF32) {
       cp_wait<0>();
@@ -484,16 +637,19 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int tile = j / spt, r = j - tile * spt;
       const int k0 = (t_first + tile) * kBK;
       if (r < nkc) {
-        convert16(slot, kLdC, raw, k + k0 * p.k_ss, p.k_ss, p.k_sd, kBK, kKC,
-                  p.Sk - k0, r * kKC, D, p.k_vec, tid);
-        if (!q_res)
-          convert16(slot + kBK * kLdC, kLdC, raw + kBK * kKC,
-                    q + q0 * p.q_ss, p.q_ss, p.q_sd, kBQ, kKC, p.Sq - q0,
-                    r * kKC, D, p.q_vec, tid);
-      } else {
+        if (!is_f32<T>(kt))
+          convert_raw<T>(slot, kLdC, raw, k + k0 * p.k_ss * kb, p.k_ss,
+                         p.k_sd, kBK, kKC, p.Sk - k0, r * kKC, D, p.k_vec, kb,
+                         kt, lk, tid);
+        if (!q_res && !is_f32<T>(qt))
+          convert_raw<T>(slot + kBK * kLdC, kLdC, raw + kRawQ, qrow, p.q_ss,
+                         p.q_sd, kBQ, kKC, p.Sq - q0, r * kKC, D, p.q_vec, qb,
+                         qt, lq, tid);
+      } else if (!is_f32<T>(vt)) {
         const int kv0 = k0 + (r - nkc) * (kBK / 2);
-        convert16(slot, kLdV, raw, v + kv0 * p.v_ss, p.v_ss, p.v_sd, kBK / 2,
-                  DC, p.Sk - kv0, c0, D, p.v_vec, tid);
+        convert_raw<T>(slot, kLdV, raw + kRawV, v + kv0 * p.v_ss * vb, p.v_ss,
+                       p.v_sd, kBK / 2, DC, p.Sk - kv0, c0, D, p.v_vec, vb,
+                       vt, lv, tid);
       }
     }
   };
@@ -652,7 +808,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int col = c0 + (kCols == 2 ? 2 * kg + c
                                        : 64 * (c / 4) + 4 * kg + c % 4);
       if (col < D)
-        o[row * p.o_ss + col * p.o_sd] = from_f32<T>(acc[i][c] * inv);
+        store_f32<T>(o + (row * p.o_ss + col * p.o_sd) * ob, ot,
+                     acc[i][c] * inv);
     }
   }
 }
@@ -1659,9 +1816,20 @@ int launch_t(const Params& p, int variant, int width, cudaStream_t st) {
   }
 }
 
-bool copy_ok(int vec, int D, int64_t sd) {
-  return vec == 1 || ((vec == 2 || vec == 4 || vec == 8) && D % vec == 0 &&
-                      sd == 1);
+// the PerTensor simt kernel at column chunk `width`
+int launch_per_tensor(const Params& p, int width, cudaStream_t st) {
+  switch (width) {
+    case 32: return launch_simt<PerTensor, 32>(p, st);
+    case 64: return launch_simt<PerTensor, 64>(p, st);
+    case 128: return launch_simt<PerTensor, 128>(p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool copy_ok(int vec, int D, int64_t sd, int type) {
+  return vec == 1 ||
+         ((vec == 2 || vec == 4 || vec == 8 || vec == 16) && D % vec == 0 &&
+          sd == 1 && vec * code_bytes(type) <= 16);
 }
 
 }  // namespace
@@ -1669,16 +1837,19 @@ bool copy_ok(int vec, int D, int64_t sd) {
 // q (B,H,Sq,D), k and v (B,Hkv,Sk,D), o (B,H,Sq,D), each addressed by its
 // element strides (batch, head, row, column; `strides` holds 16 of them in
 // the order q, k, v, o), on the current device; `vecs` holds q's, k's, v's
-// and o's elements a copy (see Params).  dtype 0 = float32, 1 = bfloat16,
-// 2 = float16.  variant:
+// and o's elements a copy and `types` their type codes (see Params); `luts`
+// q's, k's and v's float8 tables (null for one that is not float8).
+// variant:
 //   0 = simt, float32 FMA: float32 at any D (width 32, 64 or 128: the
 //       output columns a block computes, D beyond it split over the grid),
-//       and 16-bit types at D > 256 (width 128); any strides;
-//   1 = mma.sync: 16-bit, D <= width (32, 64, 96, 112, 128, 160, 192 or
-//       256), any strides;
-//   2 = TMA + wgmma: 16-bit, D % 8 == 0 and D <= width (64, 128 or 256),
-//       column stride 1, 16-byte aligned starts and other strides (what the
-//       TMA and the 16-byte stores take; the caller checks).
+//       16-bit types at D > 256 (width 128), and (PerTensor, width 32, 64
+//       or 128) any other types: a float8 tensor or a mix; any strides;
+//   1 = mma.sync: q, k, v, o of one 16-bit type, D <= width (32, 64, 96,
+//       112, 128, 160, 192 or 256), any strides;
+//   2 = TMA + wgmma: q, k, v, o of one 16-bit type, D % 8 == 0 and D <=
+//       width (64, 128 or 256), column stride 1, 16-byte aligned starts and
+//       other strides (what the TMA and the 16-byte stores take; the caller
+//       checks).
 // B*H may be any int; Sq at most 65535 query tiles of 64 (128 for wgmma).
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for arguments no kernel takes.
@@ -1687,25 +1858,41 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Hkv, int Sq, int Sk, int D,
                                       const int64_t* strides, const int* vecs,
                                       int causal, int window, float scale,
-                                      int dtype, int variant, int width,
-                                      void* stream) {
+                                      const int* types,
+                                      const float* const* luts, int variant,
+                                      int width, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 ||
       window < 0 || D < 1 || variant < 0 || variant > 2 ||
       (int64_t)B * H > 0x7fffffff || (Sq + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
+  bool one_type = true;
+  for (int i = 0; i < 4; ++i) {
+    if (types[i] < 0 || types[i] > 7 ||
+        (i < 3 && types[i] >= 3 && luts[i] == nullptr))
+      return (int)cudaErrorInvalidValue;
+    one_type = one_type && types[i] == types[0];
+  }
   const int64_t* s = strides;
-  const Params p{q, k, v, o, B, H, Hkv, Sq, Sk, D, causal ? 1 : 0, window,
-                 scale, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
-                 s[9], s[10], s[11], s[12], s[13], s[14], s[15], vecs[0],
-                 vecs[1], vecs[2], vecs[3]};
-  if (!copy_ok(p.q_vec, D, p.q_sd) || !copy_ok(p.k_vec, D, p.k_sd) ||
-      !copy_ok(p.v_vec, D, p.v_sd) || !copy_ok(p.o_vec, D, p.o_sd))
+  const Params p{q,       k,        v,        o,        B,        H,
+                 Hkv,     Sq,       Sk,       D,        causal ? 1 : 0,
+                 window,  scale,    s[0],     s[1],     s[2],     s[3],
+                 s[4],    s[5],     s[6],     s[7],     s[8],     s[9],
+                 s[10],   s[11],    s[12],    s[13],    s[14],    s[15],
+                 vecs[0], vecs[1],  vecs[2],  vecs[3],  types[0], types[1],
+                 types[2], types[3], {luts[0], luts[1], luts[2]}};
+  if (!copy_ok(p.q_vec, D, p.q_sd, p.q_type) ||
+      !copy_ok(p.k_vec, D, p.k_sd, p.k_type) ||
+      !copy_ok(p.v_vec, D, p.v_sd, p.v_type) ||
+      !copy_ok(p.o_vec, D, p.o_sd, p.o_type))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: return launch_t<float>(p, variant, width, st);
-    case 1: return launch_t<bf16>(p, variant, width, st);
-    case 2: return launch_t<f16>(p, variant, width, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (one_type && types[0] <= 2) {
+    switch (types[0]) {
+      case 0: return launch_t<float>(p, variant, width, st);
+      case 1: return launch_t<bf16>(p, variant, width, st);
+      default: return launch_t<f16>(p, variant, width, st);
+    }
   }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return launch_per_tensor(p, width, st);
 }

@@ -1,11 +1,19 @@
-// XOR parity of K int32 rows on an NVIDIA Hopper card (sm_90a).
+// XOR parity of K integer rows on an NVIDIA Hopper card (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_xor_kernel` of
 // src/repro/kernels/parity.py (reached through `xor_parity` and
-// `reconstruct`): K rows of N int32 -> (N,) int32, out[j] = x[0][j] ^ ...
-// ^ x[K-1][j], bit-exact, for any K >= 1 and N >= 1.  raid5 parity is this
-// function over a stripe round's data units; a lost unit is this function
-// over the survivors and the parity.
+// `reconstruct`): K rows of N elements of one integer type E -> (N,)
+// int32, out[j] = x[0][j] ^ ... ^ x[K-1][j] stored in int32 as the Pallas
+// kernel stores it (E = int8 or int16 sign-extended, uint8 or uint16
+// zero-extended, 32-bit by its bits, 64-bit by its low 32 bits), bit-exact,
+// for any K >= 1 and N >= 1.  raid5 parity is this function over a stripe
+// round's data units (int32 lanes); a lost unit is this function over the
+// survivors and the parity.
+//
+// XOR does not depend on the width of an element, so the rows are XORed in
+// 16-byte vectors whatever E is, and only the store differs: a vector of
+// 16 / sizeof(E) elements leaves as as many int32, widened or narrowed one
+// by one (64, 32, 16 or 8 bytes).
 //
 // Bound: memory.  The kernel reads K*N*4 bytes, writes N*4 bytes and does
 // (K-1)*N integer XORs, far below one operation per byte, so the least
@@ -32,8 +40,8 @@
 //     1-d bulk asynchronous copies (TMA) under an mbarrier, XORs it there
 //     and stores it by bulk copy was built beside this one and measured
 //     1 us slower at the main path's shape (PERF.md), so it is not kept;
-//   * rows that do not start on a 16-byte boundary, or N not a multiple of
-//     4 lanes, take the same kernel with 4-byte lanes.
+//   * rows that do not start on a 16-byte boundary, or rows whose bytes are
+//     not a multiple of 16, take the same kernel element by element.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,11 +55,18 @@ constexpr int kMaxBlocksPerSm = 2;
 struct Args {
   const void* row[kMaxRows];     // rows 0..k-1 when k <= kMaxRows
   const void* const* rows_dev;   // all k rows, in device memory, k > kMaxRows
-  void* out;
-  int64_t n;                     // lanes (int4 or int32) a row
+  void* out;                     // int32
+  int64_t n;                     // lanes (int4 or E) a row
   int64_t span;                  // lanes a block
   int k;
 };
+
+// the row element types (the launcher's codes 0-5)
+typedef signed char i8;
+typedef unsigned char u8;
+typedef short i16;
+typedef unsigned short u16;
+typedef long long i64;
 
 template <typename V>
 __device__ __forceinline__ V ld_stream(const V* p);
@@ -83,15 +98,60 @@ __device__ __forceinline__ void xor_into(int4& a, const int4& b) {
   a.w ^= b.w;
 }
 
-__device__ __forceinline__ void xor_into(int& a, int b) { a ^= b; }
+// element lanes of the other types, loaded as the int lanes are
+#define XOR_LD(E, PTX, C, R)                                            \
+  template <>                                                           \
+  __device__ __forceinline__ E ld_stream(const E* p) {                  \
+    R v;                                                                \
+    asm("ld.global.nc.L1::no_allocate." PTX " %0, [%1];\n"              \
+        : "=" C(v)                                                      \
+        : "l"(p));                                                      \
+    return (E)v;                                                        \
+  }
+XOR_LD(i8, "s8", "r", int)
+XOR_LD(u8, "u8", "r", unsigned)
+XOR_LD(i16, "s16", "h", short)
+XOR_LD(u16, "u16", "h", unsigned short)
+XOR_LD(i64, "s64", "l", long long)
+#undef XOR_LD
 
-// K rows from the parameter struct.  Each pass of the loop loads kCols
-// columns of every row, all before the first XOR.
-template <int K, typename V>
+template <typename E>
+__device__ __forceinline__ void xor_into(E& a, E b) {
+  a ^= b;
+}
+
+// Stores lane j of the XOR in int32: a 16-byte lane (V = int4) holds
+// 16 / sizeof(E) elements, each widened or narrowed by C's conversion to
+// int (sign- or zero-extension, or the low 32 bits); an element lane
+// (V = E) one.  For E = int the lane leaves as it came.
+template <typename E, typename V>
+__device__ __forceinline__ void store(int* out, int64_t j, const V& acc) {
+  if constexpr (sizeof(V) == sizeof(E)) {
+    __stcs(out + j, (int)acc);
+  } else if constexpr (sizeof(E) == 4) {
+    __stcs(reinterpret_cast<int4*>(out) + j, acc);
+  } else if constexpr (sizeof(E) == 8) {
+    __stcs(reinterpret_cast<int2*>(out) + j, make_int2(acc.x, acc.z));
+  } else {
+    constexpr int kPer = 16 / sizeof(E);
+    E e[kPer];
+    memcpy(e, &acc, 16);
+    int4* o = reinterpret_cast<int4*>(out) + j * (kPer / 4);
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q)
+      __stcs(o + q, make_int4(e[4 * q], e[4 * q + 1], e[4 * q + 2],
+                              e[4 * q + 3]));
+  }
+}
+
+// K rows of E from the parameter struct, in lanes V (int4 or E).  Each
+// pass of the loop loads kCols columns of every row, all before the first
+// XOR.
+template <int K, typename V, typename E>
 __global__ void __launch_bounds__(kThreads) xor_rows(const Args a) {
   const int64_t lo = (int64_t)blockIdx.x * a.span;
   const int64_t hi = lmin(lo + a.span, a.n);
-  V* out = static_cast<V*>(a.out);
+  int* out = static_cast<int*>(a.out);
   for (int64_t j0 = lo + threadIdx.x; j0 < hi; j0 += kThreads * kCols) {
     V v[K][kCols];
 #pragma unroll
@@ -110,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) xor_rows(const Args a) {
         V acc = v[0][c];
 #pragma unroll
         for (int r = 1; r < K; ++r) xor_into(acc, v[r][c]);
-        __stcs(out + j, acc);
+        store<E>(out, j, acc);
       }
     }
   }
@@ -118,11 +178,11 @@ __global__ void __launch_bounds__(kThreads) xor_rows(const Args a) {
 
 // k > kMaxRows: the row pointers come from device memory and the rows are
 // walked in a loop, 4 rows of kCols columns in flight.
-template <typename V>
+template <typename V, typename E>
 __global__ void __launch_bounds__(kThreads) xor_rows_many(const Args a) {
   const int64_t lo = (int64_t)blockIdx.x * a.span;
   const int64_t hi = lmin(lo + a.span, a.n);
-  V* out = static_cast<V*>(a.out);
+  int* out = static_cast<int*>(a.out);
   for (int64_t j0 = lo + threadIdx.x; j0 < hi; j0 += kThreads * kCols) {
     const V* first = static_cast<const V*>(a.rows_dev[0]);
     V acc[kCols];
@@ -143,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) xor_rows_many(const Args a) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int64_t j = j0 + (int64_t)c * kThreads;
-      if (j < hi) __stcs(out + j, acc[c]);
+      if (j < hi) store<E>(out, j, acc[c]);
     }
   }
 }
@@ -190,44 +250,63 @@ int launch(Args a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename V>
+template <typename V, typename E>
 int launch_lanes(const Args& a, cudaStream_t s) {
   switch (a.k) {
 #define XOR_CASE(K) \
   case K:           \
-    return launch<xor_rows<K, V>>(a, s);
+    return launch<xor_rows<K, V, E>>(a, s);
     XOR_CASE(1) XOR_CASE(2) XOR_CASE(3) XOR_CASE(4) XOR_CASE(5) XOR_CASE(6)
     XOR_CASE(7) XOR_CASE(8) XOR_CASE(9) XOR_CASE(10) XOR_CASE(11)
     XOR_CASE(12) XOR_CASE(13) XOR_CASE(14) XOR_CASE(15) XOR_CASE(16)
 #undef XOR_CASE
     default:
-      return launch<xor_rows_many<V>>(a, s);
+      return launch<xor_rows_many<V, E>>(a, s);
   }
+}
+
+// 16-byte lanes when every row and the output start on 16 bytes and a row
+// is a whole number of them, else element lanes.
+template <typename E>
+int launch_type(Args& a, const void* const* rows, cudaStream_t s) {
+  bool vec = a.n * (int64_t)sizeof(E) % 16 == 0 && (uintptr_t)a.out % 16 == 0;
+  for (int r = 0; r < a.k; ++r) vec = vec && (uintptr_t)rows[r] % 16 == 0;
+  if (!vec) return launch_lanes<E, E>(a, s);
+  a.n = a.n * (int64_t)sizeof(E) / 16;
+  return launch_lanes<int4, E>(a, s);
 }
 
 }  // namespace
 
-// rows: k pointers (host array) to rows of n int32 each on the current
-// device; rows_dev: the same k pointers in device memory, read only when
-// k > 16 (may be null otherwise); out: n int32.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// rows: k pointers (host array) to rows of n elements each of type `elem`
+// (0 = int8, 1 = uint8, 2 = int16, 3 = uint16, 4 = int32 or uint32, 5 =
+// int64 or uint64) on the current device, each aligned to its element;
+// rows_dev: the same k pointers in device memory, read only when k > 16
+// (may be null otherwise); out: n int32.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int xor_rows_launch(const void* const* rows, int k,
                                const void* const* rows_dev, void* out,
-                               int64_t n, void* stream) {
-  if (k < 1 || n < 1 || out == nullptr ||
+                               int64_t n, int elem, void* stream) {
+  if (k < 1 || n < 1 || out == nullptr || (uintptr_t)out % 4 != 0 ||
       (k > kMaxRows && rows_dev == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{};
-  bool vec = n % 4 == 0 && (uintptr_t)out % 16 == 0;
   for (int r = 0; r < k; ++r) {
     if (rows[r] == nullptr) return (int)cudaErrorInvalidValue;
-    vec = vec && (uintptr_t)rows[r] % 16 == 0;
     if (r < kMaxRows) a.row[r] = rows[r];
   }
   a.rows_dev = rows_dev;
   a.out = out;
   a.k = k;
-  a.n = vec ? n / 4 : n;
+  a.n = n;
   cudaStream_t s = (cudaStream_t)stream;
-  return vec ? launch_lanes<int4>(a, s) : launch_lanes<int>(a, s);
+  switch (elem) {
+    case 0: return launch_type<i8>(a, rows, s);
+    case 1: return launch_type<u8>(a, rows, s);
+    case 2: return launch_type<i16>(a, rows, s);
+    case 3: return launch_type<u16>(a, rows, s);
+    case 4: return launch_type<int>(a, rows, s);
+    case 5: return launch_type<i64>(a, rows, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,18 +1,23 @@
 """Flash attention forward (causal / windowed, GQA) on the card.
 
-`flash_attention(q, k, v)` takes q (B,H,Sq,D) and k/v (B,Hkv,Sk,D) of one
-dtype, float16, bfloat16 or float32, at any head dim D >= 1, any strides
-and any B*H, and returns (B,H,Sq,D) in q's dtype, as the Pallas kernel
-does.  Nothing is copied: each kernel reads q, k and v through their own
-strides (the transposed (B,S,H,D) activations of a model, a strided or
-misaligned view) and writes the output through its.  The output has q's
+`flash_attention(q, k, v)` takes q (B,H,Sq,D) and k/v (B,Hkv,Sk,D), each
+in its own floating type (float32, bfloat16, float16 or one of the five
+float8 formats: `DTYPES`), at any head dim D >= 1, any strides and any
+B*H, and returns (B,H,Sq,D) in q's dtype, as the Pallas kernel does: each
+operand is read as float32, the output is rounded to q's type as the
+reference's `astype` rounds (`ref.round_to`).  A window <= 0 is no
+window, as the Pallas kernel reads it.  Nothing is copied: each kernel
+reads q, k and v through their own strides (the transposed (B,S,H,D)
+activations of a model, a strided or misaligned view) and writes the
+output through its.  The output has q's
 memory order (`torch.empty_like(q)`): the (B,H,S,D) view of a (B,S,H,D)
 q gets the (B,H,S,D) view of a (B,S,H,D) output.
 
 On CUDA tensors it launches a hand-written kernel of
 `csrc/flash_attention.cu` (on the current stream, without synchronising),
-the one `route(q, k, v)` names (`variant(dtype, D, tma)`), at the width
-`width(name, D)` picks from its compiled ones (WIDTHS):
+the one `route(q, k, v)` names (`variant(dtype, D, tma)` when q, k and v
+share one type, "simt" otherwise), at the width `width(name, D)` picks
+from its compiled ones (WIDTHS):
 
   "wgmma"  float16 or bfloat16, D % 8 == 0, D <= 256, on layouts the TMA
            takes (`tma_layout`): TMA, mbarrier ring and warpgroup MMA at
@@ -23,9 +28,13 @@ the one `route(q, k, v)` names (`variant(dtype, D, tma)`), at the width
            layout the TMA cannot take): mma.sync m16n8k16 fed by ldmatrix
            from a cp.async ring (16, 8 or 4 bytes a copy, or element by
            element: `copy_elems`), width 32 to 256;
-  "simt"   float32 at any D, and float16 or bfloat16 at D > 256: float32
-           FMA, no TF32; a block computes 32, 64 or 128 output columns and
-           a grid dimension of column chunks covers any D.
+  "simt"   float32 at any D, float16 or bfloat16 at D > 256, and every
+           float8 input or mix of types at any D: float32 FMA, no TF32; a
+           block computes 32, 64 or 128 output columns and a grid
+           dimension of column chunks covers any D.  A mix or a float8
+           input runs its own kernel of the file, which reads and writes
+           each tensor in its own type (`DTYPES`; float8 decoded
+           through `ref.decode_table`, the 256 values of its format).
 
 On CPU tensors it computes the plain version, `ref.flash_attention_ref`.
 There is no other route: on a CUDA tensor the kernel runs or the call
@@ -33,8 +42,9 @@ raises.
 
 LAUNCHES counts the kernel launches, VARIANT_LAUNCHES the launches of each
 variant and DTYPE_LAUNCHES those of each (variant, dtype) pair, keyed
-"wgmma/float16" and so on, so a run can show that its attention went
-through the kernel.
+"wgmma/float16" and so on, or by the four types of q, k, v and the output
+where they differ ("simt/bfloat16,float8_e4m3fn,float8_e4m3fn,bfloat16"),
+so a run can show that its attention went through the kernel.
 """
 from __future__ import annotations
 
@@ -46,7 +56,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # C launcher codes
+# the launcher's type codes: the three of the tensor-core and float32
+# kernels, then the float8 formats
+DTYPES = (torch.float32, torch.bfloat16, torch.float16,
+          torch.float8_e4m3fn, torch.float8_e5m2, torch.float8_e4m3fnuz,
+          torch.float8_e5m2fnuz, torch.float8_e8m0fnu)
 VARIANTS = ("simt", "mma", "wgmma")                      # C launcher codes
 # the widths each variant is compiled for: the narrowest that holds D runs
 # it (wgmma and mma: the pipeline's columns; simt: the output columns a
@@ -66,11 +80,11 @@ def variant(dtype: torch.dtype, head_dim: int, tma: bool = True) -> str:
     """The kernel that runs inputs of `dtype` and `head_dim`; `tma` says
     whether q, k, v and the output all lie as the TMA takes them."""
     if dtype not in DTYPES:
-        raise TypeError(f"flash_attention takes float16, bfloat16 or "
-                        f"float32, got {dtype}")
+        raise TypeError(f"flash_attention takes float32, bfloat16, float16 "
+                        f"or a float8 type, got {dtype}")
     if head_dim < 1:
         raise ValueError(f"flash_attention: head_dim {head_dim} < 1")
-    if dtype == torch.float32 or head_dim > TC_MAX_HEAD_DIM:
+    if dtype not in DTYPES[1:3] or head_dim > TC_MAX_HEAD_DIM:
         return "simt"
     return "wgmma" if tma and head_dim % 8 == 0 else "mma"
 
@@ -103,13 +117,13 @@ def tma_layout(t: torch.Tensor) -> bool:
 
 def copy_elems(t: torch.Tensor) -> int:
     """Elements one copy of the mma and simt kernels moves for `t`: the
-    most, up to 16 bytes' worth, that divides D with the column stride 1
-    and the start and the other strides multiples of the copy's bytes; 1
-    (element by element, any strides) otherwise."""
+    most, 16, 8 or 4 bytes' worth (cp.async's sizes), that divides D with
+    the column stride 1 and the start and the other strides multiples of
+    the copy's bytes; 1 (element by element, any strides) otherwise."""
     sb, sh, ss, sd = layout_strides(t)
     D, item = t.shape[-1], t.element_size()
     n = 16 // item
-    while n > 1:
+    while n > 1 and n * item >= 4:
         size = n * item
         if (sd == 1 and D % n == 0 and t.data_ptr() % size == 0
                 and all(s * item % size == 0 for s in (sb, sh, ss))):
@@ -121,10 +135,21 @@ def copy_elems(t: torch.Tensor) -> int:
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           out: torch.Tensor | None = None) -> str:
     """The variant that runs these inputs and output (by default
-    `torch.empty_like(q)`, the wrapper's): by dtype, D and layout."""
+    `torch.empty_like(q)`, the wrapper's): by dtype, D and layout; "simt"
+    for q, k and v of more than one type."""
     out = torch.empty_like(q) if out is None else out
-    return variant(q.dtype, q.shape[-1],
+    name = variant(q.dtype, q.shape[-1],
                    all(tma_layout(t) for t in (q, k, v, out)))
+    for t in (k, v):
+        variant(t.dtype, 1)               # raises for a type no kernel reads
+    return name if k.dtype == v.dtype == q.dtype else "simt"
+
+
+def dtype_key(name: str, *dtypes: torch.dtype) -> str:
+    """The DTYPE_LAUNCHES key of a launch of variant `name` on tensors of
+    these types: one type name when they all share it, else each."""
+    names = [str(d).removeprefix("torch.") for d in dtypes]
+    return f"{name}/{names[0] if len(set(names)) == 1 else ','.join(names)}"
 
 
 def _launcher():
@@ -133,20 +158,22 @@ def _launcher():
         fn = _build.load("flash_attention").flash_attention_launch
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int) -> None:
-    """Raises on inputs no variant takes: other dtypes, mixed dtypes,
-    shapes that do not match, D < 1, a negative window, tensors apart."""
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes q, k, v of one dtype, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raises on inputs no variant takes: types that are not in DTYPES
+    (float64, integers), shapes that do not match, D < 1, tensors apart."""
+    for t in (q, k, v):
+        if t.dtype not in DTYPES:
+            raise TypeError(f"flash_attention takes float32, bfloat16, "
+                            f"float16 or float8 q, k, v, got {q.dtype}, "
+                            f"{k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention wants q (B,H,Sq,D) and k, v "
                          f"(B,Hkv,Sk,D), got {tuple(q.shape)}, "
@@ -157,8 +184,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
                          f"match k/v {tuple(k.shape)}")
     variant(q.dtype, D)
-    if window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
     devs = {q.device, k.device, v.device}
     if len(devs) != 1 or q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: q, k, v must lie together on "
@@ -171,8 +196,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in q's memory order;
     the kernel picks its own tiles."""
     global LAUNCHES
-    window = int(window)
-    _check(q, k, v, window)
+    window = max(int(window), 0)          # <= 0: no window, as in Pallas
+    _check(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else 1.0 / math.sqrt(D))
@@ -185,18 +210,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     c_strides = (ctypes.c_int64 * 16)(*[s for t in tensors
                                         for s in layout_strides(t)])
     c_vecs = (ctypes.c_int * 4)(*[copy_elems(t) for t in tensors])
+    c_types = (ctypes.c_int * 4)(*[DTYPES.index(t.dtype) for t in tensors])
     with torch.cuda.device(q.device):
+        # each float8 input's 256 values, which the kernel decodes through
+        c_tables = (ctypes.c_void_p * 3)(*[
+            ref.decode_table(t.dtype, q.device).data_ptr()
+            if t.element_size() == 1 else None for t in (q, k, v)])
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), B, H, Hkv, Sq, Sk, D, c_strides,
-                          c_vecs, int(bool(causal)), window, scale,
-                          DTYPES.index(q.dtype), VARIANTS.index(name),
-                          width(name, D), stream)
+                          c_vecs, int(bool(causal)), window, scale, c_types,
+                          c_tables, VARIANTS.index(name), width(name, D),
+                          stream)
+    key = dtype_key(name, *(t.dtype for t in tensors))
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel ({name}, {q.dtype}) "
-                           f"launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel ({key}) launch failed: "
+                           f"CUDA error {err}")
     LAUNCHES += 1
     VARIANT_LAUNCHES[name] += 1
-    key = f"{name}/{str(q.dtype).removeprefix('torch.')}"
     DTYPE_LAUNCHES[key] = DTYPE_LAUNCHES.get(key, 0) + 1
     return out

@@ -1,7 +1,10 @@
 """Entry points to the port's kernels, as their callers use them.
 
 `flash_attention` is the model's way to the attention kernel, with the
-reference's block clamping and divisibility contract.
+reference's block clamping and divisibility contract; `xor_parity` and
+`reconstruct` are the parity kernel's, with the reference's signatures
+(the column tile `block` is clamped to N and must be at least 1; the
+kernel picks its own tiles).
 
 Stripe units are byte strings of unequal length.  `parity_bytes` lays
 them out as the zero-padded rows of an int32 (K, N) array (0 is the XOR
@@ -43,6 +46,27 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                          f"do not divide Sq={q.shape[2]}, Sk={k.shape[2]}")
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
+
+
+def _check_block(block: int, n: int) -> None:
+    """The reference's column tile, `block` clamped to N, must be at least
+    1.  The kernel picks its own tiles, so only the check remains."""
+    if min(int(block), n) < 1:
+        raise ValueError(f"xor_parity: block {min(int(block), n)} < 1")
+
+
+def xor_parity(blocks, *, block=4096):
+    """blocks (K, N) of an integer type -> parity (N,) int32 (the XOR of
+    the rows, stored as `kernels.parity` says), on the blocks' device."""
+    _check_block(block, blocks.shape[-1])
+    return _par.xor_parity(blocks)
+
+
+def reconstruct(survivors, parity, *, block=4096):
+    """Recover the one missing stripe: XOR(survivors, parity), on the
+    parity's device."""
+    _check_block(block, parity.shape[0])
+    return _par.reconstruct(survivors, parity)
 
 
 def resolve_device(device) -> torch.device:

@@ -17,7 +17,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: float | None = None,
                         block_k: int = 128) -> torch.Tensor:
-    """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in q's dtype.
+    """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in q's dtype, each
+    operand read as float32 in its own floating type (`decode`), the
+    output rounded as the reference rounds (`round_to`).
 
     The flash-attention kernel's function, computed as the kernel does:
     a loop over tiles of `block_k` keys with a running max, sum and
@@ -33,7 +35,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = float(scale if scale is not None else 1.0 / math.sqrt(D))
     bk = min(block_k, Sk)
     dev = q.device
-    qf = q.reshape(B, Hkv, G, Sq, D).float()
+    qf = decode(q).reshape(B, Hkv, G, Sq, D)
     qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
     m = torch.full((B, Hkv, G, Sq, 1), NEG_INF, device=dev)
     l = torch.zeros((B, Hkv, G, Sq, 1), device=dev)
@@ -51,8 +53,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             keep &= kpos <= qpos
         if window > 0:
             keep &= (qpos - kpos) < window
-        kt = k[:, :, k0:k0 + bk].float()
-        vt = v[:, :, k0:k0 + bk].float()
+        kt = decode(k[:, :, k0:k0 + bk])
+        vt = decode(v[:, :, k0:k0 + bk])
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * scale
         s = s.masked_fill(~keep, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -62,21 +64,124 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vt)
         m = m_new
     out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
-    return out.reshape(B, H, Sq, D).to(q.dtype)
+    return round_to(out.reshape(B, H, Sq, D), q.dtype)
+
+
+_TABLES: dict[tuple[torch.dtype, torch.device], torch.Tensor] = {}
+
+
+def decode_table(dtype: torch.dtype, device) -> torch.Tensor:
+    """(256,) float32 on `device`: the value of each byte of the float8
+    `dtype`, as torch decodes it on the CPU (the reference's values:
+    tests/test_torch_flash.py holds them to JAX's); made once a device.
+    The CUDA kernel decodes through it too."""
+    key = (dtype, torch.device(device))
+    t = _TABLES.get(key)
+    if t is None:
+        codes = torch.arange(256, dtype=torch.uint8)
+        t = _TABLES[key] = codes.view(dtype).float().to(device)
+    return t
+
+
+def decode(t: torch.Tensor) -> torch.Tensor:
+    """A floating tensor as float32: a float8 one through `decode_table`
+    (the same on every device, whatever torch converts there)."""
+    if t.dtype in FLOAT8 or t.dtype == torch.float8_e8m0fnu:
+        return decode_table(t.dtype, t.device)[t.view(torch.uint8).long()]
+    return t.float()
+
+
+# The float8 formats: mantissa bits, exponent bias, largest finite value,
+# and whether they are "fnuz" (no infinity, no negative zero, one NaN code
+# 0x80).  float8_e8m0fnu (exponent only) is apart.
+FLOAT8 = {torch.float8_e4m3fn: (3, 7, 448.0, False),
+          torch.float8_e5m2: (2, 15, 57344.0, False),
+          torch.float8_e4m3fnuz: (3, 8, 240.0, True),
+          torch.float8_e5m2fnuz: (2, 16, 57344.0, True)}
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 `x` in `dtype`, rounded as the reference's `astype` rounds
+    (XLA's conversion, ml_dtypes' rules): to nearest, ties to even, with
+    each float8 format's own overflow, NaN and zero.  torch's own
+    conversion differs for two formats (it saturates float8_e4m3fn where
+    the reference gives NaN, and encodes |x| in float8_e8m0fnu where the
+    reference gives NaN for x <= 0), so every float8 format is encoded
+    here from the bits of `x`, the same on every device."""
+    if dtype == torch.float8_e8m0fnu:
+        return _round_e8m0(x.float())
+    if dtype not in FLOAT8:
+        return x.to(dtype)
+    mbits, bias, top, fnuz = FLOAT8[dtype]
+    x = x.float()
+    b = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    sign = (b >> 24) & 0x80
+    emin = 1 - bias                       # the least normal exponent
+    e = (((b >> 23) & 0xFF) - 127).clamp(min=emin)
+    # rounded to the format's spacing at |x| (2^(e - mbits)): exact scalings
+    # by powers of two around a round to nearest even
+    y = torch.round(x.abs() * _pow2(mbits - e)) * _pow2(e - mbits)
+    yb = y.view(torch.int32).to(torch.int64)
+    ye = (yb >> 23) - 127
+    normal = ((ye + bias) << mbits) | ((yb >> (23 - mbits)) & ((1 << mbits) - 1))
+    sub = (y * 2.0 ** (mbits - emin)).to(torch.int64)
+    mag = torch.where(y == 0, 0, torch.where(ye >= emin, normal, sub))
+    code = torch.where(mag == 0, 0, sign | mag) if fnuz else sign | mag
+    nan = torch.full_like(code, 0x80) if fnuz else \
+        sign | (0x7F if mbits == 3 else 0x7E)
+    over = sign | 0x7C if dtype == torch.float8_e5m2 else nan
+    code = torch.where(y > top, over, code)
+    code = torch.where(torch.isnan(x), nan, code)
+    return code.to(torch.uint8).view(dtype)
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k in float32 for int64 k in [-126, 127], built from its bits (so
+    exact on every device)."""
+    return ((k + 127) << 23).to(torch.int32).view(torch.float32)
+
+
+def _round_e8m0(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> float8_e8m0fnu: the exponent of x, plus one when bit 22 of
+    the mantissa is set and x is not a tie at 2^-127; NaN (0xFF) for x <= 0,
+    infinities and NaN (the format has no sign and no zero)."""
+    b = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    e = b >> 23
+    up = ((b & 0x400000) != 0) & (((b & 0x3FFFFF) != 0) | (e > 0))
+    code = torch.where((x > 0) & (e < 255), e + up.to(torch.int64), 0xFF)
+    return code.to(torch.uint8).view(torch.float8_e8m0fnu)
+
+
+# row types whose XOR and narrowing go through the signed type of their
+# width (the same bits): torch on the card lacks some unsigned operations
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def to_int32(row: torch.Tensor) -> torch.Tensor:
+    """Integer elements as the reference stores them in int32 lanes: signed
+    types sign-extended, unsigned ones zero-extended, 32-bit ones by their
+    bits, 64-bit ones by their low 32 bits."""
+    if row.dtype == torch.uint16:
+        return row.view(torch.int16).to(torch.int32) & 0xFFFF
+    return row.view(_SIGNED_VIEW.get(row.dtype, row.dtype)).to(torch.int32)
 
 
 def xor_parity_ref(blocks: torch.Tensor) -> torch.Tensor:
-    """blocks (K, N) int32 lanes -> (N,) XOR parity (RAID-5 column)."""
-    out = blocks[0].clone()
+    """blocks (K, N) of an integer type -> (N,) int32: the XOR of the rows
+    (RAID-5 column), stored in int32 as `to_int32` does."""
+    out = to_int32(blocks[0]).clone()
     for i in range(1, blocks.shape[0]):
-        out.bitwise_xor_(blocks[i])
+        out.bitwise_xor_(to_int32(blocks[i]))
     return out
 
 
-def reconstruct_ref(survivors: torch.Tensor,
-                    parity: torch.Tensor) -> torch.Tensor:
-    """Recover one missing block: XOR of the survivors and the parity."""
-    out = parity.clone()
+def reconstruct_ref(survivors, parity: torch.Tensor) -> torch.Tensor:
+    """Recover one missing block: XOR of the survivors and the parity, each
+    row of any integer type, in int32 (the XOR of rows stored by
+    `to_int32` is the stored XOR: the extensions and the narrowing are
+    bitwise)."""
+    out = to_int32(parity).clone()
     for row in survivors:
-        out.bitwise_xor_(row)
+        out.bitwise_xor_(to_int32(row))
     return out

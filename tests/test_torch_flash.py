@@ -164,10 +164,14 @@ def test_wrapper_checks_and_routes_only_cpu_tensors_to_plain(monkeypatch):
                                   torch.zeros((1, 2, 8, D))).shape[-1] == D
     with pytest.raises(TypeError):
         fa.flash_attention(q.double(), kv.double(), kv.double())
-    with pytest.raises(TypeError):
-        fa.flash_attention(q, kv.bfloat16(), kv)
-    with pytest.raises(TypeError, match="one dtype"):
-        fa.flash_attention(q.half(), kv.half(), kv.bfloat16())
+    # mixed types compute, each operand read in its own type, the output
+    # in q's (as the Pallas kernel casts each to float32)
+    assert fa.flash_attention(q, kv.bfloat16(), kv).dtype == torch.float32
+    assert fa.flash_attention(q.half(), kv.half(),
+                              kv.bfloat16()).dtype == torch.float16
+    for other in (torch.float64, torch.int32):
+        with pytest.raises(TypeError):
+            fa.flash_attention(q, kv, kv.to(other))
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(torch.zeros((1, 4, 8, 0)),
                            torch.zeros((1, 2, 8, 0)),
@@ -175,8 +179,9 @@ def test_wrapper_checks_and_routes_only_cpu_tensors_to_plain(monkeypatch):
     with pytest.raises(ValueError):
         fa.flash_attention(q, torch.zeros((1, 3, 8, 32)),
                            torch.zeros((1, 3, 8, 32)))
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, kv, kv, window=-1)
+    # a negative window is no window, as the Pallas kernel reads it
+    assert torch.equal(fa.flash_attention(q, kv, kv, window=-1),
+                       fa.flash_attention(q, kv, kv, window=0))
 
     def plain_must_not_run(*a, **kw):
         raise AssertionError("plain version reached")
@@ -498,6 +503,267 @@ def test_qwen3_flash_forward_passes_views_and_equals_the_reference(
     assert np.abs(tx.numpy() - np.asarray(x)).max() < 1e-5
 
 
+# ------------------------------------ float8, mixed types, negative windows
+#
+# The Pallas kernel casts each operand to float32 and rounds the output to
+# q's type, so it computes any floating q, k, v: the five float8 formats
+# that JAX and torch both define, and any mix.  Inputs are made in numpy
+# from a seed, rounded to their type by `ref.round_to` (held to JAX's
+# `astype` by test_round_to_matches_the_reference_astype) and handed to
+# both packages as the same bytes.  Tolerance: TOL for a float32 or 16-bit
+# output; a float8 output is equal or one rounding of its type apart,
+# element by element (both sides compute in float32 in another order, so
+# an output near the midpoint of two float8 values may round to either).
+
+FLOAT8 = ["float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+          "float8_e5m2fnuz", "float8_e8m0fnu"]
+
+
+def _typed(a, dtype):
+    """numpy float32 -> a torch tensor of `dtype` rounded as the reference
+    rounds (float8_e8m0fnu, which has no sign, from |a|)."""
+    if dtype == "float8_e8m0fnu":
+        a = np.abs(a)
+    return ref.round_to(torch.from_numpy(a), getattr(torch, dtype))
+
+
+def _bits(t):
+    """The raw bits of a tensor as int64 (1, 2 or 4 bytes an element)."""
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    mask = {1: 0xFF, 2: 0xFFFF, 4: 0xFFFFFFFF}[t.element_size()]
+    return t.view(view[t.element_size()]).to(torch.int64) & mask
+
+
+def _to_jax(t):
+    """A torch tensor on the CPU as a JAX array of the same type and
+    bytes."""
+    name = str(t.dtype).removeprefix("torch.")
+    if t.dtype == torch.float32:
+        return jnp.asarray(t.numpy())
+    raw = _bits(t).numpy().astype(np.uint8 if t.element_size() == 1
+                                  else np.uint16)
+    return jnp.asarray(raw.view(getattr(jnp, name)))
+
+
+def _from_jax(x):
+    """A JAX array as a torch tensor of the same type and bytes."""
+    name = str(x.dtype)
+    a = np.asarray(x)
+    if name == "float32":
+        return torch.from_numpy(a.copy())
+    raw = a.view(np.uint8 if a.itemsize == 1 else np.int16).copy()
+    return torch.from_numpy(raw).view(getattr(torch, name))
+
+
+def rounding_steps(got, want):
+    """Element by element, how many values of the (8- or 16-bit) type
+    apart two tensors of that type are (0 where equal, -0 == +0); NaN must
+    sit in the same places.  Returns the largest."""
+    assert got.dtype == want.dtype
+    nan_g, nan_w = torch.isnan(ref.decode(got)), torch.isnan(ref.decode(want))
+    assert torch.equal(nan_g, nan_w), "NaN in different places"
+
+    def key(t):               # monotone in the value; e8m0 has no sign
+        b = _bits(t)
+        if t.dtype == torch.float8_e8m0fnu:
+            return b
+        top = 1 << (8 * t.element_size() - 1)
+        return torch.where(b & top != 0, -(b & (top - 1)), b & (top - 1))
+    steps = (key(got) - key(want)).abs().masked_fill(nan_g, 0)
+    return int(steps.max()) if steps.numel() else 0
+
+
+def _close(got, want):
+    """TOL for a float32 or 16-bit output, one rounding for float8."""
+    name = str(want.dtype).removeprefix("torch.")
+    if name in TOL:
+        err = (got.float() - want.float()).abs().max()
+        assert err < TOL[name], (name, float(err))
+    else:
+        assert rounding_steps(got, want) <= 1
+
+
+def _typed_inputs(shape_q, shape_kv, seed, dtypes):
+    return [_typed(a, d) for a, d in zip(_inputs(shape_q, shape_kv, seed),
+                                         dtypes)]
+
+
+def _pallas_typed(pallas, q, k, v, **kw):
+    return _from_jax(pallas.flash_attention(_to_jax(q), _to_jax(k),
+                                            _to_jax(v), interpret=True,
+                                            **kw))
+
+
+@pytest.mark.parametrize("dtype", FLOAT8 + ["bfloat16", "float16"])
+def test_round_to_matches_the_reference_astype(dtype):
+    """The plain version's rounding of float32 to each narrow type against
+    JAX's `astype`, the reference's last step, bit for bit (NaN as NaN):
+    random float32 bit patterns, every value of the type, the values one
+    float32 step on either side, the midpoints between neighbours and
+    float32's own edges (zeros, infinities, NaN, denormals, the largest)."""
+    if jnp is None:
+        pytest.skip("needs jax for the reference")
+    rng = np.random.default_rng(len(dtype))
+    x = rng.integers(0, 2 ** 32, 200_000, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    td = getattr(torch, dtype)
+    if td.itemsize == 1:
+        vals = torch.arange(256, dtype=torch.uint8).view(td).float().numpy()
+        fin = np.unique(vals[np.isfinite(vals)])
+        mids = ((fin[1:].astype(np.float64) + fin[:-1]) / 2).astype(
+            np.float32)
+        x = np.concatenate([x, fin, mids, np.nextafter(mids, np.inf),
+                            np.nextafter(mids, -np.inf),
+                            np.nextafter(fin, np.inf),
+                            np.nextafter(fin, -np.inf)])
+    x = np.concatenate([x, np.array(
+        [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1e-39,
+         3.4e38, -3.4e38], np.float32)]).astype(np.float32)
+    want = _from_jax(jnp.asarray(x).astype(getattr(jnp, dtype)))
+    got = ref.round_to(torch.from_numpy(x), td)
+    assert got.dtype == td
+    assert rounding_steps(got, want) == 0
+    if td.itemsize == 1:      # one NaN code per sign: the bits agree too
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", FLOAT8)
+def test_float8_table_is_the_reference_decoding(dtype):
+    """`ref.decode_table` (the plain version's and the kernel's decoding
+    of each float8 byte) against JAX's conversion of the same 256 bytes
+    to float32."""
+    if jnp is None:
+        pytest.skip("needs jax for the reference")
+    codes = torch.arange(256, dtype=torch.uint8)
+    want = np.asarray(_to_jax(codes.view(getattr(torch, dtype))).astype(
+        jnp.float32))
+    got = ref.decode_table(getattr(torch, dtype), "cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# (B, H, Hkv, S, D, window, causal): MHA, GQA with a window, MQA without
+# causal at a head dim off every width
+_F8_SHAPES = [(1, 2, 2, 64, 32, 0, True), (2, 4, 2, 128, 64, 32, True),
+              (1, 4, 1, 64, 48, 0, False)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,window,causal", _F8_SHAPES)
+@pytest.mark.parametrize("dtype", FLOAT8)
+def test_flash_attention_float8_matches_pallas(pallas, dtype, B, H, Hkv, S,
+                                               D, window, causal):
+    """q, k, v in one float8 format: the entry point and the plain version
+    on CPU tensors against the Pallas kernel in interpret mode, the output
+    in q's format within one rounding of it."""
+    q, k, v = _typed_inputs((B, H, S, D), (B, Hkv, S, D), S + D,
+                            [dtype] * 3)
+    kw = dict(causal=causal, window=window)
+    want = _pallas_typed(pallas, q, k, v, block_q=64, block_k=64, **kw)
+    assert fa.route(q, k, v) == "simt"
+    got = ops.flash_attention(q, k, v, block_q=64, block_k=64, **kw)
+    assert got.dtype == q.dtype and want.dtype == q.dtype
+    assert rounding_steps(got, want) <= 1
+    assert rounding_steps(ref.flash_attention_ref(q, k, v, **kw), want) <= 1
+
+
+_MIXED = [("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
+          ("float32", "bfloat16", "bfloat16"),
+          ("float16", "bfloat16", "float32"),
+          ("float8_e5m2", "float16", "float32"),
+          ("float32", "float8_e4m3fnuz", "float8_e5m2fnuz"),
+          ("bfloat16", "float32", "float32"),
+          ("float8_e4m3fn", "bfloat16", "bfloat16"),
+          ("float16", "float8_e8m0fnu", "float8_e5m2"),
+          ("float8_e8m0fnu", "float32", "float8_e8m0fnu")]
+
+
+@pytest.mark.parametrize("dtypes", _MIXED, ids="-".join)
+def test_flash_attention_mixed_types_match_pallas(pallas, dtypes):
+    """q, k, v of different types (the Pallas kernel casts each to float32,
+    the output takes q's type), GQA 2:1 with a window, against the Pallas
+    kernel in interpret mode."""
+    q, k, v = _typed_inputs((2, 4, 128, 40), (2, 2, 128, 40), 11, dtypes)
+    want = _pallas_typed(pallas, q, k, v, window=48, block_q=64, block_k=64)
+    assert fa.route(q, k, v) == "simt"
+    got = ops.flash_attention(q, k, v, window=48, block_q=64, block_k=64)
+    assert got.dtype == q.dtype
+    _close(got, want)
+    _close(ref.flash_attention_ref(q, k, v, window=48), want)
+
+
+@pytest.mark.parametrize("window", [-1, -7])
+@pytest.mark.parametrize("dtypes", [("float32",) * 3, ("bfloat16",) * 3,
+                                    ("float8_e4m3fn",) * 3,
+                                    ("bfloat16", "float8_e5m2", "float32")],
+                         ids="-".join)
+def test_negative_window_matches_pallas(pallas, dtypes, window):
+    """The Pallas kernel reads a window <= 0 as none (`window > 0` guards
+    its mask): the entry point at the same negative window against it,
+    and against its own run without a window."""
+    q, k, v = _typed_inputs((1, 4, 128, 32), (1, 2, 128, 32), -window,
+                            dtypes)
+    want = _pallas_typed(pallas, q, k, v, window=window, block_q=64,
+                         block_k=64)
+    got = ops.flash_attention(q, k, v, window=window, block_q=64,
+                              block_k=64)
+    _close(got, want)
+    assert torch.equal(_bits(got), _bits(ops.flash_attention(q, k, v)))
+
+
+@pytest.mark.parametrize("kind", ["bshd_view", "start_off_1_byte",
+                                  "last_dim_strided"])
+def test_float8_layouts_compute_in_place(pallas, kind):
+    """float8 q laid out as the model's (B,S,H,D) view, one byte past an
+    aligned start, or with a column stride of 2: the route, the elements
+    a copy moves, and the result against the Pallas kernel on the same
+    logical values."""
+    q, k, v = _typed_inputs((1, 4, 64, 32), (1, 2, 64, 32), 5,
+                            ["float8_e4m3fn", "float8_e4m3fn", "bfloat16"])
+    if kind == "bshd_view":
+        lay = torch.empty((1, 64, 4, 32), dtype=q.dtype).transpose(1, 2)
+    elif kind == "start_off_1_byte":
+        lay = torch.empty(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+    else:
+        lay = torch.empty((1, 4, 64, 64), dtype=q.dtype)[..., ::2]
+    lay.view(torch.uint8).copy_(q.view(torch.uint8))
+    assert fa.route(lay, k, v) == "simt"
+    assert fa.copy_elems(lay) == {"bshd_view": 16, "start_off_1_byte": 1,
+                                  "last_dim_strided": 1}[kind]
+    want = _pallas_typed(pallas, q, k, v, block_q=64, block_k=64)
+    assert rounding_steps(fa.flash_attention(lay, k, v), want) <= 1
+
+
+def test_float8_copy_widths_are_cp_async_sizes():
+    """A 1-byte tensor moves 16, 8 or 4 bytes a copy, or goes element by
+    element: never 2 bytes, which cp.async cannot copy."""
+    base = torch.zeros(4096, dtype=torch.float8_e5m2)
+    for off, D, want in ((0, 32, 16), (8, 32, 8), (4, 32, 4), (2, 32, 1),
+                         (0, 40, 8), (0, 36, 4), (0, 34, 1)):
+        t = base[off:off + 2 * D].view(1, 1, 2, D)
+        assert fa.copy_elems(t) == want, (off, D)
+
+
+def test_dtype_keys_name_a_mix_by_its_four_types():
+    f8, bf = torch.float8_e4m3fn, torch.bfloat16
+    assert fa.dtype_key("wgmma", bf, bf, bf, bf) == "wgmma/bfloat16"
+    assert fa.dtype_key("simt", f8, f8, f8, f8) == "simt/float8_e4m3fn"
+    assert fa.dtype_key("simt", bf, f8, f8, bf) == \
+        "simt/bfloat16,float8_e4m3fn,float8_e4m3fn,bfloat16"
+
+
+@pytest.mark.parametrize("dtypes", [("int32",) * 3, ("float64",) * 3,
+                                    ("bfloat16", "int8", "bfloat16"),
+                                    ("float32", "float32", "float64")],
+                         ids="-".join)
+def test_integer_and_float64_inputs_still_raise(dtypes):
+    """No caller passes integer q, k, v (the one input the Pallas kernel
+    computes and the port refuses, ROADMAP Queue 3), and JAX narrows a
+    float64 array to float32 before the kernel sees it."""
+    q, k, v = (torch.zeros(s).to(getattr(torch, d)) for s, d in
+               zip(((1, 2, 8, 16), (1, 1, 8, 16), (1, 1, 8, 16)), dtypes))
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k, v)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -623,3 +889,81 @@ def test_flash_kernel_layouts_the_tma_cannot_take_on_card(cuda_device, dtype,
     want = ref.flash_attention_ref(q, k, v, window=100)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max() < TOL[dtype]
+
+
+# the types the PerTensor simt kernel runs: each float8 format alone, and
+# the mixes of the cross tests above
+CARD_TYPES = [(d,) * 3 for d in FLOAT8] + _MIXED
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,window,causal", [
+    (2, 4, 2, 192, 192, 64, 100, True), (1, 8, 2, 100, 300, 136, 0, True),
+    (2, 4, 4, 130, 130, 320, 0, False)])
+@pytest.mark.parametrize("dtypes", CARD_TYPES, ids="-".join)
+def test_flash_kernel_types_on_card(cuda_device, dtypes, B, H, Hkv, Sq, Sk,
+                                    D, window, causal):
+    """The PerTensor simt kernel against the plain version on the card:
+    each float8 format and each mix, at column chunks of 64, 128 and 128
+    over 320 (TOL, or one rounding of a float8 output)."""
+    q, k, v = (t.to(cuda_device) for t in _typed_inputs(
+        (B, H, Sq, D), (B, Hkv, Sk, D), Sq + D, dtypes))
+    key = fa.dtype_key("simt", q.dtype, k.dtype, v.dtype, q.dtype)
+    before = fa.DTYPE_LAUNCHES.get(key, 0)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.DTYPE_LAUNCHES[key] == before + 1
+    _close(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("dtype", FLOAT8 + ["bfloat16", "float16"])
+def test_kernel_rounds_outputs_as_the_plain_version_on_card(cuda_device,
+                                                            dtype):
+    """One key a row (Sk = 1, q and k zero: every weight exactly 1), so
+    the output is v itself rounded to q's type: the kernel's encoder
+    against `ref.round_to` over random float32 bit patterns and float32's
+    edges, bit for bit for float8 but the sign of a NaN (NaN as NaN for
+    16-bit)."""
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 2 ** 32, 4096 * 256, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    x[:10] = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1e-39,
+              3.4e38, 464.0]
+    v = torch.from_numpy(x).view(1, 4096, 1, 256).to(cuda_device)
+    q = torch.zeros((1, 4096, 1, 256), device=cuda_device).to(
+        getattr(torch, dtype))
+    k = torch.zeros((1, 4096, 1, 256), device=cuda_device)
+    got = fa.flash_attention(q, k, v).cpu()
+    # the sum of products starts at +0, so -0 comes out +0
+    want = ref.round_to(torch.from_numpy(x) + 0.0, q.dtype).view(got.shape)
+    assert rounding_steps(got, want) == 0
+    if q.dtype.itemsize == 1:     # the products need not keep a NaN's sign
+        nan = torch.isnan(ref.decode(want))
+        assert torch.equal(_bits(got).masked_fill(nan, 0),
+                           _bits(want).masked_fill(nan, 0))
+
+
+@pytest.mark.parametrize("dtype", FLOAT8)
+def test_kernel_decodes_every_float8_byte_on_card(cuda_device, dtype):
+    """v holds each of the 256 bytes once, Sk = 1 and q, k float32 zeros:
+    the float32 output is the table's value of each byte."""
+    codes = torch.arange(256, dtype=torch.uint8).view(getattr(torch, dtype))
+    v = codes.view(1, 8, 1, 32).to(cuda_device)
+    z = torch.zeros((1, 8, 1, 32), device=cuda_device)
+    got = fa.flash_attention(z, z, v).cpu().reshape(-1)
+    want = codes.float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(0.5), want.nan_to_num(0.5))
+
+
+@pytest.mark.parametrize("window", [-1, -7])
+@pytest.mark.parametrize("dtypes", [("bfloat16",) * 3, ("float32",) * 3,
+                                    ("float8_e4m3fn",) * 3],
+                         ids="-".join)
+def test_negative_window_on_card(cuda_device, dtypes, window):
+    q, k, v = (t.to(cuda_device) for t in _typed_inputs(
+        (2, 8, 300, 64), (2, 2, 300, 64), 1, dtypes))
+    got = fa.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention_ref(q, k, v, window=0)
+    torch.cuda.synchronize()
+    _close(got.cpu(), want.cpu())

@@ -205,7 +205,7 @@ def test_wrapper_checks_and_routes_only_cpu_tensors_to_plain(monkeypatch):
     """Wrong types and shapes raise; a tensor that is not on the CPU
     never reaches the plain version."""
     with pytest.raises(TypeError):
-        parity.xor_parity(torch.zeros((2, 8), dtype=torch.int64))
+        parity.xor_parity(torch.zeros((2, 8), dtype=torch.bool))
     with pytest.raises(ValueError):
         parity.xor_parity(torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -225,6 +225,107 @@ def test_wrapper_checks_and_routes_only_cpu_tensors_to_plain(monkeypatch):
     with pytest.raises(AssertionError, match="plain version reached"):
         parity.xor_parity(torch.zeros((2, 8), dtype=torch.int32))
     assert parity.LAUNCHES == launches        # the CPU route launches nothing
+
+
+# ------------------------------------------------ integer rows of any type
+#
+# The Pallas kernel XORs the rows in their own type and stores the result
+# in int32 lanes: int8 and int16 sign-extended, uint8 and uint16
+# zero-extended, uint32 by its bits; an int64 or uint64 array reaches it
+# as its low 32 bits (JAX's x64 is off).  XOR is exact: bit for bit.
+
+INT_TYPES = ["int8", "uint8", "int16", "uint16", "int32", "uint32", "int64",
+             "uint64"]
+
+
+def _int_rows(K, N, dtype, seed):
+    info = np.iinfo(dtype)
+    return np.random.default_rng(seed).integers(
+        info.min, info.max, size=(K, N), dtype=dtype, endpoint=True)
+
+
+def _jax_parity(x, block):
+    return np.asarray(jpar.xor_parity(jnp.asarray(x), block=block,
+                                      interpret=True))
+
+
+@pytest.mark.parametrize("K,N", [(1, 1), (2, 7), (3, 37), (5, 129),
+                                 (17, 33), (4, 1001)])
+@pytest.mark.parametrize("dtype", INT_TYPES)
+def test_integer_rows_match_reference(pallas, dtype, K, N):
+    """K1 and K2 on rows of each integer type, odd N and K up to 17: the
+    port's parity and every reconstruction (from the survivors in the row
+    type and the int32 parity, as the reference takes them) against the
+    Pallas kernel in interpret mode."""
+    x = _int_rows(K, N, np.dtype(dtype), K * 1000 + N + len(dtype))
+    want = _jax_parity(x, min(128, N))
+    t = torch.from_numpy(x)
+    got = parity.xor_parity(t)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ref.xor_parity_ref(t).numpy(), want)
+    for miss in range(K):
+        surv = np.concatenate([x[:miss], x[miss + 1:]], 0)
+        rec_ref = np.asarray(jpar.reconstruct(
+            jnp.asarray(surv), jnp.asarray(want), block=min(128, N),
+            interpret=True))
+        rows = [t[i] for i in range(K) if i != miss]
+        rec = parity.reconstruct(rows, got)
+        np.testing.assert_array_equal(rec.numpy(), rec_ref)
+        np.testing.assert_array_equal(rec.numpy(),
+                                      x[miss].astype(np.int32))
+
+
+def test_integer_examples_of_the_stored_lanes():
+    """The stores written out: int8 sign-extends, uint16 zero-extends,
+    uint32 wraps, int64 keeps its low 32 bits."""
+    rows = [[-3, -56, 7], [5, -100, 1]]
+    x8 = torch.tensor(rows, dtype=torch.int8)
+    assert parity.xor_parity(x8).tolist() == [-8, 84, 6]
+    assert parity.xor_parity(x8.view(torch.uint8)).tolist() == [248, 84, 6]
+    x16 = torch.tensor(rows, dtype=torch.int16).view(torch.uint16)
+    assert parity.xor_parity(x16).tolist() == [65528, 84, 6]
+    x32 = torch.tensor([[2 ** 31 + 5], [1]], dtype=torch.int64).to(
+        torch.uint32)
+    assert parity.xor_parity(x32).tolist() == [-2 ** 31 + 4]
+    x64 = torch.tensor([[2 ** 40 + 6], [3]], dtype=torch.int64)
+    assert parity.xor_parity(x64).tolist() == [5]
+
+
+@pytest.mark.parametrize("block", [1, 3, 64, 4096, 10 ** 9])
+@pytest.mark.parametrize("dtype", ["int32", "uint8", "int64"])
+def test_ops_parity_entry_points_match_reference(pallas, dtype, block):
+    """`ops.xor_parity` and `ops.reconstruct` with the reference's
+    signatures: `block` is clamped to N as the reference clamps it, and
+    the result does not depend on it."""
+    x = _int_rows(4, 300, np.dtype(dtype), block % 97)
+    p = jops.xor_parity(jnp.asarray(x), block=block)
+    got = ops.xor_parity(torch.from_numpy(x), block=block)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(p))
+    rec = ops.reconstruct(torch.from_numpy(x[1:]), got, block=block)
+    want = jops.reconstruct(jnp.asarray(x[1:]), p, block=block)
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("block", [0, -4])
+def test_ops_parity_block_below_one_raises(block):
+    x = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="block"):
+        ops.xor_parity(x, block=block)
+    with pytest.raises(ValueError, match="block"):
+        ops.reconstruct(x[:1], x[1], block=block)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.float32,
+                                   torch.bfloat16, torch.float8_e4m3fn])
+def test_parity_refuses_bool_and_float_rows(dtype):
+    """The reference raises on bool rows ("Invalid dtype for `swap`") and
+    XOR is not defined on floats."""
+    x = torch.zeros((2, 8), dtype=dtype)
+    with pytest.raises(TypeError):
+        parity.xor_parity(x)
+    with pytest.raises(TypeError):
+        parity.reconstruct(x[:1], torch.zeros(8, dtype=torch.int32))
 
 
 @pytest.fixture
@@ -315,3 +416,28 @@ def test_parity_bytes_on_card_matches_cpu(cuda_device):
         pad = [c.ljust(n, b"\0") for c in chunks]
         assert ops.reconstruct_bytes(pad[1:], got, len(chunks[0]),
                                      device=cuda_device) == chunks[0]
+
+
+@pytest.mark.parametrize("K,N", [(1, 1), (3, 37), (4, 262144), (5, 262147),
+                                 (17, 4097)])
+@pytest.mark.parametrize("dtype", INT_TYPES)
+def test_integer_rows_on_card(cuda_device, dtype, K, N):
+    """K1 on rows of each integer type against the plain version, bit for
+    bit, in 16-byte lanes where a row allows and element by element where
+    not (rows one element past a 16-byte boundary); K2 from survivors of
+    the row type and the int32 parity (two type groups: three launches)."""
+    td = getattr(torch, dtype)
+    x = torch.from_numpy(_int_rows(K, N, np.dtype(dtype), K + N)).to(
+        cuda_device)
+    before = parity.LAUNCHES
+    p = parity.xor_parity(x)
+    torch.cuda.synchronize()
+    assert parity.LAUNCHES == before + 1
+    assert torch.equal(p, ref.xor_parity_ref(x))
+    buf = torch.empty(K * N + 1, dtype=td, device=cuda_device)
+    buf[1:].copy_(x.reshape(-1))
+    shifted = buf[1:].view(K, N)
+    assert torch.equal(parity.xor_parity(shifted), p)
+    if K > 1:
+        rec = parity.reconstruct(shifted[1:], p)
+        assert torch.equal(rec, ref.to_int32(x[0]))
