@@ -292,6 +292,7 @@ def check_int_rows(torch, parity, ref, dev) -> dict:
     results); then K1 on uint8 and int64 rows at K=4, N=262144 timed
     beside its bound (the rows' bytes in, N int32 out)."""
     shapes, launches = 0, parity.LAUNCHES
+    by_type = dict(parity.TYPE_LAUNCHES)
     for dname in INT_ROW_TYPES:
         td = getattr(torch, dname)
         for k in (1, 2, 3, 4, 5, 17):
@@ -317,6 +318,10 @@ def check_int_rows(torch, parity, ref, dev) -> dict:
                                 f"{miss} differs")
                     shapes += 1
     checked = parity.LAUNCHES - launches
+    by_type = {t: n - by_type.get(t, 0)
+               for t, n in parity.TYPE_LAUNCHES.items()}
+    if not all(by_type.get(t) for t in INT_ROW_TYPES):
+        raise AssertionError(f"a row type launched no kernel: {by_type}")
     times = {}
     n = STRIPE // 4
     for dname in INT_TIMED:
@@ -339,7 +344,8 @@ def check_int_rows(torch, parity, ref, dev) -> dict:
         del pool
     torch.cuda.empty_cache()
     out = {"types": list(INT_ROW_TYPES), "shapes": shapes,
-           "launches": checked, "bit_exact": True, "max_abs_err": 0,
+           "launches": checked, "type_launches": by_type,
+           "bit_exact": True, "max_abs_err": 0,
            "timed": times}
     emit("kernel_check_int_rows", kernel="xor_parity", **out)
     return out
@@ -803,43 +809,56 @@ NEGATIVE_WINDOW_TYPES = (("bfloat16",) * 3, ("float16",) * 3,
 TYPED_LAYOUTS = (True, "off1", "col2")
 
 
-def bits(torch, t):
-    """The raw bits of a tensor as int64 (1, 2 or 4 bytes an element)."""
-    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
-    mask = {1: 0xFF, 2: 0xFFFF, 4: 0xFFFFFFFF}[t.element_size()]
-    return t.view(view[t.element_size()]).to(torch.int64) & mask
+# float32 sums taken in another order: the simt kernels' unrounded output
+# lies within this share of |v|_P (the P-weighted mean of |v| along the
+# row) of the plain version's; measured below 2^-20 at phase 7's shapes on
+# an H100 (max abs err 1.0e-6 at |v|_P about 0.8)
+F32_ORDER_TOL = 2.0 ** -16
 
 
-def rounding_steps(torch, got, want) -> int:
-    """Element by element, how many values of the (8- or 16-bit) type two
-    tensors of it are apart (-0 == +0), the largest; NaN must sit in the
-    same places (else a large number)."""
-    nan = torch.isnan(plain().decode(got))
-    if not torch.equal(nan, torch.isnan(plain().decode(want))):
-        return 1 << 30
-
-    def key(t):               # monotone in the value; e8m0 has no sign
-        b = bits(torch, t)
-        if t.dtype == torch.float8_e8m0fnu:
-            return b
-        top = 1 << (8 * t.element_size() - 1)
-        return torch.where(b & top != 0, -(b & (top - 1)), b & (top - 1))
-    steps = (key(got) - key(want)).abs().masked_fill(nan, 0)
-    return int(steps.max()) if steps.numel() else 0
-
-
-def typed_error(torch, got, want) -> tuple[float, float]:
-    """(error, limit) of the kernel's output against the plain version's,
-    element by element: for a float8 output the largest count of
-    roundings apart, within 1 (both compute in float32 and differ only in
-    the order of their sums, far below a float8 step, even a subnormal
-    one); else the largest absolute difference, within FLASH_TOL (a
-    16-bit type's steps near 0 are finer than float32's order of sums)."""
-    dname = str(got.dtype).removeprefix("torch.")
-    if dname in FLASH_TOL:
-        return float((got.float() - want.float()).abs().max()), \
-            FLASH_TOL[dname]
-    return float(rounding_steps(torch, got, want)), 1.0
+def check_typed(torch, fa, ref, got, q, k, v, causal=True,
+                window=0) -> dict:
+    """The kernel's output `got` on q, k, v against the plain version's,
+    element by element.  The wgmma and mma kernels round P to 16 bits
+    before PV: held by check_flash_scaled.  The simt kernels round nothing
+    before the output and sum in float32 as the plain version does: `got`
+    must be the rounding to its type of some x within
+    F32_ORDER_TOL |v|_P of the plain version's float32 output x0.  As
+    rounding is monotone, that is a value between the roundings of
+    x0 -/+ that margin, or NaN where one of them is NaN (float8_e8m0fnu at
+    x <= 0): exactly the plain version's output but within float32
+    summation error of a rounding boundary, for every output type
+    (float32 too, where it is |got - x0| <= the margin)."""
+    name = fa.route(q, k, v)
+    if name != "simt":
+        check = check_flash_scaled(torch, ref, got,
+                                   ref.flash_attention_ref(
+                                       q, k, v, causal=causal,
+                                       window=window), q, k, v,
+                                   causal=causal, window=window)
+        return {"variant": name, "ok": check["worst_over_limit"] <= 1.0,
+                **check}
+    dq = ref.decode(q)            # exact: the plain version in float32
+    x0 = ref.flash_attention_ref(dq, k, v, causal=causal, window=window)
+    margin = F32_ORDER_TOL * ref.flash_attention_ref(
+        dq, k, ref.decode(v).abs(), causal=causal, window=window)
+    lo = ref.decode(ref.round_to(x0 - margin, got.dtype))
+    hi = ref.decode(ref.round_to(x0 + margin, got.dtype))
+    g = ref.decode(got)
+    inside = ((g >= torch.where(torch.isnan(lo), -math.inf, lo))
+              & (g <= torch.where(torch.isnan(hi), math.inf, hi)))
+    ok = torch.where(torch.isnan(g), torch.isnan(lo) | torch.isnan(hi),
+                     inside & ~torch.isnan(x0))
+    want = ref.decode(ref.round_to(x0, got.dtype))
+    both = ~(torch.isnan(g) | torch.isnan(want))
+    out = {"variant": name, "outside": int((~ok).sum()),
+           "max_abs_err": float((g - want).abs().masked_fill(~both, 0)
+                                .max())}
+    if got.dtype == torch.float32:    # the margin's use, unrounded
+        out["max_err_over_margin"] = float(
+            ((g - x0).abs() / margin.clamp_min(1e-30)).max())
+    out["ok"] = out["outside"] == 0
+    return out
 
 
 def typed_sweeps(torch, fa, ref, dev) -> dict:
@@ -847,8 +866,8 @@ def typed_sweeps(torch, fa, ref, dev) -> dict:
     output is v rounded to q's type: the kernel's encoder for each narrow
     output type against `ref.round_to` over 2^20 random float32 bit
     patterns and float32's edges (bit for bit for float8 but the sign of
-    a NaN, value for value for 16-bit), and its decoder of every float8 byte against the
-    table (v each of the 256 bytes, a float32 output)."""
+    a NaN, value for value for 16-bit), and its decoder of every float8
+    byte against the table (v each of the 256 bytes, a float32 output)."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randint(-2 ** 31, 2 ** 31, (4096 * 256,), dtype=torch.int64,
                       generator=g, device=dev).to(torch.int32).view(
@@ -867,11 +886,11 @@ def typed_sweeps(torch, fa, ref, dev) -> dict:
         # the sum of products starts at +0, so -0 comes out +0
         want = ref.round_to(x + 0.0, td).view(got.shape)
         torch.cuda.synchronize()
-        steps = rounding_steps(torch, got, want)
+        steps = ref.rounding_steps(got, want)
         # bit for bit but NaN, whose sign the products need not keep
-        nan = torch.isnan(plain().decode(want))
-        exact = bool(torch.equal(bits(torch, got).masked_fill(nan, 0),
-                                 bits(torch, want).masked_fill(nan, 0)))
+        nan = torch.isnan(ref.decode(want))
+        exact = bool(torch.equal(ref.bits(got).masked_fill(nan, 0),
+                                 ref.bits(want).masked_fill(nan, 0)))
         if steps or (td.itemsize == 1 and not exact):
             raise AssertionError(f"the kernel rounds to {dname} unlike the "
                                  f"plain version: {steps} steps apart")
@@ -894,9 +913,11 @@ def check_flash_types(torch, fa, ref, dev) -> dict:
     """Phase 7, the other types: every float8 format and each MIXED
     combination at TYPED_SHAPES, both negative windows on every route
     (against the plain version at window 0), the float8 TYPED_LAYOUTS,
-    and `typed_sweeps`; each held element by element (`typed_error`)
+    and `typed_sweeps`; each held element by element (`check_typed`)
     against the plain version on the card, each launch counted by its
-    four types."""
+    four types.  `max_err` is the largest absolute difference from the
+    plain version's output for each combination, `margin_use` the largest
+    unrounded float32 error over its margin (simt, float32 output)."""
     before = dict(fa.DTYPE_LAUNCHES)
     combos = [(d,) * 3 for d in FLOAT8] + list(MIXED)
     cases = [(combo, shape, False, None) for combo in combos
@@ -908,26 +929,24 @@ def check_flash_types(torch, fa, ref, dev) -> dict:
                layout, None)
               for d in ("float8_e4m3fn", "float8_e5m2") for layout in
               TYPED_LAYOUTS]
-    worst = {}
+    worst, margin_use = {}, 0.0
     for i, (combo, shape, layout, neg) in enumerate(cases):
         B, H, Hkv, Sq, Sk, D, w, c = shape
         dts = tuple(getattr(torch, d) for d in combo)
         q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dts, 1000 + i, dev,
                       layout)
-        name = fa.route(q, k, v)
         got = fa.flash_attention(q, k, v, causal=c, window=w)
-        want = ref.flash_attention_ref(q, k, v, causal=c,
-                                       window=0 if neg else w)
-        torch.cuda.synchronize()
-        err, limit = typed_error(torch, got, want)
-        if not err <= limit:
+        check = check_typed(torch, fa, ref, got, q, k, v, causal=c,
+                            window=0 if neg else w)
+        if not check["ok"]:
             raise AssertionError(
-                f"flash_attention {combo} {shape} layout={layout} ({name}):"
-                f" {err} > {limit} against the plain version")
+                f"flash_attention {combo} {shape} layout={layout}: {check}"
+                f" against the plain version")
         key = ",".join(combo) if neg is None else f"{','.join(combo)} " \
             f"window<0"
-        worst[key] = max(worst.get(key, 0.0), err)
-        del q, k, v, got, want
+        worst[key] = max(worst.get(key, 0.0), check["max_abs_err"])
+        margin_use = max(margin_use, check.get("max_err_over_margin", 0.0))
+        del q, k, v, got
     sweeps = typed_sweeps(torch, fa, ref, dev)
     ran = {k: v - before.get(k, 0) for k, v in fa.DTYPE_LAUNCHES.items()
            if v != before.get(k, 0)}
@@ -935,7 +954,8 @@ def check_flash_types(torch, fa, ref, dev) -> dict:
         "simt", *(getattr(torch, d) for d in c), getattr(torch, c[0]))
         not in ran]
     out = {"cases": len(cases), "combos": len(combos),
-           "max_err": worst, "dtype_launches": ran, "sweeps": sweeps}
+           "max_err": worst, "margin_use": margin_use,
+           "dtype_launches": ran, "sweeps": sweeps}
     emit("kernel_check_types", kernel="flash_attention", **out)
     if missing:
         raise AssertionError(f"no simt launch for {missing}")
@@ -1086,26 +1106,21 @@ FLASH_TYPED_TIMED = (
 
 def time_flash_types(torch, fa, ref, dev) -> dict:
     """K3 at FLASH_TYPED_TIMED: the kernel held against its plain version
-    (a 16-bit output element by element by check_flash_scaled, a float8
-    one within one rounding), then both timed beside the bound."""
+    element by element (`check_typed`), then both timed beside the
+    bound."""
     clock = sm_clock_mhz()
     out = {}
     for name, names, B, H, Hkv, S, D, reps in FLASH_TYPED_TIMED:
         dts = tuple(getattr(torch, n) for n in names)
         q, k, v = qkv(torch, B, H, Hkv, S, S, D, dts, 7, dev)
         got = fa.flash_attention(q, k, v)
-        want = ref.flash_attention_ref(q, k, v)
-        if q.element_size() == 1:
-            steps = rounding_steps(torch, got, want)
-            check = {"rounding_steps": steps, "worst_over_limit": steps}
-        else:
-            check = check_flash_scaled(torch, ref, got, want, q, k, v)
+        check = check_typed(torch, fa, ref, got, q, k, v)
         emit("kernel_check", kernel="flash_attention", shape=name,
              dtypes=names, B=B, S=S, D=D, **check)
-        if not check["worst_over_limit"] <= 1.0:
+        if not check["ok"]:
             raise AssertionError(f"flash_attention at {name} differs from "
                                  f"its plain version: {check}")
-        del got, want
+        del got
         cost = flash_cost(B, H, Hkv, S, D, names, clock)
         kern = time_on_card(torch, lambda t: fa.flash_attention(*t),
                             [(q, k, v)], reps)
@@ -2926,15 +2941,12 @@ def first_flash_calls(torch, fa, ref, dev):
         q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
                       tuple(getattr(torch, d) for d in combo), D, dev)
         name = fa.route(q, k, v)
-        got = fa.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        err, limit = typed_error(torch, got,
-                                 ref.flash_attention_ref(q, k, v))
+        check = check_typed(torch, fa, ref, fa.flash_attention(q, k, v),
+                            q, k, v)
         emit("kernel_first_call", kernel="flash_attention", dtypes=combo,
-             D=D, variant=name, width=fa.width(name, D), error=err,
-             limit=limit)
-        if not err <= limit:
-            raise AssertionError(f"{name} kernel, {combo}, D={D}: {err}")
+             D=D, width=fa.width(name, D), **check)
+        if not check["ok"]:
+            raise AssertionError(f"{name} kernel, {combo}, D={D}: {check}")
     for dname in FLASH_TOL:
         dtype = getattr(torch, dname)
         if dname == "float32":
@@ -3054,8 +3066,9 @@ def run(mode: str = "") -> int:
         return 0
 
     parity.LAUNCHES = fa.LAUNCHES = 0
+    parity.TYPE_LAUNCHES = {}
     main = main_path("cuda", MAIN_MIB, ops, parity)
-    launches = parity.LAUNCHES
+    launches, main_types = parity.LAUNCHES, dict(parity.TYPE_LAUNCHES)
     if launches == 0 or launches != main["lov_calls"] or fa.LAUNCHES:
         raise AssertionError(f"{launches} kernel launches on the main path "
                              f"for {main['lov_calls']} LOV parity calls, "
@@ -3110,7 +3123,10 @@ def run(mode: str = "") -> int:
         "entry_launches": entry["launches"],
         "moe_train_launches": fams["moe"]["trainer_launches"],
         "row_types": {"types": ints["types"], "shapes": ints["shapes"],
-                      "launches": 0, "checked_launches": ints["launches"],
+                      "launches": sum(main_types.get(t, 0)
+                                      for t in ints["types"]),
+                      "checked_launches": ints["launches"],
+                      "checked_type_launches": ints["type_launches"],
                       "max_abs_err": ints["max_abs_err"],
                       "timed": ints["timed"]}}, {
         "name": "flash_attention", "route": "cuda",
@@ -3136,11 +3152,14 @@ def run(mode: str = "") -> int:
         "max_abs_err_by_dtype": flash_err["max_abs_err"],
         "head_dims_held": flash_err["head_dims"],
         "other_types": {
-            "variant": "simt", "launches": 0,
+            "variant": "simt",
+            "launches": sum(n for key, n in prefill["dtype_launches"].items()
+                            if key.split("/")[1] not in FLASH_TOL),
             "dtypes": [",".join(c) for c in
                        [(d,) * 3 for d in FLOAT8] + list(MIXED)],
             "checked_launches": flash_types["dtype_launches"],
             "max_err": flash_types["max_err"],
+            "margin_use": flash_types["margin_use"],
             "negative_windows": list(NEGATIVE_WINDOWS),
             "timed": {name: {k: t[k] for k in (
                 "dtypes", "width", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -32,11 +32,13 @@
 //     parity where they lie, with no concatenation, and any row stride
 //     works.  More rows than kMaxRows take a generic loop over a pointer
 //     array in device memory;
-//   * registers, with nothing between loads and XORs: K is a template
-//     parameter (1..kMaxRows), each thread owns kCols 16-byte columns of
-//     its block's span and issues all K*kCols loads (ld.global.nc, no L1
-//     allocation) before the first XOR; the output leaves with streaming
-//     stores.  A design that brings each row's span into shared memory by
+//   * registers, with nothing between loads and XORs: for 32-bit rows (the
+//     raid5 path) K is a template parameter (1..kMaxRows), each thread owns
+//     kCols 16-byte columns of its block's span and issues all K*kCols
+//     loads (ld.global.nc, no L1 allocation) before the first XOR; the
+//     output leaves with streaming stores.  Rows of the other types, which
+//     no path of the repo XORs on the card, take the generic loop over the
+//     rows (one kernel a type and lane kind, not one a K).  A design that brings each row's span into shared memory by
 //     1-d bulk asynchronous copies (TMA) under an mbarrier, XORs it there
 //     and stores it by bulk copy was built beside this one and measured
 //     1 us slower at the main path's shape (PERF.md), so it is not kept;
@@ -50,6 +52,7 @@ namespace {
 constexpr int kMaxRows = 16;
 constexpr int kThreads = 256;
 constexpr int kCols = 2;                  // 16-byte columns a thread a pass
+constexpr int kGroup = 4;                 // rows in flight in xor_rows_many
 constexpr int kMaxBlocksPerSm = 2;
 
 struct Args {
@@ -176,29 +179,50 @@ __global__ void __launch_bounds__(kThreads) xor_rows(const Args a) {
   }
 }
 
-// k > kMaxRows: the row pointers come from device memory and the rows are
-// walked in a loop, 4 rows of kCols columns in flight.
+// Rows r0 .. r0 + kGroup - 1 that are below k, at the thread's kCols
+// columns from j0, XORed into acc: all their loads issued before the first
+// XOR.  row(r) gives row r's pointer.
+template <typename V, typename Row>
+__device__ __forceinline__ void xor_group(V (&acc)[kCols], const Row& row,
+                                          int r0, int k, int64_t j0,
+                                          int64_t hi) {
+  V v[kGroup][kCols];
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    const V* p = r0 + g < k ? static_cast<const V*>(row(r0 + g)) : nullptr;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int64_t j = j0 + (int64_t)c * kThreads;
+      v[g][c] = p != nullptr && j < hi ? ld_stream(p + j) : V{};
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) xor_into(acc[c], v[g][c]);
+}
+
+// Any k, in groups of kGroup rows (xor_group): up to kMaxRows from the
+// parameter struct, in a loop unrolled so that each pointer is read from
+// the parameter bank at a fixed offset; more from device memory.
 template <typename V, typename E>
 __global__ void __launch_bounds__(kThreads) xor_rows_many(const Args a) {
   const int64_t lo = (int64_t)blockIdx.x * a.span;
   const int64_t hi = lmin(lo + a.span, a.n);
   int* out = static_cast<int*>(a.out);
   for (int64_t j0 = lo + threadIdx.x; j0 < hi; j0 += kThreads * kCols) {
-    const V* first = static_cast<const V*>(a.rows_dev[0]);
     V acc[kCols];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int64_t j = j0 + (int64_t)c * kThreads;
-      if (j < hi) acc[c] = ld_stream(first + j);
-    }
-#pragma unroll 4
-    for (int r = 1; r < a.k; ++r) {
-      const V* row = static_cast<const V*>(a.rows_dev[r]);
+    for (int c = 0; c < kCols; ++c) acc[c] = V{};
+    if (a.k <= kMaxRows) {
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int64_t j = j0 + (int64_t)c * kThreads;
-        if (j < hi) xor_into(acc[c], ld_stream(row + j));
-      }
+      for (int r0 = 0; r0 < kMaxRows; r0 += kGroup)
+        if (r0 < a.k)
+          xor_group(acc, [&](int r) { return a.row[r]; }, r0, a.k, j0, hi);
+    } else {
+      for (int r0 = 0; r0 < a.k; r0 += kGroup)
+        xor_group(acc, [&](int r) { return a.rows_dev[r]; }, r0, a.k, j0,
+                  hi);
     }
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -250,18 +274,25 @@ int launch(Args a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// 32-bit rows by a kernel unrolled for their K up to kMaxRows; the other
+// types, and more rows, by the loop
 template <typename V, typename E>
 int launch_lanes(const Args& a, cudaStream_t s) {
-  switch (a.k) {
+  if constexpr (sizeof(E) != 4) {
+    return launch<xor_rows_many<V, E>>(a, s);
+  } else {
+    switch (a.k) {
 #define XOR_CASE(K) \
   case K:           \
     return launch<xor_rows<K, V, E>>(a, s);
-    XOR_CASE(1) XOR_CASE(2) XOR_CASE(3) XOR_CASE(4) XOR_CASE(5) XOR_CASE(6)
-    XOR_CASE(7) XOR_CASE(8) XOR_CASE(9) XOR_CASE(10) XOR_CASE(11)
-    XOR_CASE(12) XOR_CASE(13) XOR_CASE(14) XOR_CASE(15) XOR_CASE(16)
+      XOR_CASE(1) XOR_CASE(2) XOR_CASE(3) XOR_CASE(4) XOR_CASE(5)
+      XOR_CASE(6) XOR_CASE(7) XOR_CASE(8) XOR_CASE(9) XOR_CASE(10)
+      XOR_CASE(11) XOR_CASE(12) XOR_CASE(13) XOR_CASE(14) XOR_CASE(15)
+      XOR_CASE(16)
 #undef XOR_CASE
-    default:
-      return launch<xor_rows_many<V, E>>(a, s);
+      default:
+        return launch<xor_rows_many<V, E>>(a, s);
+    }
   }
 }
 

@@ -17,7 +17,8 @@ On CPU tensors they compute the plain version of `ref.py`.  There is no
 other route: a CUDA tensor that the kernel cannot take raises.
 
 LAUNCHES counts the kernel launches, so a run can show that its data
-path went through the kernel.
+path went through the kernel, and TYPE_LAUNCHES those of each row type,
+keyed by its name ("int32", "uint8", ...).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 LAUNCHES = 0
+TYPE_LAUNCHES: dict[str, int] = {}
 MAX_ROWS_BY_VALUE = 16        # more rows pass their pointers in card memory
 # the row types, in the order of the launcher's element codes (the
 # unsigned 32- and 64-bit types share the kernels of their signed twins)
@@ -84,6 +86,8 @@ def _launch_rows(ptrs: list[int], n: int, dtype: torch.dtype,
         raise RuntimeError(f"xor_parity kernel launch failed (K={k}, "
                            f"N={n}, {dtype}): CUDA error {err}")
     LAUNCHES += 1
+    name = str(dtype).removeprefix("torch.")
+    TYPE_LAUNCHES[name] = TYPE_LAUNCHES.get(name, 0) + 1
     return out
 
 

@@ -123,7 +123,8 @@ def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     y = torch.round(x.abs() * _pow2(mbits - e)) * _pow2(e - mbits)
     yb = y.view(torch.int32).to(torch.int64)
     ye = (yb >> 23) - 127
-    normal = ((ye + bias) << mbits) | ((yb >> (23 - mbits)) & ((1 << mbits) - 1))
+    frac = (yb >> (23 - mbits)) & ((1 << mbits) - 1)
+    normal = ((ye + bias) << mbits) | frac
     sub = (y * 2.0 ** (mbits - emin)).to(torch.int64)
     mag = torch.where(y == 0, 0, torch.where(ye >= emin, normal, sub))
     code = torch.where(mag == 0, 0, sign | mag) if fnuz else sign | mag
@@ -150,6 +151,33 @@ def _round_e8m0(x: torch.Tensor) -> torch.Tensor:
     up = ((b & 0x400000) != 0) & (((b & 0x3FFFFF) != 0) | (e > 0))
     code = torch.where((x > 0) & (e < 255), e + up.to(torch.int64), 0xFF)
     return code.to(torch.uint8).view(torch.float8_e8m0fnu)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a 1-, 2- or 4-byte tensor as int64."""
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    mask = {1: 0xFF, 2: 0xFFFF, 4: 0xFFFFFFFF}[t.element_size()]
+    return t.view(view[t.element_size()]).to(torch.int64) & mask
+
+
+def rounding_steps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Element by element, how many values of their (8- or 16-bit) type
+    two tensors of that type are apart (-0 == +0): the largest.  Raises
+    ValueError where the types differ or NaN sits in different places."""
+    if got.dtype != want.dtype:
+        raise ValueError(f"rounding_steps of {got.dtype} and {want.dtype}")
+    nan = torch.isnan(decode(got))
+    if not torch.equal(nan, torch.isnan(decode(want))):
+        raise ValueError("NaN in different places")
+
+    def key(t):               # monotone in the value; e8m0 has no sign
+        b = bits(t)
+        if t.dtype == torch.float8_e8m0fnu:
+            return b
+        top = 1 << (8 * t.element_size() - 1)
+        return torch.where(b & top != 0, -(b & (top - 1)), b & (top - 1))
+    steps = (key(got) - key(want)).abs().masked_fill(nan, 0)
+    return int(steps.max()) if steps.numel() else 0
 
 
 # row types whose XOR and narrowing go through the signed type of their

@@ -527,20 +527,13 @@ def _typed(a, dtype):
     return ref.round_to(torch.from_numpy(a), getattr(torch, dtype))
 
 
-def _bits(t):
-    """The raw bits of a tensor as int64 (1, 2 or 4 bytes an element)."""
-    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
-    mask = {1: 0xFF, 2: 0xFFFF, 4: 0xFFFFFFFF}[t.element_size()]
-    return t.view(view[t.element_size()]).to(torch.int64) & mask
-
-
 def _to_jax(t):
     """A torch tensor on the CPU as a JAX array of the same type and
     bytes."""
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.float32:
         return jnp.asarray(t.numpy())
-    raw = _bits(t).numpy().astype(np.uint8 if t.element_size() == 1
+    raw = ref.bits(t).numpy().astype(np.uint8 if t.element_size() == 1
                                   else np.uint16)
     return jnp.asarray(raw.view(getattr(jnp, name)))
 
@@ -555,24 +548,6 @@ def _from_jax(x):
     return torch.from_numpy(raw).view(getattr(torch, name))
 
 
-def rounding_steps(got, want):
-    """Element by element, how many values of the (8- or 16-bit) type
-    apart two tensors of that type are (0 where equal, -0 == +0); NaN must
-    sit in the same places.  Returns the largest."""
-    assert got.dtype == want.dtype
-    nan_g, nan_w = torch.isnan(ref.decode(got)), torch.isnan(ref.decode(want))
-    assert torch.equal(nan_g, nan_w), "NaN in different places"
-
-    def key(t):               # monotone in the value; e8m0 has no sign
-        b = _bits(t)
-        if t.dtype == torch.float8_e8m0fnu:
-            return b
-        top = 1 << (8 * t.element_size() - 1)
-        return torch.where(b & top != 0, -(b & (top - 1)), b & (top - 1))
-    steps = (key(got) - key(want)).abs().masked_fill(nan_g, 0)
-    return int(steps.max()) if steps.numel() else 0
-
-
 def _close(got, want):
     """TOL for a float32 or 16-bit output, one rounding for float8."""
     name = str(want.dtype).removeprefix("torch.")
@@ -580,7 +555,7 @@ def _close(got, want):
         err = (got.float() - want.float()).abs().max()
         assert err < TOL[name], (name, float(err))
     else:
-        assert rounding_steps(got, want) <= 1
+        assert ref.rounding_steps(got, want) <= 1
 
 
 def _typed_inputs(shape_q, shape_kv, seed, dtypes):
@@ -622,9 +597,9 @@ def test_round_to_matches_the_reference_astype(dtype):
     want = _from_jax(jnp.asarray(x).astype(getattr(jnp, dtype)))
     got = ref.round_to(torch.from_numpy(x), td)
     assert got.dtype == td
-    assert rounding_steps(got, want) == 0
+    assert ref.rounding_steps(got, want) == 0
     if td.itemsize == 1:      # one NaN code per sign: the bits agree too
-        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(ref.bits(got), ref.bits(want))
 
 
 @pytest.mark.parametrize("dtype", FLOAT8)
@@ -661,8 +636,9 @@ def test_flash_attention_float8_matches_pallas(pallas, dtype, B, H, Hkv, S,
     assert fa.route(q, k, v) == "simt"
     got = ops.flash_attention(q, k, v, block_q=64, block_k=64, **kw)
     assert got.dtype == q.dtype and want.dtype == q.dtype
-    assert rounding_steps(got, want) <= 1
-    assert rounding_steps(ref.flash_attention_ref(q, k, v, **kw), want) <= 1
+    assert ref.rounding_steps(got, want) <= 1
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    assert ref.rounding_steps(plain, want) <= 1
 
 
 _MIXED = [("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
@@ -706,7 +682,7 @@ def test_negative_window_matches_pallas(pallas, dtypes, window):
     got = ops.flash_attention(q, k, v, window=window, block_q=64,
                               block_k=64)
     _close(got, want)
-    assert torch.equal(_bits(got), _bits(ops.flash_attention(q, k, v)))
+    assert torch.equal(ref.bits(got), ref.bits(ops.flash_attention(q, k, v)))
 
 
 @pytest.mark.parametrize("kind", ["bshd_view", "start_off_1_byte",
@@ -729,7 +705,7 @@ def test_float8_layouts_compute_in_place(pallas, kind):
     assert fa.copy_elems(lay) == {"bshd_view": 16, "start_off_1_byte": 1,
                                   "last_dim_strided": 1}[kind]
     want = _pallas_typed(pallas, q, k, v, block_q=64, block_k=64)
-    assert rounding_steps(fa.flash_attention(lay, k, v), want) <= 1
+    assert ref.rounding_steps(fa.flash_attention(lay, k, v), want) <= 1
 
 
 def test_float8_copy_widths_are_cp_async_sizes():
@@ -936,11 +912,11 @@ def test_kernel_rounds_outputs_as_the_plain_version_on_card(cuda_device,
     got = fa.flash_attention(q, k, v).cpu()
     # the sum of products starts at +0, so -0 comes out +0
     want = ref.round_to(torch.from_numpy(x) + 0.0, q.dtype).view(got.shape)
-    assert rounding_steps(got, want) == 0
+    assert ref.rounding_steps(got, want) == 0
     if q.dtype.itemsize == 1:     # the products need not keep a NaN's sign
         nan = torch.isnan(ref.decode(want))
-        assert torch.equal(_bits(got).masked_fill(nan, 0),
-                           _bits(want).masked_fill(nan, 0))
+        assert torch.equal(ref.bits(got).masked_fill(nan, 0),
+                           ref.bits(want).masked_fill(nan, 0))
 
 
 @pytest.mark.parametrize("dtype", FLOAT8)
