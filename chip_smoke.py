@@ -20,7 +20,7 @@ the last line:
      in the row type and the int32 parity, and K1 on uint8 and int64 rows
      at K=4, N=262144 timed beside its byte bound; then the largest call
      of phase 12, K=3 rows of 518,782,976 bytes (N = 129,695,744 lanes),
-     checked and timed;
+     checked and timed, and uint8 and int64 rows of the same bytes;
   4. kernel times at the shapes of the main path (CUDA events, median;
      replayed from a CUDA graph for the card's own time, and issued from
      Python), beside the memory bound, the copy floor (a device-to-device
@@ -48,23 +48,30 @@ the last line:
      last dimension of stride 2, rows D + 4 apart, a start one element
      off, a (B,S,D,H) tensor's view) and B*H = 65,600 (element by element
      there), after one short call of each compiled kernel; then the
-     other types the Pallas kernel computes, on the PerTensor simt
-     kernel (each operand read in its own type, the output in q's): each
-     of the five float8 formats alone and 11 mixes (MIXED) at
-     TYPED_SHAPES, windows -1 and -7 (no window, as in Pallas) on every
-     route, float8 tensors as (B,S,H,D) views, one byte off an aligned
-     start and with a column stride of 2, each element by element
-     against the plain version (a float8 output within one rounding of
-     its type), and at one key a row the kernel's float8 and 16-bit
-     rounding of 2^20 float32 bit patterns and its decoding of every
-     float8 byte;
+     other types the Pallas kernel computes (each operand read in its own
+     type, the output in q's), on the tensor cores where the types have a
+     compute type (float8 decoded into bfloat16 or float16 by the wgmma
+     and mma kernels) and on the PerTensor simt kernel otherwise: each of
+     the five float8 formats alone and 13 mixes (MIXED) at TYPED_SHAPES,
+     windows -1 and -7 (no window, as in Pallas) on every route, float8
+     tensors as (B,S,H,D) views, one byte off an aligned start and with a
+     column stride of 2, each element by element against the plain
+     version (the rounding of its float32 output within the kernel's own
+     error), each launched on the route `fa.route` gives; and at one key
+     a row the simt kernel's float8 and 16-bit rounding of 2^20 float32
+     bit patterns and its decoding of every float8 byte, and the same
+     through the tensor cores: every float8 byte decoded into bfloat16
+     and float16, and every bfloat16 pattern rounded to each float8
+     format, bit for bit;
   8. at the prefill shapes of qwen3-4b (B=2, S=4096, in bfloat16, float16
      and float32 at D=128 and 64, and one layer of prefill_32k: B=1,
      S=32768), a gemma3-12b global layer (D=256, B=2, S=4096), zamba2-7b's
      shared block (D=112, H=Hkv=32, B=2, S=4096) and qwen3-4b's shape at
      D=96, 80 (wgmma at width 128), 48 (wgmma at width 64), 100 (mma) and
      320 (simt), and q bf16 with float8 (e4m3fn) k and v and all three
-     e4m3fn (PerTensor simt; no library call takes them): the kernel
+     e4m3fn at D=128 (wgmma) and all three at D=100 (mma; no library call
+     takes them, and beside the card's float8 bound the design's 16-bit
+     one): the kernel
      against its plain version, element by element within a limit scaled
      to each output, then its times beside the bound
      (the largest of the products at the type's peak, the bytes, and one
@@ -159,6 +166,12 @@ runs phases 1, 2 and 13; no result line.
 
 runs phases 1, 2, one short call of each compiled flash kernel, then 14
 and 15; no result line.
+
+    python3 chip_smoke.py --typed-times
+
+runs phases 1, 2 and phase 8's float8 times alone; no result line.  A
+copy of this file in another checkout times that checkout's kernels (an
+older tree's, beside this one's, in one call on one card).
 """
 from __future__ import annotations
 
@@ -774,13 +787,16 @@ def check_flash(torch, fa, ref, dev) -> dict:
 
 
 # phase 7's other types: each float8 format alone and the mixes below
-# (each operand read in its own type, the output in q's), all on the
-# PerTensor simt kernel, at TYPED_SHAPES (B, H, Hkv, Sq, Sk, D, window,
-# causal: GQA, a window, Sq < Sk without causal, column chunks over
-# D = 320, a longer sequence); negative windows (-1, -7: no window, as in
-# the Pallas kernel) on each route; the float8 layouts a model or a view
-# gives (TYPED_LAYOUTS); and, at one key a row, the encoder of every
-# narrow output and the decoder of every float8 byte (`typed_sweeps`)
+# (each operand read in its own type, the output in q's), on the route
+# `fa.route` gives (the tensor cores where the types have a compute type
+# C, `fa.compute_type`: wgmma at D=64 and 128, mma at D=40; the PerTensor
+# simt kernel at D=320 and for the sets without C), at TYPED_SHAPES (B, H,
+# Hkv, Sq, Sk, D, window, causal: GQA, a window, Sq < Sk without causal,
+# column chunks over D = 320, a longer sequence); negative windows (-1,
+# -7: no window, as in the Pallas kernel) on each route; the float8
+# layouts a model or a view gives (TYPED_LAYOUTS); and, at one key a row,
+# the encoder of every narrow output and the decoder of every float8
+# byte, through simt and through the tensor cores (`typed_sweeps`)
 FLOAT8 = ("float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
           "float8_e5m2fnuz", "float8_e8m0fnu")
 MIXED = (("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
@@ -793,7 +809,9 @@ MIXED = (("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
          ("float16", "float8_e8m0fnu", "float8_e5m2"),
          ("float8_e8m0fnu", "float32", "float8_e8m0fnu"),
          ("float8_e4m3fnuz", "float8_e4m3fnuz", "bfloat16"),
-         ("bfloat16", "bfloat16", "float8_e5m2fnuz"))
+         ("bfloat16", "bfloat16", "float8_e5m2fnuz"),
+         ("float16", "float8_e5m2", "float8_e5m2"),
+         ("float8_e4m3fn", "float16", "float16"))
 TYPED_SHAPES = ((1, 4, 2, 192, 192, 64, 100, True),
                 (2, 8, 2, 300, 300, 128, 0, True),
                 (1, 4, 4, 100, 257, 40, 0, False),
@@ -814,33 +832,33 @@ TYPED_LAYOUTS = (True, "off1", "col2")
 # row) of the plain version's; measured below 2^-20 at phase 7's shapes on
 # an H100 (max abs err 1.0e-6 at |v|_P about 0.8)
 F32_ORDER_TOL = 2.0 ** -16
+# the tensor-core kernels round P to their compute type C before P V (the
+# row sums take it unrounded): each weight moves by at most half a unit of
+# C (2^-9 bfloat16, 2^-11 float16), so the unrounded output by at most
+# that share of |v|_P; u_C, twice it, leaves the slack that
+# check_flash_scaled documents (and covers the float32 sums' order)
+P_ROUND_TOL = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -10}
 
 
 def check_typed(torch, fa, ref, got, q, k, v, causal=True,
                 window=0) -> dict:
     """The kernel's output `got` on q, k, v against the plain version's,
-    element by element.  The wgmma and mma kernels round P to 16 bits
-    before PV: held by check_flash_scaled.  The simt kernels round nothing
-    before the output and sum in float32 as the plain version does: `got`
-    must be the rounding to its type of some x within
-    F32_ORDER_TOL |v|_P of the plain version's float32 output x0.  As
-    rounding is monotone, that is a value between the roundings of
-    x0 -/+ that margin, or NaN where one of them is NaN (float8_e8m0fnu at
-    x <= 0): exactly the plain version's output but within float32
-    summation error of a rounding boundary, for every output type
-    (float32 too, where it is |got - x0| <= the margin)."""
+    element by element: `got` must be the rounding to its type of some x
+    within tol |v|_P of the plain version's float32 output x0, where tol
+    is F32_ORDER_TOL on the simt kernels (they round nothing before the
+    output and sum in float32 as the plain version does) and u_C =
+    P_ROUND_TOL[C] on the wgmma and mma kernels (they round P to their
+    compute type C before P V).  As rounding is monotone, that is a value
+    between the roundings of x0 -/+ that margin, or NaN where one of them
+    is NaN (float8_e8m0fnu at x <= 0): exactly the plain version's output
+    but within the kernel's own error of a rounding boundary, for every
+    output type (float32 too, where it is |got - x0| <= the margin)."""
     name = fa.route(q, k, v)
-    if name != "simt":
-        check = check_flash_scaled(torch, ref, got,
-                                   ref.flash_attention_ref(
-                                       q, k, v, causal=causal,
-                                       window=window), q, k, v,
-                                   causal=causal, window=window)
-        return {"variant": name, "ok": check["worst_over_limit"] <= 1.0,
-                **check}
+    tol = F32_ORDER_TOL if name == "simt" else P_ROUND_TOL[str(
+        fa.compute_type(q.dtype, k.dtype, v.dtype)).removeprefix("torch.")]
     dq = ref.decode(q)            # exact: the plain version in float32
     x0 = ref.flash_attention_ref(dq, k, v, causal=causal, window=window)
-    margin = F32_ORDER_TOL * ref.flash_attention_ref(
+    margin = tol * ref.flash_attention_ref(
         dq, k, ref.decode(v).abs(), causal=causal, window=window)
     lo = ref.decode(ref.round_to(x0 - margin, got.dtype))
     hi = ref.decode(ref.round_to(x0 + margin, got.dtype))
@@ -851,7 +869,7 @@ def check_typed(torch, fa, ref, got, q, k, v, causal=True,
                      inside & ~torch.isnan(x0))
     want = ref.decode(ref.round_to(x0, got.dtype))
     both = ~(torch.isnan(g) | torch.isnan(want))
-    out = {"variant": name, "outside": int((~ok).sum()),
+    out = {"variant": name, "tol": tol, "outside": int((~ok).sum()),
            "max_abs_err": float((g - want).abs().masked_fill(~both, 0)
                                 .max())}
     if got.dtype == torch.float32:    # the margin's use, unrounded
@@ -863,11 +881,12 @@ def check_typed(torch, fa, ref, got, q, k, v, causal=True,
 
 def typed_sweeps(torch, fa, ref, dev) -> dict:
     """One key a row, q and k zero, so every weight is exactly 1 and the
-    output is v rounded to q's type: the kernel's encoder for each narrow
-    output type against `ref.round_to` over 2^20 random float32 bit
+    output is v rounded to q's type: the simt kernel's encoder for each
+    narrow output type against `ref.round_to` over 2^20 random float32 bit
     patterns and float32's edges (bit for bit for float8 but the sign of
     a NaN, value for value for 16-bit), and its decoder of every float8
-    byte against the table (v each of the 256 bytes, a float32 output)."""
+    byte against the table (v each of the 256 bytes, a float32 output);
+    then the same through the tensor cores (`tc_sweeps`)."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randint(-2 ** 31, 2 ** 31, (4096 * 256,), dtype=torch.int64,
                       generator=g, device=dev).to(torch.int32).view(
@@ -906,6 +925,68 @@ def typed_sweeps(torch, fa, ref, dev) -> dict:
             raise AssertionError(f"the kernel decodes {dname} unlike the "
                                  "table")
         out[dname]["decoded"] = 256
+    out["tensor_cores"] = tc_sweeps(torch, fa, ref, dev)
+    return out
+
+
+def tc_sweeps(torch, fa, ref, dev) -> dict:
+    """`typed_sweeps` through the wgmma kernel (D=32, one key a row, every
+    weight exactly 1).  Decoder: q bfloat16 zeros, k zeros and v the 256
+    bytes of each float8 format F: the bfloat16 output must be the
+    table's value of each byte, bit for bit (NaN as NaN; -0 comes out +0,
+    the sum of products starting at +0); the same with q float16 for the
+    four formats float16 holds.  Encoder: q and k zeros in F, v all 65,536
+    bfloat16 bit patterns: the output in F must be `ref.round_to(v, F)`
+    bit for bit but the sign of a NaN.  A value the tensor cores flushed
+    (a subnormal of bfloat16 or float16, as e8m0fnu's byte 0 and e5m2's
+    smallest are) breaks the sweep."""
+    out, before = {}, dict(fa.DTYPE_LAUNCHES)
+
+    def zeros(shape, td):
+        return torch.zeros(shape, dtype=torch.uint8, device=dev).view(td) \
+            if td.itemsize == 1 else torch.zeros(shape, dtype=td, device=dev)
+
+    def same_bits(got, want):
+        nan = torch.isnan(ref.decode(want))
+        return bool(torch.equal(torch.isnan(ref.decode(got)), nan)
+                    and torch.equal(ref.bits(got).masked_fill(nan, 0),
+                                    ref.bits(want).masked_fill(nan, 0)))
+
+    for dname in FLOAT8:
+        td = getattr(torch, dname)
+        codes = torch.arange(256, dtype=torch.uint8, device=dev).view(td)
+        table = ref.decode_table(td, dev) + 0.0          # -0 as +0
+        for cname in ("bfloat16", "float16"):
+            cd = getattr(torch, cname)
+            if fa.compute_type(cd, td, td) is None:
+                continue                   # float16 cannot hold e8m0fnu
+            q, k = zeros((1, 8, 1, 32), cd), zeros((1, 8, 1, 32), td)
+            v = codes.view(1, 8, 1, 32)
+            got = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            if not same_bits(got.reshape(-1), table.to(cd)):
+                raise AssertionError(f"the {fa.route(q, k, v)} kernel "
+                                     f"decodes {dname} into {cname} unlike "
+                                     "the table")
+            out[f"{dname}->{cname}"] = 256
+        v = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(
+            torch.int16).view(torch.bfloat16).view(1, 2048, 1, 32)
+        qz = zeros((1, 2048, 1, 32), td)
+        got = fa.flash_attention(qz, qz, v)
+        want = ref.round_to(v.float() + 0.0, td)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            bad = int((ref.bits(got) != ref.bits(want)).sum())
+            raise AssertionError(f"the tensor cores' output rounds to "
+                                 f"{dname} unlike the plain version: {bad} "
+                                 "of 65,536 bfloat16 patterns")
+        out[f"bfloat16->{dname}"] = 65536
+    out["dtype_launches"] = {k: n - before.get(k, 0)
+                             for k, n in fa.DTYPE_LAUNCHES.items()
+                             if n != before.get(k, 0)}
+    if any(not k.startswith("wgmma/") for k in out["dtype_launches"]):
+        raise AssertionError(f"a sweep left the tensor cores: "
+                             f"{out['dtype_launches']}")
     return out
 
 
@@ -929,12 +1010,14 @@ def check_flash_types(torch, fa, ref, dev) -> dict:
                layout, None)
               for d in ("float8_e4m3fn", "float8_e5m2") for layout in
               TYPED_LAYOUTS]
-    worst, margin_use = {}, 0.0
+    worst, margin_use, expected = {}, 0.0, {}
     for i, (combo, shape, layout, neg) in enumerate(cases):
         B, H, Hkv, Sq, Sk, D, w, c = shape
         dts = tuple(getattr(torch, d) for d in combo)
         q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dts, 1000 + i, dev,
                       layout)
+        key = fa.dtype_key(fa.route(q, k, v), *dts, dts[0])
+        expected[key] = expected.get(key, 0) + 1
         got = fa.flash_attention(q, k, v, causal=c, window=w)
         check = check_typed(torch, fa, ref, got, q, k, v, causal=c,
                             window=0 if neg else w)
@@ -947,31 +1030,33 @@ def check_flash_types(torch, fa, ref, dev) -> dict:
         worst[key] = max(worst.get(key, 0.0), check["max_abs_err"])
         margin_use = max(margin_use, check.get("max_err_over_margin", 0.0))
         del q, k, v, got
-    sweeps = typed_sweeps(torch, fa, ref, dev)
+    # each case launched on the route `fa.route` gives it, counted by its
+    # four types (before the sweeps, which count their own)
     ran = {k: v - before.get(k, 0) for k, v in fa.DTYPE_LAUNCHES.items()
            if v != before.get(k, 0)}
-    missing = [c for c in combos if fa.dtype_key(
-        "simt", *(getattr(torch, d) for d in c), getattr(torch, c[0]))
-        not in ran]
+    missing = {k: n for k, n in expected.items() if ran.get(k, 0) < n}
+    sweeps = typed_sweeps(torch, fa, ref, dev)
     out = {"cases": len(cases), "combos": len(combos),
            "max_err": worst, "margin_use": margin_use,
            "dtype_launches": ran, "sweeps": sweeps}
     emit("kernel_check_types", kernel="flash_attention", **out)
     if missing:
-        raise AssertionError(f"no simt launch for {missing}")
+        raise AssertionError(f"cases that did not launch on their route: "
+                             f"{missing} (ran {ran})")
     return out
 
 
-def flash_cost(B, H, Hkv, S, D, dtype, clock_mhz) -> dict:
+def flash_cost(B, H, Hkv, S, D, dtype, clock_mhz, peak=None) -> dict:
     """flops, bytes and exponentials of causal attention at Sq == Sk == S
     in `dtype` (a name, or the names of q's, k's and v's types), and the
     bound (ms): the largest of three terms, the products at the card's
     peak for the widest input type (FMA for float32, the tensor cores'
-    for 16-bit types, their float8 rate where all three are float8), the
-    bytes (each input read once in its type, the output written once in
-    q's) at the memory rate, and one exp2 a kept (query, key) pair at the
-    special function units' rate at `clock_mhz`.  `bound_by` is
-    "operations" (products or exp2) or "bytes", `term` the term itself."""
+    for 16-bit types, their float8 rate where all three are float8; or at
+    `peak` FLOP/s, a design's own rate), the bytes (each input read once
+    in its type, the output written once in q's) at the memory rate, and
+    one exp2 a kept (query, key) pair at the special function units' rate
+    at `clock_mhz`.  `bound_by` is "operations" (products or exp2) or
+    "bytes", `term` the term itself."""
     pairs = B * H * (S * (S + 1) / 2)
     flops = 4.0 * D * pairs                        # QK^T and PV, kept pairs
     names = dtype if isinstance(dtype, tuple) else (dtype,) * 3
@@ -979,8 +1064,8 @@ def flash_cost(B, H, Hkv, S, D, dtype, clock_mhz) -> dict:
             for n in names]
     nbytes = (2 * item[0] * B * H * S * D
               + (item[1] + item[2]) * B * Hkv * S * D)
-    peak = (F32_FLOPS_PER_S if max(item) == 4 else
-            BF16_FLOPS_PER_S if max(item) == 2 else FP8_FLOPS_PER_S)
+    peak = peak or (F32_FLOPS_PER_S if max(item) == 4 else
+                    BF16_FLOPS_PER_S if max(item) == 2 else FP8_FLOPS_PER_S)
     terms = {"products": flops / peak * 1e3,
              "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "exp2": pairs / exp2_per_s(clock_mhz) * 1e3}
@@ -1095,19 +1180,26 @@ def time_flash(torch, fa, ref, dev) -> dict:
     return out
 
 
-# phase 8's other types at the main path's shape, on the PerTensor simt
-# kernel: q bf16 with float8 (e4m3fn) k and v, and all three e4m3fn (name,
-# (q, k, v types), B, H, Hkv, S, D, reps).  No library call takes them.
+# phase 8's other types at the main path's shape, on the tensor cores
+# (compute type bfloat16): q bf16 with float8 (e4m3fn) k and v, and all
+# three e4m3fn, on wgmma at D=128; all three e4m3fn at D=100 on mma
+# (100-byte rows, which the TMA cannot take) (name, (q, k, v types), B, H,
+# Hkv, S, D, reps).  No library call takes them.
 FLASH_TYPED_TIMED = (
     ("bf16_q_e4m3fn_kv", ("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
-     2, 32, 8, 4096, 128, 3),
-    ("e4m3fn", ("float8_e4m3fn",) * 3, 2, 32, 8, 4096, 128, 3))
+     2, 32, 8, 4096, 128, 9),
+    ("e4m3fn", ("float8_e4m3fn",) * 3, 2, 32, 8, 4096, 128, 9),
+    ("e4m3fn_d100_mma", ("float8_e4m3fn",) * 3, 2, 32, 8, 4096, 100, 9))
 
 
 def time_flash_types(torch, fa, ref, dev) -> dict:
     """K3 at FLASH_TYPED_TIMED: the kernel held against its plain version
-    element by element (`check_typed`), then both timed beside the
-    bound."""
+    element by element (`check_typed`), then both timed beside the card's
+    bound (all-float8 products at the float8 rate) and the design's
+    (`design_bound_ms`: the products at the rate of the compute type the
+    kernel runs them in, 16-bit, since a float8 P V would round P to 3
+    mantissa bits where the reference keeps float32).  Run on an older
+    tree (the same file copied there), it times that tree's kernels."""
     clock = sm_clock_mhz()
     out = {}
     for name, names, B, H, Hkv, S, D, reps in FLASH_TYPED_TIMED:
@@ -1122,13 +1214,16 @@ def time_flash_types(torch, fa, ref, dev) -> dict:
                                  f"its plain version: {check}")
         del got
         cost = flash_cost(B, H, Hkv, S, D, names, clock)
+        design = flash_cost(B, H, Hkv, S, D, names, clock,
+                            peak=BF16_FLOPS_PER_S)
         kern = time_on_card(torch, lambda t: fa.flash_attention(*t),
                             [(q, k, v)], reps)
         plain_t = time_on_card(torch, lambda t: ref.flash_attention_ref(*t),
                                [(q, k, v)], reps)
+        variant = fa.route(q, k, v)
         out[name] = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
-                     "dtypes": names, "variant": fa.route(q, k, v),
-                     "width": fa.width("simt", D), "check": check,
+                     "dtypes": names, "variant": variant,
+                     "width": fa.width(variant, D), "check": check,
                      "flops": cost["flops"], "bytes": cost["bytes"],
                      "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
                      "plain_ms": plain_t["graph_ms"], "library_ms": None,
@@ -1136,6 +1231,8 @@ def time_flash_types(torch, fa, ref, dev) -> dict:
                      "bound_by": cost["bound_by"], "bound_term": cost["term"],
                      "bound_terms_ms": cost["terms_ms"],
                      "bound_share": cost["bound_ms"] / kern["graph_ms"],
+                     "design_bound_ms": design["bound_ms"],
+                     "design_bound_term": design["term"],
                      "sm_clock_mhz": clock}
         del q, k, v
         torch.cuda.empty_cache()
@@ -1486,10 +1583,42 @@ def check_large_rows(torch, parity, ref, dev) -> dict:
     out = {"K": TRAIN_STRIPES, "N": n, "max_abs_err": worst,
            "bit_exact": True, "ms": kern["graph_ms"],
            "plain_ms": plain["graph_ms"], "bound_ms": b, "bound_by": by,
-           "bound_share": b / kern["graph_ms"]}
+           "bound_share": b / kern["graph_ms"],
+           "typed": large_typed_rows(torch, parity, ref, dev, 4 * n)}
     emit("kernel_check_large", kernel="xor_parity", **out)
     del x, p
     torch.cuda.empty_cache()
+    return out
+
+
+def large_typed_rows(torch, parity, ref, dev, row_bytes) -> dict:
+    """K1 on INT_TIMED's narrow and wide rows (uint8, int64) at the bytes
+    of phase 12's largest call, K=3 rows of `row_bytes`, where no launch
+    cost hides the kernel: bit for bit against the plain version, then
+    both timed beside the byte bound (the rows read once, N int32 lanes
+    written once)."""
+    out = {}
+    for dname in INT_TIMED:
+        n = row_bytes // getattr(torch, dname).itemsize
+        x = int_rows(torch, TRAIN_STRIPES, n, dname, 101, dev)
+        got = parity.xor_parity(x)
+        same = torch.equal(got, ref.xor_parity_ref(x))
+        torch.cuda.synchronize()
+        if not same:
+            raise AssertionError(f"xor_parity {dname} K={TRAIN_STRIPES} "
+                                 f"N={n} differs from the plain version")
+        del got
+        kern = time_on_card(torch, parity.xor_parity, [x], reps=5)
+        plain = time_on_card(torch, ref.xor_parity_ref, [x], reps=5)
+        nbytes = TRAIN_STRIPES * row_bytes + 4 * n
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        out[dname] = {"K": TRAIN_STRIPES, "N": n, "bytes": nbytes,
+                      "bit_exact": True, "ms": kern["graph_ms"],
+                      "plain_ms": plain["graph_ms"], "bound_ms": b,
+                      "bound_by": "bytes", "bound_share": b / kern["graph_ms"],
+                      "library_ms": None}
+        del x
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2925,6 +3054,19 @@ def parallel(torch, fa, dev, smi) -> dict:
 # one head dim per wgmma kernel: width 64 at 1-4 k16 steps of Q K^T; width
 # 128 at 5-8; width 256 at 12 and 16
 WGMMA_FIRST_DIMS = [8, 24, 40, 56, 72, 96, 112, 128, 136, 256]
+# the same kernels where they decode float8: one D % 16 == 0 per width and
+# step count (a float8 row of D bytes the TMA takes), and the type sets
+# they take in turn, for each compute type: k and v decoded beside a
+# 16-bit q, all three (a float8 output), q alone, each format
+DEC_WGMMA_FIRST_DIMS = [16, 32, 48, 64, 80, 96, 112, 128, 144, 256]
+DEC_FIRST_TYPES = {
+    "bfloat16": (("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
+                 ("float8_e4m3fn",) * 3,
+                 ("float8_e8m0fnu", "bfloat16", "float8_e4m3fnuz"),
+                 ("float8_e5m2fnuz", "float8_e5m2", "bfloat16")),
+    "float16": (("float16", "float8_e5m2", "float8_e5m2"),
+                ("float8_e4m3fn", "float16", "float16"),
+                ("float8_e4m3fnuz", "float8_e5m2fnuz", "float16"))}
 
 
 def first_flash_calls(torch, fa, ref, dev):
@@ -2932,12 +3074,15 @@ def first_flash_calls(torch, fa, ref, dev):
     heavier runs: a fault of a pipeline shows here in seconds.  wgmma has
     a kernel per width and Q K^T step count (WGMMA_FIRST_DIMS holds one D
     of each; most leave a last TMA box mostly empty), mma one per width
-    (at width / 2 + 4, which is no multiple of 8), simt one per column
-    chunk in float32 (at width - 4) and one for 16-bit types (D = 300);
-    the PerTensor simt kernel at each column chunk (a mix at width - 4)
-    and on each float8 format (D = 60)."""
-    for combo, D in [(MIXED[0], w - 4) for w in fa.WIDTHS["simt"]] + [
-            ((d,) * 3, 60) for d in FLOAT8]:
+    (at width - 4, which is no multiple of 8), simt one per column chunk
+    in float32 (at width - 4) and one for 16-bit types (D = 300); the
+    PerTensor simt kernel at each column chunk (a mix without a compute
+    type at width - 4) and on each float8 format (beside float32, D = 60);
+    then each wgmma and mma kernel that decodes float8, for each compute
+    type (DEC_WGMMA_FIRST_DIMS, mma at width - 4, DEC_FIRST_TYPES in
+    turn), each held by check_typed and on the route it should take."""
+    for combo, D in [(MIXED[1], w - 4) for w in fa.WIDTHS["simt"]] + [
+            ((d, d, "float32"), 60) for d in FLOAT8]:
         q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
                       tuple(getattr(torch, d) for d in combo), D, dev)
         name = fa.route(q, k, v)
@@ -2952,7 +3097,7 @@ def first_flash_calls(torch, fa, ref, dev):
         if dname == "float32":
             dims = [w - 4 for w in fa.WIDTHS["simt"]]
         else:
-            dims = WGMMA_FIRST_DIMS + [w // 2 + 4 for w in fa.WIDTHS["mma"]]
+            dims = WGMMA_FIRST_DIMS + [w - 4 for w in fa.WIDTHS["mma"]]
             dims += [300]
         for D in dims:
             q, k, v = qkv(torch, 1, 2, 1, 300, 300, D, dtype, D, dev)
@@ -2967,6 +3112,34 @@ def first_flash_calls(torch, fa, ref, dev):
             if not err <= FLASH_TOL[dname]:
                 raise AssertionError(f"{name} kernel, {dname}, D={D}: max "
                                      f"abs err {err}")
+    for cname, combos in DEC_FIRST_TYPES.items():
+        dims = [(D, "wgmma") for D in DEC_WGMMA_FIRST_DIMS]
+        dims += [(w - 4, "mma") for w in fa.WIDTHS["mma"]]
+        for i, (D, want) in enumerate(dims):
+            combo = combos[i % len(combos)]
+            q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
+                          tuple(getattr(torch, d) for d in combo), D, dev)
+            name = fa.route(q, k, v)
+            check = check_typed(torch, fa, ref, fa.flash_attention(q, k, v),
+                                q, k, v)
+            emit("kernel_first_call", kernel="flash_attention", dtypes=combo,
+                 D=D, width=fa.width(name, D), **check)
+            if name != want or not check["ok"]:
+                raise AssertionError(f"{name} kernel ({want} wanted), "
+                                     f"{combo}, D={D}: {check}")
+
+
+def spills(log: str) -> dict:
+    """The kernels whose ptxas report (`-Xptxas -v`) shows spills, by
+    mangled name: its stack frame and spill line."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[-1].strip()
+        elif "spill" in ln and fn and \
+                " 0 bytes spill stores, 0 bytes spill loads" not in ln:
+            out[fn] = ln.strip()
+    return out
 
 
 def train(torch, fa, parity, ops, dev) -> dict:
@@ -3026,15 +3199,20 @@ def run(mode: str = "") -> int:
                           "--parity-only": ["xor_parity"],
                           "--train-only": ["xor_parity"],
                           "--entry-only": ["xor_parity"],
-                          "--parallel-only": ["flash_attention"]}.get(
+                          "--parallel-only": ["flash_attention"],
+                          "--typed-times": ["flash_attention"]}.get(
                               mode, ["xor_parity", "flash_attention"]))
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
+                        "spills": spills(v["log"]),
                         "ptxas": [ln for ln in v["log"].splitlines()
                                   if "registers" in ln or "spill" in ln
                                   or "arning" in ln or "(C7" in ln]}
                     for k, v in built.items()})
 
+    if mode == "--typed-times":
+        time_flash_types(torch, fa, ref, dev)
+        return 0
     if mode == "--flash-only":
         first_flash_calls(torch, fa, ref, dev)
         check_flash_types(torch, fa, ref, dev)
@@ -3106,6 +3284,22 @@ def run(mode: str = "") -> int:
                  **{k: flash_times[shape][k] for k in timed_keys}}
                 for name, shape in (("wgmma", "main"), ("mma", "d100_mma"),
                                     ("simt", "main_f32"))]
+
+    def typed_launches(name):
+        # the main path's launches of route `name` on float8 or mixed types
+        return sum(n for key, n in prefill["dtype_launches"].items()
+                   if key.split("/")[0] == name
+                   and key.split("/")[1] not in FLASH_TOL)
+    # the tensor-core routes that decode float8, each at its timed shape
+    variants += [{"name": f"{name}/float8", "shape": shape,
+                  "launches": typed_launches(name),
+                  "max_abs_err": typed_times[shape]["check"]["max_abs_err"],
+                  **{k: typed_times[shape].get(k) for k in (
+                      "B", "H", "Hkv", "S", "D", "variant", "ms", "plain_ms",
+                      "bound_ms", "bound_by", "bound_term", "library_ms",
+                      "design_bound_ms")}}
+                 for name, shape in (("wgmma", "e4m3fn"),
+                                     ("mma", "e4m3fn_d100_mma"))]
     print(json.dumps({"kernels": [{
         "name": "xor_parity", "route": "cuda",
         "source": "src/repro_torch/csrc/xor_parity.cu",
@@ -3128,7 +3322,8 @@ def run(mode: str = "") -> int:
                       "checked_launches": ints["launches"],
                       "checked_type_launches": ints["type_launches"],
                       "max_abs_err": ints["max_abs_err"],
-                      "timed": ints["timed"]}}, {
+                      "timed": ints["timed"],
+                      "large_timed": large["typed"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
@@ -3152,18 +3347,19 @@ def run(mode: str = "") -> int:
         "max_abs_err_by_dtype": flash_err["max_abs_err"],
         "head_dims_held": flash_err["head_dims"],
         "other_types": {
-            "variant": "simt",
-            "launches": sum(n for key, n in prefill["dtype_launches"].items()
-                            if key.split("/")[1] not in FLASH_TOL),
+            "launches": {name: typed_launches(name) for name in fa.VARIANTS},
             "dtypes": [",".join(c) for c in
                        [(d,) * 3 for d in FLOAT8] + list(MIXED)],
             "checked_launches": flash_types["dtype_launches"],
+            "sweep_launches": flash_types["sweeps"]["tensor_cores"][
+                "dtype_launches"],
             "max_err": flash_types["max_err"],
             "margin_use": flash_types["margin_use"],
             "negative_windows": list(NEGATIVE_WINDOWS),
             "timed": {name: {k: t[k] for k in (
-                "dtypes", "width", "ms", "plain_ms", "bound_ms", "bound_by",
-                "bound_term", "library_ms", "check")}
+                "dtypes", "variant", "width", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_term", "design_bound_ms", "library_ms",
+                "check")}
                 for name, t in typed_times.items()}}}
     ]}), flush=True)
     print(smi, flush=True)
@@ -3175,7 +3371,7 @@ def run(mode: str = "") -> int:
 
 if __name__ == "__main__":
     modes = ("--flash-only", "--parity-only", "--train-only", "--entry-only",
-             "--families-only", "--parallel-only")
+             "--families-only", "--parallel-only", "--typed-times")
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
         sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:

@@ -37,11 +37,18 @@
 // scale * log2(e) folded into one FMA, and starts the query tiles with the
 // most keys first (the slow grid dimension, last tile first), so the tail
 // of the grid holds the short ones.  Three kernels, chosen by the
-// wrapper's `route` by dtype, D and layout:
+// wrapper's `route` by the compute type C of q, k and v (`compute_code`:
+// float16 or bfloat16, into which every operand decodes exactly), D and
+// layout.  The two tensor-core kernels run every set with a C; where
+// some operand is float8 (DEC), it is decoded into C on its way into
+// shared memory, with no table (`dec4`: e4m3fn and e5m2 by the hardware's
+// cvt to f16x2, the others from their bits), and the output is rounded
+// to q's type (`encode_f8` for a float8 q):
 //
-//   * `flash_fwd_wgmma`: float16 or bfloat16, D % 8 == 0, D <= 256, on
-//     layouts the TMA takes (dense last dimension, 16-byte aligned start
-//     and strides), at width W = 64, 128 or 256; the model path.
+//   * `flash_fwd_wgmma`: C exists, D % 8 == 0, D <= 256, on layouts the
+//     TMA takes (dense last dimension, 16-byte aligned start and strides
+//     in each tensor's own bytes), at width W = 64, 128 or 256; the model
+//     path.
 //     FlashAttention-3's shape: a block of 3 warpgroups owns 128 query
 //     rows.  What each choice does about the bound:
 //       - a producer warpgroup (one thread) keeps K/V tiles in flight by
@@ -67,15 +74,25 @@
 //         count a template parameter, so each count is a kernel of its own
 //         with no branch in its pipeline; P V runs at N=W and its columns
 //         past D are not stored.
+//     A float8 operand comes raw by TMA (a UINT8 map: 64 bytes a row,
+//     into raw stages, two at W <= 128 and one at W = 256 for shared
+//     memory) and the producer warpgroup's 128 threads, idle in the
+//     16-bit kernel, decode it into the swizzled 16-bit tile and fence the
+//     async proxy before they signal it (`decode_tile`).
 //     The two consumers run independently, so one's softmax overlaps the
 //     other's products.  FlashAttention-3's overlap inside a warpgroup
 //     (the next tile's Q K^T issued before this tile's softmax) and a
 //     ping-pong of the consumers on named barriers were measured slower or
 //     no faster (ptxas spills the larger live set and serialises the
 //     wgmma); PERF.md has the numbers.
-//   * `flash_fwd_mma`: float16 or bfloat16 at D <= 256 on what the TMA
-//     cannot take (D % 8 != 0, strides or a start off 16 bytes, a strided
-//     last dimension), at W = 32, 64, 96, 112, 128, 160, 192 or 256.
+//   * `flash_fwd_mma`: C exists, D <= 256, on what the TMA cannot take
+//     (D % 8 != 0, strides or a start off 16 bytes, a strided last
+//     dimension), at W = 32, 64, 96, 112, 128, 160, 192 or 256.  A
+//     float8 K or V comes raw by cp.async into two raw stages behind one
+//     decoded tile (the shared memory of the 16-bit ring, so two blocks
+//     still fit an SM), decoded 16 bytes a thread after a barrier
+//     (`copy_raw8`, `decode_raw`; through registers instead measured
+//     slower); a float8 Q is decoded once through registers.
 //     Bound as above; what it does about it without the TMA:
 //       - mma.sync m16n8k16: 4 warps, each 32 query rows (two 16-row
 //         tiles, so every K and V fragment feeds two products) up to
@@ -101,8 +118,9 @@
 //     PERF.md).
 //   * `flash_fwd_simt`: float32 at any D, float16 or bfloat16 above
 //     D = 256, and (`flash_fwd_simt<PerTensor, DC>`, one kernel a column
-//     chunk) every float8 input and every mix of types: float32 FMA, no
-//     TF32, bound by the FMA rate.  A block of 4
+//     chunk) every set without C (float32 in a mix, bfloat16 with
+//     float16, float16 with e8m0fnu) and every float8 set above D = 256:
+//     float32 FMA, no TF32, bound by the FMA rate.  A block of 4
 //     warps owns 64 query rows; thread (rg, kg) holds an 8 x 4 register
 //     tile of S (rows rg + 8 i, keys kg + 16 j) and an 8 x DC/16 tile of O,
 //     so every 16-byte shared load feeds 8 or 16 FMAs.  DC (32, 64 or 128)
@@ -122,11 +140,13 @@
 //     to nearest even, each format's own overflow, NaN and zero).
 //
 // 16-bit products are exact in float32, so Q K^T differs from the
-// reference only in summation order; P is rounded to q's type for the P V
+// reference only in summation order; P is rounded to C for the P V
 // product (the row sums use the unrounded P), a relative error of 2^-9 a
 // weight in bfloat16 and 2^-11 in float16, inside the tolerances of 2e-2
-// and 5e-3.  Blocks above 48 KB of shared memory are allowed once per
-// instantiation with cudaFuncSetAttribute; the TMA descriptors are
+// and 5e-3.  Native float8 products would run at twice the rate, but an
+// fp8 P V would round P to 3 mantissa bits.  Blocks above 48 KB of shared
+// memory are allowed once per instantiation with cudaFuncSetAttribute;
+// the TMA descriptors are
 // encoded on the host at every call and passed by value, so a captured
 // CUDA graph keeps them.
 #include <cuda.h>
@@ -252,6 +272,116 @@ __device__ __forceinline__ uint8_t encode_f8(float x, int code) {
                      : (uint32_t)(y * pow2(mb - emin));
   }
   return fnuz && mag == 0 ? 0 : (uint8_t)(sign | mag);
+}
+
+// Two float32 outputs encoded as the float8 type CODE, the first in the
+// low byte.  e4m3fn and e5m2 by the hardware's conversion (round to
+// nearest even, as `encode_f8`), whose `satfinite` keeps the largest
+// finite value where the reference overflows: past it, at the rounding
+// midpoint to the next power of two (464 for e4m3fn, 61440 for e5m2, a
+// tie there rounding up), e4m3fn gives NaN (0x7f | sign) and e5m2
+// infinity (0x7c | sign), as `encode_f8` does.  The others by
+// `encode_f8`, its constants folded.
+template <int CODE>
+__device__ __forceinline__ uint16_t encode_f8x2(float lo, float hi) {
+  if constexpr (CODE == 3 || CODE == 4) {
+    uint16_t r;
+    if constexpr (CODE == 3)
+      asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;\n"
+          : "=h"(r) : "f"(hi), "f"(lo));
+    else
+      asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;\n"
+          : "=h"(r) : "f"(hi), "f"(lo));
+    const float big = CODE == 3 ? 464.f : 61440.f;
+    const uint16_t over = CODE == 3 ? 0x7f : 0x7c;
+    const bool olo = CODE == 3 ? fabsf(lo) > big : fabsf(lo) >= big;
+    const bool ohi = CODE == 3 ? fabsf(hi) > big : fabsf(hi) >= big;
+    if (olo) r = (r & 0xff00) | over | ((__float_as_uint(lo) >> 24) & 0x80);
+    if (ohi)
+      r = (r & 0x00ff) | ((over | ((__float_as_uint(hi) >> 24) & 0x80)) << 8);
+    return r;
+  } else {
+    return (uint16_t)(encode_f8(lo, CODE) | (encode_f8(hi, CODE) << 8));
+  }
+}
+
+// Four float8 bytes of type CODE (3-7) decoded into four values of the
+// compute type T (f16 or bf16) for the tensor cores: bytes 0 and 1 as the
+// pair `lo`, 2 and 3 as `hi`, the lower byte in the lower half.  Exact:
+// every value of these formats is one of bfloat16's, and of float16's but
+// for e8m0fnu (the route never pairs the two).  No table: e4m3fn and e5m2
+// by the hardware's conversion to f16x2 (then f16 -> f32 -> bf16 for a
+// bfloat16 T, each step exact: four instructions a pair; a bit-arithmetic
+// decode of nine measured slower); the fnuz formats from their bits as a
+// float32 scaled by a power of two (a float8 subnormal is a float32
+// subnormal there, and the product is not flushed), NaN for their one NaN
+// code 0x80; e8m0fnu
+// (2^(b - 127), 0xff NaN) as bfloat16 bits, byte 0 a bfloat16 subnormal.
+template <typename T, int CODE>
+__device__ __forceinline__ void dec4(uint32_t x, uint32_t& lo, uint32_t& hi) {
+  if constexpr (CODE == 3 || CODE == 4) {
+    uint32_t a, b;
+    if constexpr (CODE == 3)
+      asm("{\n.reg .b16 l, h;\nmov.b32 {l, h}, %2;\n"
+          "cvt.rn.f16x2.e4m3x2 %0, l;\ncvt.rn.f16x2.e4m3x2 %1, h;\n}\n"
+          : "=r"(a), "=r"(b)
+          : "r"(x));
+    else
+      asm("{\n.reg .b16 l, h;\nmov.b32 {l, h}, %2;\n"
+          "cvt.rn.f16x2.e5m2x2 %0, l;\ncvt.rn.f16x2.e5m2x2 %1, h;\n}\n"
+          : "=r"(a), "=r"(b)
+          : "r"(x));
+    if constexpr (kIsF16<T>) {
+      lo = a;
+      hi = b;
+    } else {
+      const float2 fa = __half22float2(*reinterpret_cast<const __half2*>(&a));
+      const float2 fb = __half22float2(*reinterpret_cast<const __half2*>(&b));
+      lo = pack<T>(fa.x, fa.y);
+      hi = pack<T>(fb.x, fb.y);
+    }
+  } else if constexpr (CODE == 5 || CODE == 6) {
+    constexpr int mb = CODE == 5 ? 3 : 2, bias = CODE == 5 ? 8 : 16;
+    // 2^(127 - bias): the float32 read of the magnitude bits is the value
+    // over it
+    const float scale = __uint_as_float((uint32_t)(254 - bias) << 23);
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t byte = (x >> (8 * i)) & 0xff;
+      const float m = __fmul_rn(__uint_as_float((byte & 0x7f) << (23 - mb)),
+                                scale);
+      f[i] = byte == 0x80 ? __uint_as_float(0x7fc00000u)
+                          : (byte & 0x80 ? -m : m);
+    }
+    lo = pack<T>(f[0], f[1]);
+    hi = pack<T>(f[2], f[3]);
+  } else {
+    static_assert(CODE == 7 && !kIsF16<T>, "e8m0fnu decodes to bf16 only");
+    uint32_t h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t byte = (x >> (8 * i)) & 0xff;
+      h[i] = byte == 0 ? 0x0040u : byte == 0xff ? 0x7fc0u : byte << 7;
+    }
+    lo = h[0] | (h[1] << 16);
+    hi = h[2] | (h[3] << 16);
+  }
+}
+
+// Calls f(std::integral_constant<int, CODE>) for the float8 type code
+// `code` that compute type T takes (a branch uniform over the block), so
+// each decoding loop is compiled once a format.
+template <typename T, typename F>
+__device__ __forceinline__ void with_code(int code, F&& f) {
+  switch (code) {
+    case 3: f(std::integral_constant<int, 3>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 5: f(std::integral_constant<int, 5>{}); break;
+    case 6: f(std::integral_constant<int, 6>{}); break;
+    default:
+      if constexpr (!kIsF16<T>) f(std::integral_constant<int, 7>{});
+  }
 }
 
 // Element access of the simt kernel: T's own type, or for PerTensor the
@@ -890,6 +1020,73 @@ __device__ __forceinline__ void zero_pad(unsigned char* tile, int rows, int D,
           0;
     });
 }
+
+// A float8 operand of the mma kernel.  `copy_raw8` brings rows x D bytes
+// (row r, column c at src + r * ss + c) raw into `raw` (row r at r * W) by
+// cp.async of `vec` bytes (16, 8 or 4: column stride 1, start, strides
+// and D multiples of it); rows from `valid` on are zeros.
+template <int W, int ROWS>
+__device__ __forceinline__ void copy_raw8(unsigned char* raw,
+                                          const unsigned char* src,
+                                          int64_t ss, int valid, int D,
+                                          int vec, int tid) {
+  for_items(ROWS, D / vec, tid, [&](int r, int j) {
+    const int c = j * vec;
+    const bool ok = r < valid;
+    const unsigned char* g = ok ? src + r * ss + c : src;
+    const uint32_t s = smem_u32(raw + r * W + c);
+    if (vec == 16) cp_async<16>(s, g, ok);
+    else if (vec == 8) cp_async<8>(s, g, ok);
+    else cp_async<4>(s, g, ok);
+  });
+}
+
+// Decodes the raw stage `raw` (rows x D float8 bytes of type CODE, row r
+// at r * W, as `copy_raw8` brought them) into the 16-bit tile `dst`, 16
+// bytes at a time whatever the copies' width (a thread reads other
+// threads' copies: the caller has passed a barrier); the columns from D
+// on, which no copy wrote, come out zero.
+template <typename T, int CODE, int W, int ROWS>
+__device__ __forceinline__ void decode_raw(unsigned char* dst,
+                                           const unsigned char* raw, int D,
+                                           int tid) {
+  for_items(ROWS, (D + 15) / 16, tid, [&](int r, int j) {
+    const int c = 16 * j;
+    const uint4 w = *reinterpret_cast<const uint4*>(raw + r * W + c);
+    uint32_t o[8];
+    dec4<T, CODE>(w.x, o[0], o[1]);
+    dec4<T, CODE>(w.y, o[2], o[3]);
+    dec4<T, CODE>(w.z, o[4], o[5]);
+    dec4<T, CODE>(w.w, o[6], o[7]);
+    if (c + 16 > D) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (c + 2 * e >= D) o[e] = 0;
+        else if (c + 2 * e + 1 >= D) o[e] &= 0xffffu;
+      }
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst + at<W>(r, c >> 3));
+    d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  });
+}
+
+// Decodes rows x D float8 bytes of type CODE (row r, column c at src +
+// r * ss + c * sd, in device memory, any strides) into the 16-bit tile
+// `dst` byte by byte through registers; rows from `valid` on are zeros.
+// For the layouts no copy of 4 bytes or more takes.
+template <typename T, int CODE, int W, int ROWS>
+__device__ __forceinline__ void decode_rows(unsigned char* dst,
+                                            const unsigned char* src,
+                                            int64_t ss, int64_t sd, int valid,
+                                            int D, int tid) {
+  for_items(ROWS, D, tid, [&](int r, int c) {
+    uint32_t lo = 0, hi;
+    if (r < valid) dec4<T, CODE>(src[r * ss + c * sd], lo, hi);
+    *reinterpret_cast<uint16_t*>(dst + at<W>(r, c >> 3) + (c & 7) * 2) =
+        (uint16_t)lo;
+  });
+}
 }  // namespace tc
 
 // c += a (16x16, row) * b (16x8, col) in T (f16 or bf16), float32
@@ -907,11 +1104,13 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
 #undef FLASH_MMA
 }
 
-// T: f16 or bf16; W: the pipeline width (32, 64, 96, 112, 128, 160, 192
-// or 256), any D <= W.  Warp w owns query rows MT 16 w ... of the block, in MT tiles of
-// 16; every product runs all W / 16 steps (the columns past D are zeros),
-// so no branch breaks the schedule.
-template <typename T, int W>
+// T: f16 or bf16, the compute type; W: the pipeline width (32, 64, 96,
+// 112, 128, 160, 192 or 256), any D <= W.  Warp w owns query rows MT 16 w
+// ... of the block, in MT tiles of 16; every product runs all W / 16 steps
+// (the columns past D are zeros), so no branch breaks the schedule.  DEC:
+// some of q, k, v is float8 (its code in Params), decoded into T on its
+// way into shared memory; the others are T, and the output is q's type.
+template <typename T, int W, bool DEC>
 __global__ void __launch_bounds__(kThreads, W <= 128 ? 2 : 1)
     flash_fwd_mma(const Params p) {
   using namespace tc;
@@ -923,17 +1122,27 @@ __global__ void __launch_bounds__(kThreads, W <= 128 ? 2 : 1)
   constexpr int kTileQ = BQ * pitch<W>(), kTileKV = BK * pitch<W>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* Qs = smem_raw;          // [BQ][W + 8]
-  unsigned char* Ks = Qs + kTileQ;       // [2 stages][BK][W + 8]
-  unsigned char* Vs = Ks + 2 * kTileKV;  // [2 stages][BK][W + 8]
+  // K and V: 2 stages of [BK][W + 8] each; a float8 operand instead keeps
+  // one decoded tile there and, behind it, 2 raw stages of [BK][W] bytes
+  unsigned char* Ks = Qs + kTileQ;
+  unsigned char* Vs = Ks + 2 * kTileKV;
 
+  // which inputs come as float8 (constant false but for DEC), and each
+  // tensor's bytes an element
+  const bool qd = DEC && p.q_type >= 3, kd = DEC && p.k_type >= 3,
+             vd = DEC && p.v_type >= 3;
+  const int qe = qd ? 1 : 2, ke = kd ? 1 : 2, ve = vd ? 1 : 2;
   const int D = p.D;
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const uint16_t* q = (const uint16_t*)p.q + b * p.q_sb + h * p.q_sh;
-  const uint16_t* k = (const uint16_t*)p.k + b * p.k_sb + hk * p.k_sh;
-  const uint16_t* v = (const uint16_t*)p.v + b * p.v_sb + hk * p.v_sh;
-  uint16_t* o = (uint16_t*)p.o + b * p.o_sb + h * p.o_sh;
+  const unsigned char* q =
+      (const unsigned char*)p.q + (b * p.q_sb + h * p.q_sh) * qe;
+  const unsigned char* k =
+      (const unsigned char*)p.k + (b * p.k_sb + hk * p.k_sh) * ke;
+  const unsigned char* v =
+      (const unsigned char*)p.v + (b * p.v_sb + hk * p.v_sh) * ve;
+  unsigned char* o = (unsigned char*)p.o + (b * p.o_sb + h * p.o_sh) * qe;
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last tile first
   const int off = p.Sk - p.Sq;
@@ -947,17 +1156,78 @@ __global__ void __launch_bounds__(kThreads, W <= 128 ? 2 : 1)
   const int t_first = kbeg / BK;
   const int n_tiles = kend > kbeg ? (kend - 1) / BK + 1 - t_first : 0;
 
+  // the zeros past D of every 16-bit tile (a float8 operand's one decoded
+  // tile only: its raw stages must take no stray stores), K's and V's
+  // after a float8 Q, whose raw rows pass through K's second half
   zero_pad<W>(Qs, BQ, D, tid);
-  zero_pad<W>(Ks, 2 * BK, D, tid);
-  zero_pad<W>(Vs, 2 * BK, D, tid);
-  load_tile<W, BQ>(Qs, q + q0 * p.q_ss, p.q_ss, p.q_sd, p.Sq - q0, D,
-                   p.q_vec, tid);
+  if constexpr (DEC) {
+    if (qd)
+      with_code<T>(p.q_type, [&](auto c) {
+        constexpr int CODE = decltype(c)::value;
+        if (p.q_vec > 1) {
+          // raw by cp.async into K's second half (BQ x W bytes fit: it
+          // holds 2 BK rows of W + 8 elements, or of W bytes), free
+          // until tile 0's copies; decoded once all have landed
+          unsigned char* raw = Ks + kTileKV;
+          copy_raw8<W, BQ>(raw, q + q0 * p.q_ss, p.q_ss, p.Sq - q0, D,
+                           p.q_vec, tid);
+          cp_commit();
+          cp_wait<0>();
+          __syncthreads();
+          decode_raw<T, CODE, W, BQ>(Qs, raw, D, tid);
+          __syncthreads();  // every thread has read the raw rows
+        } else {
+          decode_rows<T, CODE, W, BQ>(Qs, q + q0 * p.q_ss, p.q_ss, p.q_sd,
+                                      p.Sq - q0, D, tid);
+        }
+      });
+  }
+  if (!qd)
+    load_tile<W, BQ>(Qs, (const uint16_t*)q + q0 * p.q_ss, p.q_ss, p.q_sd,
+                     p.Sq - q0, D, p.q_vec, tid);
+  zero_pad<W>(Ks, kd ? BK : 2 * BK, D, tid);
+  zero_pad<W>(Vs, vd ? BK : 2 * BK, D, tid);
+  // tile it's copies: a 16-bit operand into stage it & 1, a float8 one raw
+  // into raw stage it & 1 (nothing where it goes element by element)
   auto load_kv = [&](int it) {
     const int k0 = (t_first + it) * BK, s = it & 1;
-    load_tile<W, BK>(Ks + s * kTileKV, k + k0 * p.k_ss, p.k_ss, p.k_sd,
-                     p.Sk - k0, D, p.k_vec, tid);
-    load_tile<W, BK>(Vs + s * kTileKV, v + k0 * p.v_ss, p.v_ss, p.v_sd,
-                     p.Sk - k0, D, p.v_vec, tid);
+    if (!kd)
+      load_tile<W, BK>(Ks + s * kTileKV, (const uint16_t*)k + k0 * p.k_ss,
+                       p.k_ss, p.k_sd, p.Sk - k0, D, p.k_vec, tid);
+    else if (p.k_vec > 1)
+      copy_raw8<W, BK>(Ks + kTileKV + s * BK * W, k + k0 * p.k_ss, p.k_ss,
+                       p.Sk - k0, D, p.k_vec, tid);
+    if (!vd)
+      load_tile<W, BK>(Vs + s * kTileKV, (const uint16_t*)v + k0 * p.v_ss,
+                       p.v_ss, p.v_sd, p.Sk - k0, D, p.v_vec, tid);
+    else if (p.v_vec > 1)
+      copy_raw8<W, BK>(Vs + kTileKV + s * BK * W, v + k0 * p.v_ss, p.v_ss,
+                       p.Sk - k0, D, p.v_vec, tid);
+  };
+  // once every thread's copies of tile it have landed (a barrier), decodes
+  // a float8 operand's into its one decoded tile (every thread left that
+  // tile at the last barrier of tile it - 1); generic, so only DEC
+  // compiles it
+  auto decode_kv = [&](auto it) {
+    const int k0 = (t_first + it) * BK, s = it & 1;
+    if (kd)
+      with_code<T>(p.k_type, [&](auto c) {
+        constexpr int CODE = decltype(c)::value;
+        if (p.k_vec > 1)
+          decode_raw<T, CODE, W, BK>(Ks, Ks + kTileKV + s * BK * W, D, tid);
+        else
+          decode_rows<T, CODE, W, BK>(Ks, k + k0 * p.k_ss, p.k_ss, p.k_sd,
+                                      p.Sk - k0, D, tid);
+      });
+    if (vd)
+      with_code<T>(p.v_type, [&](auto c) {
+        constexpr int CODE = decltype(c)::value;
+        if (p.v_vec > 1)
+          decode_raw<T, CODE, W, BK>(Vs, Vs + kTileKV + s * BK * W, D, tid);
+        else
+          decode_rows<T, CODE, W, BK>(Vs, v + k0 * p.v_ss, p.v_ss, p.v_sd,
+                                      p.Sk - k0, D, tid);
+      });
   };
   if (n_tiles > 0) load_kv(0);
   cp_commit();
@@ -986,11 +1256,17 @@ __global__ void __launch_bounds__(kThreads, W <= 128 ? 2 : 1)
     if (it + 1 < n_tiles) load_kv(it + 1);
     cp_commit();
     cp_wait<1>();
+    if constexpr (DEC) {
+      if (kd || vd) {
+        __syncthreads();
+        decode_kv(it);
+      }
+    }
     __syncthreads();
     const int s = it & 1;
     const int k0 = (t_first + it) * BK;
-    const uint32_t kb = smem_u32(Ks + s * kTileKV);
-    const uint32_t vb = smem_u32(Vs + s * kTileKV);
+    const uint32_t kb = smem_u32(kd ? Ks : Ks + s * kTileKV);
+    const uint32_t vb = smem_u32(vd ? Vs : Vs + s * kTileKV);
     if constexpr (kQRegs) {
       if (it == 0) {
 #pragma unroll
@@ -1134,45 +1410,72 @@ __global__ void __launch_bounds__(kThreads, W <= 128 ? 2 : 1)
   cp_wait<0>();
   __syncthreads();  // every copy has landed: Q's rows may be reused
 
-  // epilogue: normalise, stage this warp's rows in its own Q rows, then
-  // copy them out through o's strides with o's widest copy
+  // epilogue: normalise, stage this warp's rows in its own Q rows (a
+  // float8 output rounded as the reference rounds, a byte a column, the
+  // encoder compiled once a format), then copy them out through o's
+  // strides with o's widest copy
+  auto stage_out = [&](auto cv) {
+    constexpr int CODE = decltype(cv)::value;  // 0: o is T
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi) {
-    float l0 = l[mi][0], l1 = l[mi][1];
+    for (int mi = 0; mi < MT; ++mi) {
+      float l0 = l[mi][0], l1 = l[mi][1];
 #pragma unroll
-    for (int sh = 1; sh < 4; sh <<= 1) {
-      l0 += __shfl_xor_sync(kFull, l0, sh);
-      l1 += __shfl_xor_sync(kFull, l1, sh);
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        l0 += __shfl_xor_sync(kFull, l0, sh);
+        l1 += __shfl_xor_sync(kFull, l1, sh);
+      }
+      const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
+      const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+      const int r0 = wr + 16 * mi + g;
+#pragma unroll
+      for (int dt = 0; dt < W / 8; ++dt) {
+        if (8 * dt >= D) continue;
+        if constexpr (CODE != 0) {
+          const int c = 8 * dt + 2 * t;
+          *reinterpret_cast<uint16_t*>(Qs + r0 * pitch<W>() + c) =
+              encode_f8x2<CODE>(acc[mi][dt][0] * inv0,
+                                acc[mi][dt][1] * inv0);
+          *reinterpret_cast<uint16_t*>(Qs + (r0 + 8) * pitch<W>() + c) =
+              encode_f8x2<CODE>(acc[mi][dt][2] * inv1,
+                                acc[mi][dt][3] * inv1);
+        } else {
+          *reinterpret_cast<uint32_t*>(Qs + at<W>(r0, dt) + 4 * t) =
+              pack<T>(acc[mi][dt][0] * inv0, acc[mi][dt][1] * inv0);
+          *reinterpret_cast<uint32_t*>(Qs + at<W>(r0 + 8, dt) + 4 * t) =
+              pack<T>(acc[mi][dt][2] * inv1, acc[mi][dt][3] * inv1);
+        }
+      }
     }
-    const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
-    const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
-    const int r0 = wr + 16 * mi + g;
-#pragma unroll
-    for (int dt = 0; dt < W / 8; ++dt) {
-      if (8 * dt >= D) continue;
-      *reinterpret_cast<uint32_t*>(Qs + at<W>(r0, dt) + 4 * t) =
-          pack<T>(acc[mi][dt][0] * inv0, acc[mi][dt][1] * inv0);
-      *reinterpret_cast<uint32_t*>(Qs + at<W>(r0 + 8, dt) + 4 * t) =
-          pack<T>(acc[mi][dt][2] * inv1, acc[mi][dt][3] * inv1);
-    }
+  };
+  if constexpr (DEC) {
+    if (qd) with_code<T>(p.q_type, stage_out);
+    else stage_out(std::integral_constant<int, 0>{});
+  } else {
+    stage_out(std::integral_constant<int, 0>{});
   }
   __syncwarp();
-  const int ov = p.o_vec, per_row = D / ov;
+  const int ov = p.o_vec, per_row = D / ov, cb = ov * qe;  // bytes a copy
   for (int i = lane; i < 16 * MT * per_row; i += 32) {
     const int r = i / per_row, c = (i - r * per_row) * ov;
     const int row = q0 + wr + r;
     if (row >= p.Sq) continue;
-    const unsigned char* sp = Qs + at<W>(wr + r, c >> 3) + (c & 7) * 2;
-    uint16_t* gp = o + row * p.o_ss + (int64_t)c * p.o_sd;
-    if (ov == 8) *reinterpret_cast<uint4*>(gp) = *reinterpret_cast<const uint4*>(sp);
-    else if (ov == 4) *reinterpret_cast<uint2*>(gp) = *reinterpret_cast<const uint2*>(sp);
-    else if (ov == 2) *reinterpret_cast<uint32_t*>(gp) = *reinterpret_cast<const uint32_t*>(sp);
-    else *gp = *reinterpret_cast<const uint16_t*>(sp);
+    const unsigned char* sp = Qs + (wr + r) * pitch<W>() + c * qe;
+    unsigned char* gp = o + (row * p.o_ss + (int64_t)c * p.o_sd) * qe;
+    if (cb == 16) *reinterpret_cast<uint4*>(gp) = *reinterpret_cast<const uint4*>(sp);
+    else if (cb == 8) *reinterpret_cast<uint2*>(gp) = *reinterpret_cast<const uint2*>(sp);
+    else if (cb == 4) *reinterpret_cast<uint32_t*>(gp) = *reinterpret_cast<const uint32_t*>(sp);
+    else if (cb == 2) *reinterpret_cast<uint16_t*>(gp) = *reinterpret_cast<const uint16_t*>(sp);
+    else *gp = *sp;
   }
 }
 
 // ------------------ float16 / bfloat16 tensor cores, TMA + wgmma (Hopper)
 
+// The registers of the wgmma kernel's warpgroups where the producer
+// decodes float8 (DEC): of the 168 a thread holds at launch (65,536 over
+// 384 threads, in steps of 8), 56 for the producer and 224 for each
+// consumer (40 / 232, the 16-bit kernel's split, measured no faster)
+constexpr int kDecProducerRegs = 56, kDecConsumerRegs = 224;
 namespace wg {
 constexpr int kBQ = 128;       // query rows a block: 2 consumers x 64
 constexpr int kThreads = 384;  // producer warpgroup + 2 consumers
@@ -1191,13 +1494,78 @@ template <int W>
 __host__ __device__ constexpr int kv_bytes() {
   return bk<W>() * W * 2;  // one K or V tile
 }
+// A float8 K or V tile as the TMA brings it (DEC): boxes of 64 bytes a
+// row, in raw stages of their own; two where shared memory holds them, one
+// at W = 256 (two would take 241 KB of the 227 KB a block may have)
 template <int W>
+__host__ __device__ constexpr int raw_bytes() {
+  return bk<W>() * W;
+}
+template <int W>
+__host__ __device__ constexpr int raw_stages() {
+  return W == 256 ? 1 : 2;
+}
+template <int W, bool DEC>
 constexpr size_t smem_bytes() {
   // 1024 bytes of slack to align the swizzled tiles, then Q, the K ring,
-  // the V ring and 7 mbarriers
-  return 1024 + q_bytes<W>() + 2 * kStages * kv_bytes<W>() + 64;
+  // the V ring, (DEC) the raw stages of K and V, and 7 (DEC 12) mbarriers
+  return 1024 + q_bytes<W>() + 2 * kStages * kv_bytes<W>() +
+         (DEC ? 2 * raw_stages<W>() * raw_bytes<W>() + 128 : 64);
 }
 }  // namespace wg
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Decodes ROWS rows of a float8 tile of type `code` as the TMA brought it
+// (box c of 64 columns at raw + RAW_PANEL c, 64 bytes a row) into the
+// 16-bit tile that the wgmma descriptors read (panel c at dst + DST_PANEL
+// c, 128 bytes a row, 16-byte chunk j of row r at 16 (j ^ (r & 7)): the
+// TMA's 128-byte swizzle; ROWS a multiple of 8 rows into a panel).  Thread
+// tid of a warpgroup's 128 takes 16 raw bytes at a time, neighbours on
+// neighbouring bytes; the two chunks it writes fall on other banks than
+// its neighbours'.  Columns from D on are written as zeros (byte 0 of
+// e8m0fnu is 2^-127, not 0).
+template <typename T, int PANELS, int ROWS, int DST_PANEL = ROWS * 128,
+          int RAW_PANEL = ROWS * 64>
+__device__ __forceinline__ void decode_tile(unsigned char* dst,
+                                            const unsigned char* raw,
+                                            int code, int D, int tid) {
+  with_code<T>(code, [&](auto cv) {
+    constexpr int CODE = decltype(cv)::value;
+#pragma unroll 2
+    for (int i = tid; i < PANELS * ROWS * 4; i += 128) {
+      const int c = i / (ROWS * 4), r = (i / 4) % ROWS, j = i % 4;
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          raw + c * RAW_PANEL + r * 64 + 16 * j);
+      uint4 a, b;  // columns 16 j ... + 7 and 16 j + 8 ... + 15 of box c
+      dec4<T, CODE>(x.x, a.x, a.y);
+      dec4<T, CODE>(x.y, a.z, a.w);
+      dec4<T, CODE>(x.z, b.x, b.y);
+      dec4<T, CODE>(x.w, b.z, b.w);
+      const int col = 64 * c + 16 * j;
+      if (col + 8 >= D) {
+        b = make_uint4(0, 0, 0, 0);
+        if (col >= D) a = b;
+      }
+      unsigned char* row = dst + c * DST_PANEL + r * wg::kPanelRow;
+      *reinterpret_cast<uint4*>(row + (((2 * j) ^ (r & 7)) << 4)) = a;
+      *reinterpret_cast<uint4*>(row + (((2 * j + 1) ^ (r & 7)) << 4)) = b;
+    }
+  });
+}
+
+// A consumer warpgroup's 64 rows of a float8 Q (`decode_tile` over the
+// 128-row panels), out of line: the consumer's main loop keeps its own
+// register allocation
+template <typename T, int PANELS>
+__device__ __noinline__ void decode_q_rows(unsigned char* dst,
+                                           const unsigned char* raw,
+                                           int code, int D, int tid) {
+  decode_tile<T, PANELS, 64, wg::kBQ * wg::kPanelRow, wg::kBQ * 64>(
+      dst, raw, code, D, tid);
+}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -1423,11 +1791,20 @@ __device__ __forceinline__ void qk_stage(float (&sc)[BK / 2], uint32_t q_addr,
   fence_regs(sc);
 }
 
-// T: f16 or bf16; W: the pipeline width (64, 128 or 256); KS: the k16
-// steps of Q K^T, ceil(D/16) (at W = 256 rounded up to 12 or 16, whole
-// panels); D, a multiple of 8, in (16 (KS - 1), 16 KS] at W <= 128 and in
-// (W/2, W] at W = 256 (64 at W = 64).
-template <typename T, int W, int KS>
+// T: f16 or bf16, the compute type; W: the pipeline width (64, 128 or
+// 256); KS: the k16 steps of Q K^T, ceil(D/16) (at W = 256 rounded up to
+// 12 or 16, whole panels); D, a multiple of 8, in (16 (KS - 1), 16 KS] at
+// W <= 128 and in (W/2, W] at W = 256 (64 at W = 64).  DEC: some of q, k,
+// v is float8 (its code in Params): the TMA brings its bytes raw (a UINT8
+// tensor map, no swizzle) into raw stages, and the producer warpgroup's
+// 128 threads decode them into the swizzled 16-bit tiles the consumers
+// read, Q once a block, K and V a tile at a time (`decode_tile`), then
+// fence the async proxy (the consumers' wgmma reads those tiles through
+// it) before they arrive on q_full / k_full / v_full; the producer runs at
+// 56 registers and the consumers at 224.  A 16-bit operand of the same
+// call keeps its direct TMA load.  The output is q's type: a float8 o is
+// rounded by `encode_f8` and stored 8 bytes at a time.
+template <typename T, int W, int KS, bool DEC>
 __global__ void __launch_bounds__(wg::kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -1438,16 +1815,29 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   constexpr int kKPanel = BK * kPanelRow;
   constexpr int kPanels = (KS + 3) / 4;     // the boxes that hold data
   constexpr int kChunks = 2 * KS;           // 16-byte chunks of a row
+  constexpr int kRaw = raw_stages<W>();
   const int D = p.D;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* Ks = Qs + q_bytes<W>();                // [stage]
   unsigned char* Vs = Ks + kStages * kv_bytes<W>();     // [stage]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * kv_bytes<W>());
+  // DEC: the raw stages of a float8 K and V, and a float8 Q's boxes (in
+  // V's stage 1, free until tile 1)
+  unsigned char* QR = Vs + kv_bytes<W>();
+  unsigned char* KR = Vs + kStages * kv_bytes<W>();     // [raw stage]
+  unsigned char* VR = KR + kRaw * raw_bytes<W>();       // [raw stage]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      DEC ? VR + kRaw * raw_bytes<W>() : KR);
   uint64_t* k_full = q_full + 1;                        // [stage]
   uint64_t* v_full = k_full + kStages;                  // [stage]
   uint64_t* empty = v_full + kStages;                   // [stage]
+  uint64_t* rq_full = empty + kStages;                  // DEC
+  uint64_t* rk_full = rq_full + 1;                      // DEC [raw stage]
+  uint64_t* rv_full = rk_full + kRaw;                   // DEC [raw stage]
+  // which inputs come as float8 (constant false but for DEC)
+  const bool qd = DEC && p.q_type >= 3, kd = DEC && p.k_type >= 3,
+             vd = DEC && p.v_type >= 3;
 
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
@@ -1462,11 +1852,22 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid >> 5, lane = tid & 31;
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
+    // a decoded tile is complete when the 128 threads that decode it have
+    // arrived: the producer's for K and V; Q's, each consumer decoding its
+    // own rows, is done when all 256 consumer threads have (the producer
+    // then may refill V's stage 1)
+    mbar_init(q_full, qd ? 256 : 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
+      mbar_init(&k_full[s], kd ? 128 : 1);
+      mbar_init(&v_full[s], vd ? 128 : 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    if constexpr (DEC) {
+      mbar_init(rq_full, 1);
+      for (int r = 0; r < kRaw; ++r) {
+        mbar_init(&rk_full[r], 1);
+        mbar_init(&rv_full[r], 1);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1475,29 +1876,112 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   if (wgi == 0) {
     // ---- producer: one thread issues every load; a box counts its whole
     // size, columns past D included (TMA's zero fill)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == 0) {
-      mbar_expect_tx(q_full, kPanels * kQPanel);
-      for (int c = 0; c < kPanels; ++c)
-        tma_load(Qs + c * kQPanel, &tq, q_full, 64 * c, q0, h, b);
+    if constexpr (!DEC) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+      if (tid == 0) {
+        mbar_expect_tx(q_full, kPanels * kQPanel);
+        for (int c = 0; c < kPanels; ++c)
+          tma_load(Qs + c * kQPanel, &tq, q_full, 64 * c, q0, h, b);
+        for (int it = 0; it < n_tiles; ++it) {
+          const int s = it % kStages;
+          const uint32_t use = it / kStages;
+          mbar_wait(&empty[s], (use & 1) ^ 1);  // the first use passes
+          const int k0 = (t_first + it) * BK;
+          unsigned char* kdst = Ks + s * kv_bytes<W>();
+          unsigned char* vdst = Vs + s * kv_bytes<W>();
+          mbar_expect_tx(&k_full[s], kPanels * kKPanel);
+          for (int c = 0; c < kPanels; ++c)
+            tma_load(kdst + c * kKPanel, &tk, &k_full[s], 64 * c, k0, hk, b);
+          mbar_expect_tx(&v_full[s], kPanels * kKPanel);
+          for (int c = 0; c < kPanels; ++c)
+            tma_load(vdst + c * kKPanel, &tv, &v_full[s], 64 * c, k0, hk, b);
+        }
+      }
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   ::"n"(kDecProducerRegs));
+      constexpr int kRawBox = BK * 64;        // bytes of a raw K or V box
+      // thread 0: the loads of tile it's 16-bit operands into stage
+      // it % 2 (free: the caller has waited on `empty`)
+      auto issue_direct = [&](int it) {
+        const int s = it % kStages, k0 = (t_first + it) * BK;
+        if (!kd) {
+          mbar_expect_tx(&k_full[s], kPanels * kKPanel);
+          for (int c = 0; c < kPanels; ++c)
+            tma_load(Ks + s * kv_bytes<W>() + c * kKPanel, &tk, &k_full[s],
+                     64 * c, k0, hk, b);
+        }
+        if (!vd) {
+          mbar_expect_tx(&v_full[s], kPanels * kKPanel);
+          for (int c = 0; c < kPanels; ++c)
+            tma_load(Vs + s * kv_bytes<W>() + c * kKPanel, &tv, &v_full[s],
+                     64 * c, k0, hk, b);
+        }
+      };
+      // thread 0: the raw loads of tile it's float8 operands
+      auto issue_raw = [&](int it) {
+        const int r = it % kRaw, k0 = (t_first + it) * BK;
+        if (kd) {
+          mbar_expect_tx(&rk_full[r], kPanels * kRawBox);
+          for (int c = 0; c < kPanels; ++c)
+            tma_load(KR + r * raw_bytes<W>() + c * kRawBox, &tk, &rk_full[r],
+                     64 * c, k0, hk, b);
+        }
+        if (vd) {
+          mbar_expect_tx(&rv_full[r], kPanels * kRawBox);
+          for (int c = 0; c < kPanels; ++c)
+            tma_load(VR + r * raw_bytes<W>() + c * kRawBox, &tv, &rv_full[r],
+                     64 * c, k0, hk, b);
+        }
+      };
+      if (tid == 0) {
+        if (qd) {
+          mbar_expect_tx(rq_full, kPanels * kBQ * 64);
+          for (int c = 0; c < kPanels; ++c)
+            tma_load(QR + c * kBQ * 64, &tq, rq_full, 64 * c, q0, h, b);
+        } else {
+          mbar_expect_tx(q_full, kPanels * kQPanel);
+          for (int c = 0; c < kPanels; ++c)
+            tma_load(Qs + c * kQPanel, &tq, q_full, 64 * c, q0, h, b);
+        }
+        for (int it = 0; it < min(kRaw, n_tiles); ++it) issue_raw(it);
+        // tile 0's 16-bit loads too (tile 1's wait: V's stage 1 holds Q's
+        // boxes until the consumers have decoded them)
+        if (n_tiles > 0) issue_direct(0);
+      }
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        const uint32_t use = it / kStages;
+        const int s = it % kStages, r = it % kRaw;
+        const uint32_t use = it / kStages, raw_use = it / kRaw;
+        unsigned char* kdst = Ks + s * kv_bytes<W>();
+        unsigned char* vdst = Vs + s * kv_bytes<W>();
         mbar_wait(&empty[s], (use & 1) ^ 1);  // the first use passes
-        const int k0 = (t_first + it) * BK;
-        unsigned char* kd = Ks + s * kv_bytes<W>();
-        unsigned char* vd = Vs + s * kv_bytes<W>();
-        mbar_expect_tx(&k_full[s], kPanels * kKPanel);
-        for (int c = 0; c < kPanels; ++c)
-          tma_load(kd + c * kKPanel, &tk, &k_full[s], 64 * c, k0, hk, b);
-        mbar_expect_tx(&v_full[s], kPanels * kKPanel);
-        for (int c = 0; c < kPanels; ++c)
-          tma_load(vd + c * kKPanel, &tv, &v_full[s], 64 * c, k0, hk, b);
+        if (qd && it == 1) mbar_wait(q_full, 0);  // Q's boxes are read
+        if (tid == 0 && it > 0) issue_direct(it);
+        if (kd) {
+          mbar_wait(&rk_full[r], raw_use & 1);
+          decode_tile<T, kPanels, BK>(kdst, KR + r * raw_bytes<W>(), p.k_type,
+                                      D, tid);
+          fence_async_smem();
+          mbar_arrive(&k_full[s]);
+        }
+        if (vd) {
+          mbar_wait(&rv_full[r], raw_use & 1);
+          decode_tile<T, kPanels, BK>(vdst, VR + r * raw_bytes<W>(), p.v_type,
+                                      D, tid);
+          fence_async_smem();
+          mbar_arrive(&v_full[s]);
+        }
+        // every thread has read raw stage r: thread 0 refills it
+        asm volatile("bar.sync 3, 128;\n" ::: "memory");
+        if (tid == 0 && it + kRaw < n_tiles) issue_raw(it + kRaw);
       }
     }
   } else {
     // ---- consumer warpgroup cw: query rows q0 + 64 cw ... + 63
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (DEC)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                   ::"n"(kDecConsumerRegs));
+    else asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int cw = wgi - 1;
     const int g = lane >> 2, t = lane & 3;  // accumulator fragment coords
     const int r0 = 16 * warp + g;           // rows r0 and r0 + 8 of 64
@@ -1514,7 +1998,20 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     float m0 = kNegInf, m1 = kNegInf;  // running max of the raw logits
     float l0 = 0.f, l1 = 0.f;          // this thread's share of the sums
 
-    mbar_wait(q_full, 0);
+    if (qd) {
+      // a float8 Q: this warpgroup decodes its own 64 rows, beside the
+      // producer's decoding of K and V, and fences them for its wgmma
+      if constexpr (DEC) {
+        mbar_wait(rq_full, 0);
+        decode_q_rows<T, kPanels>(Qs + cw * 64 * kPanelRow,
+                                  QR + cw * 64 * 64, p.q_type, D, tid);
+        fence_async_smem();
+        mbar_arrive(q_full);
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      }
+    } else {
+      mbar_wait(q_full, 0);
+    }
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % kStages;
       const uint32_t parity = (it / kStages) & 1;
@@ -1617,6 +2114,42 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
     const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
     const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
     unsigned char* orow = Qs + cw * 64 * kPanelRow;
+    if constexpr (DEC) {
+      if (qd) {
+        // a float8 o: each pair of columns rounded as the reference rounds
+        // into two bytes, staged at row r of panel c at 128 r, 16-byte chunk
+        // u (columns 16 u ... of the panel) at 16 (u ^ (r & 7)); then the
+        // first D bytes of each row in 8-byte stores; the encoder compiled
+        // once a format, its constants folded
+        with_code<T>(p.q_type, [&](auto cv) {
+          constexpr int CODE = decltype(cv)::value;
+#pragma unroll
+          for (int j = 0; j < kChunks; ++j) {
+            if (8 * j >= D) continue;
+            unsigned char* a = orow + (j >> 3) * kQPanel + r0 * kPanelRow +
+                               ((((j & 7) >> 1) ^ (r0 & 7)) << 4) +
+                               8 * (j & 1) + 2 * t;
+            *reinterpret_cast<uint16_t*>(a) = encode_f8x2<CODE>(
+                acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+            *reinterpret_cast<uint16_t*>(a + 8 * kPanelRow) = encode_f8x2<CODE>(
+                acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+          }
+        });
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+        unsigned char* o = (unsigned char*)p.o + b * p.o_sb + h * p.o_sh;
+        const int n8 = D / 8;                 // 8-byte pieces of a row
+        for (int c = tid; c < 64 * n8; c += 128) {
+          const int r = c / n8, j = c % n8;   // columns 8 j ... 8 j + 7
+          const int row = q0 + 64 * cw + r;
+          if (row < p.Sq)
+            *reinterpret_cast<uint2*>(o + row * p.o_ss + 8 * j) =
+                *reinterpret_cast<const uint2*>(
+                    orow + (j >> 3) * kQPanel + r * kPanelRow +
+                    ((((j & 7) >> 1) ^ (r & 7)) << 4) + 8 * (j & 1));
+        }
+        return;
+      }
+    }
 #pragma unroll
     for (int j = 0; j < kChunks; ++j) {
       if (8 * j >= D) continue;
@@ -1674,29 +2207,34 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 16-bit tensor (B, heads, S, D) of type T with element strides sb, sh,
-// ss as the 4-d map (D, S, heads, B); boxes of 64 columns x `rows`,
-// 128-byte swizzle, columns past D and rows past S read as zeros.  A
-// dimension of size 1 (stride 0 here) gets the stride of a dense layout.
-template <typename T>
-bool encode(CUtensorMap* map, const void* base, int D, int S, int heads,
-            int B, int64_t sb, int64_t sh, int64_t ss, int rows) {
+// A tensor (B, heads, S, D) of type `code` (1 bfloat16, 2 float16, 3-7
+// float8) with element strides sb, sh, ss as the 4-d map (D, S, heads, B);
+// boxes of 64 columns x `rows`, columns past D and rows past S read as
+// zeros.  A 16-bit tensor lands in the 128-byte swizzle the wgmma
+// descriptors read; a float8 one as raw bytes (UINT8, no swizzle: 64
+// bytes a row), which the producer decodes.  A dimension of size 1
+// (stride 0 here) gets the stride of a dense layout.
+bool encode(CUtensorMap* map, const void* base, int code, int D, int S,
+            int heads, int B, int64_t sb, int64_t sh, int64_t ss, int rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
+  const int eb = code_bytes(code);
   if (S == 1) ss = D;
   if (heads == 1) sh = ss * S;
   if (B == 1) sb = sh * heads;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)(ss * eb), (cuuint64_t)(sh * eb),
+                                 (cuuint64_t)(sb * eb)};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map,
-             kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             code == 1   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+             : code == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_UINT8,
              4, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             eb == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1713,33 +2251,35 @@ int launch_simt(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int W>
+template <typename T, int W, bool DEC>
 int launch_mma(const Params& p, cudaStream_t stream) {
   static bool attr = false;
-  const int e = set_smem(flash_fwd_mma<T, W>, attr, tc::smem_bytes<W>());
+  const int e = set_smem(flash_fwd_mma<T, W, DEC>, attr, tc::smem_bytes<W>());
   if (e) return e;
   const dim3 grid(p.B * p.H, (p.Sq + tc::bq<W>() - 1) / tc::bq<W>());
-  flash_fwd_mma<T, W><<<grid, kThreads, tc::smem_bytes<W>(), stream>>>(p);
+  flash_fwd_mma<T, W, DEC>
+      <<<grid, kThreads, tc::smem_bytes<W>(), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int W, int KS>
+template <typename T, int W, int KS, bool DEC>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   using namespace wg;
   static bool attr = false;
-  const int e = set_smem(flash_fwd_wgmma<T, W, KS>, attr, smem_bytes<W>());
+  const int e = set_smem(flash_fwd_wgmma<T, W, KS, DEC>, attr,
+                         smem_bytes<W, DEC>());
   if (e) return e;
   CUtensorMap tq, tk, tv;
-  if (!encode<T>(&tq, p.q, p.D, p.Sq, p.H, p.B, p.q_sb, p.q_sh, p.q_ss,
-                 kBQ) ||
-      !encode<T>(&tk, p.k, p.D, p.Sk, p.Hkv, p.B, p.k_sb, p.k_sh, p.k_ss,
-                 bk<W>()) ||
-      !encode<T>(&tv, p.v, p.D, p.Sk, p.Hkv, p.B, p.v_sb, p.v_sh, p.v_ss,
-                 bk<W>()))
+  if (!encode(&tq, p.q, p.q_type, p.D, p.Sq, p.H, p.B, p.q_sb, p.q_sh,
+              p.q_ss, kBQ) ||
+      !encode(&tk, p.k, p.k_type, p.D, p.Sk, p.Hkv, p.B, p.k_sb, p.k_sh,
+              p.k_ss, bk<W>()) ||
+      !encode(&tv, p.v, p.v_type, p.D, p.Sk, p.Hkv, p.B, p.v_sb, p.v_sh,
+              p.v_ss, bk<W>()))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.B * p.H, (p.Sq + kBQ - 1) / kBQ);
-  flash_fwd_wgmma<T, W, KS>
-      <<<grid, wg::kThreads, smem_bytes<W>(), stream>>>(tq, tk, tv, p);
+  flash_fwd_wgmma<T, W, KS, DEC>
+      <<<grid, wg::kThreads, smem_bytes<W, DEC>(), stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -1748,36 +2288,63 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
 // each keeps the registers of one product chain (one kernel with a branch
 // between step counts spilled 2.2 KB at W = 256 and ran D=112 3 % slower).
 // W = 64 takes D 8-64 at 1-4 steps, W = 128 D 72-128 at 5-8; at W = 256
-// the steps come in whole panels, 12 or 16.  10 wgmma kernels a type.
-template <typename T>
+// the steps come in whole panels, 12 or 16.  10 wgmma kernels a type, and
+// 10 more a compute type that decode float8 (DEC).
+template <typename T, bool DEC>
 int launch_wgmma_d(const Params& p, int width, cudaStream_t st) {
   const int ks = (p.D + 15) / 16;
   if (width == 64) {
     switch (ks) {
-      case 1: return launch_wgmma<T, 64, 1>(p, st);
-      case 2: return launch_wgmma<T, 64, 2>(p, st);
-      case 3: return launch_wgmma<T, 64, 3>(p, st);
-      case 4: return launch_wgmma<T, 64, 4>(p, st);
+      case 1: return launch_wgmma<T, 64, 1, DEC>(p, st);
+      case 2: return launch_wgmma<T, 64, 2, DEC>(p, st);
+      case 3: return launch_wgmma<T, 64, 3, DEC>(p, st);
+      case 4: return launch_wgmma<T, 64, 4, DEC>(p, st);
     }
   }
   if (width == 128 && ks >= 5) {
     switch (ks) {
-      case 5: return launch_wgmma<T, 128, 5>(p, st);
-      case 6: return launch_wgmma<T, 128, 6>(p, st);
-      case 7: return launch_wgmma<T, 128, 7>(p, st);
-      case 8: return launch_wgmma<T, 128, 8>(p, st);
+      case 5: return launch_wgmma<T, 128, 5, DEC>(p, st);
+      case 6: return launch_wgmma<T, 128, 6, DEC>(p, st);
+      case 7: return launch_wgmma<T, 128, 7, DEC>(p, st);
+      case 8: return launch_wgmma<T, 128, 8, DEC>(p, st);
     }
   }
   if (width == 256 && ks >= 9) {
-    if (ks <= 12) return launch_wgmma<T, 256, 12>(p, st);
-    if (ks <= 16) return launch_wgmma<T, 256, 16>(p, st);
+    if (ks <= 12) return launch_wgmma<T, 256, 12, DEC>(p, st);
+    if (ks <= 16) return launch_wgmma<T, 256, 16, DEC>(p, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernels of compute type T: variant 1 = mma (W 32, 64,
+// 96, 112, 128, 160, 192, 256), 2 = wgmma (W 64, 128, 256; D % 8 == 0,
+// column strides 1); DEC where some input is float8.
+template <typename T, bool DEC>
+int launch_tc(const Params& p, int variant, int width, cudaStream_t st) {
+  if (p.D > width) return (int)cudaErrorInvalidValue;
+  if (variant == 1) {
+    switch (width) {
+      case 32: return launch_mma<T, 32, DEC>(p, st);
+      case 64: return launch_mma<T, 64, DEC>(p, st);
+      case 96: return launch_mma<T, 96, DEC>(p, st);
+      case 112: return launch_mma<T, 112, DEC>(p, st);
+      case 128: return launch_mma<T, 128, DEC>(p, st);
+      case 160: return launch_mma<T, 160, DEC>(p, st);
+      case 192: return launch_mma<T, 192, DEC>(p, st);
+      case 256: return launch_mma<T, 256, DEC>(p, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (variant == 2) {
+    if (p.D % 8 || p.q_sd != 1 || p.k_sd != 1 || p.v_sd != 1 || p.o_sd != 1)
+      return (int)cudaErrorInvalidValue;
+    return launch_wgmma_d<T, DEC>(p, width, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // variant 0 = simt (column chunk 32, 64 or 128 for float32, 128 for a
-// 16-bit type), 1 = mma (W 32, 64, 96, 112, 128, 160, 192, 256; 16-bit),
-// 2 = wgmma (W 64, 128, 256; 16-bit)
+// 16-bit type), 1 = mma, 2 = wgmma (16-bit, `launch_tc`)
 template <typename T>
 int launch_t(const Params& p, int variant, int width, cudaStream_t st) {
   if constexpr (std::is_same_v<T, float>) {
@@ -1792,27 +2359,7 @@ int launch_t(const Params& p, int variant, int width, cudaStream_t st) {
     if (variant == 0)
       return width == 128 ? launch_simt<T, 128>(p, st)
                           : (int)cudaErrorInvalidValue;
-    if (p.D > width) return (int)cudaErrorInvalidValue;
-    if (variant == 1) {
-      switch (width) {
-        case 32: return launch_mma<T, 32>(p, st);
-        case 64: return launch_mma<T, 64>(p, st);
-        case 96: return launch_mma<T, 96>(p, st);
-        case 112: return launch_mma<T, 112>(p, st);
-        case 128: return launch_mma<T, 128>(p, st);
-        case 160: return launch_mma<T, 160>(p, st);
-        case 192: return launch_mma<T, 192>(p, st);
-        case 256: return launch_mma<T, 256>(p, st);
-        default: return (int)cudaErrorInvalidValue;
-      }
-    }
-    if (variant == 2) {
-      if (p.D % 8 || p.q_sd != 1 || p.k_sd != 1 || p.v_sd != 1 ||
-          p.o_sd != 1)
-        return (int)cudaErrorInvalidValue;
-      return launch_wgmma_d<T>(p, width, st);
-    }
-    return (int)cudaErrorInvalidValue;
+    return launch_tc<T, false>(p, variant, width, st);
   }
 }
 
@@ -1826,6 +2373,22 @@ int launch_per_tensor(const Params& p, int width, cudaStream_t st) {
   }
 }
 
+// The compute type of the tensor cores for q, k and v of type codes
+// `types` (the wrapper's `compute_type`): 2 (float16) where some is
+// float16 and each other float16 or a float8 format but e8m0fnu; 1
+// (bfloat16) where none is float16 or float32; -1 (none) otherwise.
+int compute_code(const int* types) {
+  bool f16 = false, bf16 = false, e8m0 = false;
+  for (int i = 0; i < 3; ++i) {
+    if (types[i] == 0) return -1;
+    f16 = f16 || types[i] == 2;
+    bf16 = bf16 || types[i] == 1;
+    e8m0 = e8m0 || types[i] == 7;
+  }
+  if (f16) return bf16 || e8m0 ? -1 : 2;
+  return 1;
+}
+
 bool copy_ok(int vec, int D, int64_t sd, int type) {
   return vec == 1 ||
          ((vec == 2 || vec == 4 || vec == 8 || vec == 16) && D % vec == 0 &&
@@ -1833,7 +2396,6 @@ bool copy_ok(int vec, int D, int64_t sd, int type) {
 }
 
 }  // namespace
-
 // q (B,H,Sq,D), k and v (B,Hkv,Sk,D), o (B,H,Sq,D), each addressed by its
 // element strides (batch, head, row, column; `strides` holds 16 of them in
 // the order q, k, v, o), on the current device; `vecs` holds q's, k's, v's
@@ -1844,12 +2406,13 @@ bool copy_ok(int vec, int D, int64_t sd, int type) {
 //       output columns a block computes, D beyond it split over the grid),
 //       16-bit types at D > 256 (width 128), and (PerTensor, width 32, 64
 //       or 128) any other types: a float8 tensor or a mix; any strides;
-//   1 = mma.sync: q, k, v, o of one 16-bit type, D <= width (32, 64, 96,
-//       112, 128, 160, 192 or 256), any strides;
-//   2 = TMA + wgmma: q, k, v, o of one 16-bit type, D % 8 == 0 and D <=
-//       width (64, 128 or 256), column stride 1, 16-byte aligned starts and
-//       other strides (what the TMA and the 16-byte stores take; the caller
-//       checks).
+//   1 = mma.sync: q, k, v of one compute type (`compute_code`: one
+//       16-bit type, or float8 beside it or alone) and o of q's, D <= width
+//       (32, 64, 96, 112, 128, 160, 192 or 256), any strides;
+//   2 = TMA + wgmma: the same types, D % 8 == 0 and D <= width (64, 128
+//       or 256), column stride 1, 16-byte aligned starts and other strides
+//       in each tensor's own bytes (what the TMA and the 16- and 8-byte
+//       stores take; the caller checks).
 // B*H may be any int; Sq at most 65535 query tiles of 64 (128 for wgmma).
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for arguments no kernel takes.
@@ -1893,6 +2456,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       default: return launch_t<f16>(p, variant, width, st);
     }
   }
-  if (variant != 0) return (int)cudaErrorInvalidValue;
-  return launch_per_tensor(p, width, st);
+  if (variant == 0) return launch_per_tensor(p, width, st);
+  // the tensor cores, some input decoded from float8: where the types
+  // have a compute type and the output is q's
+  const int c = compute_code(types);
+  if (c < 0 || types[3] != types[0]) return (int)cudaErrorInvalidValue;
+  return c == 1 ? launch_tc<bf16, true>(p, variant, width, st)
+                : launch_tc<f16, true>(p, variant, width, st);
 }

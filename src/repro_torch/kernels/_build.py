@@ -20,8 +20,12 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
+# --split-compile=0: the device code's optimisation split over every core
+# (chip_smoke.py's build line on the 8 cores beside an H100: the flash
+# library's 77 kernels in 64-105 s, against 167 s without it)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -15,26 +15,38 @@ q gets the (B,H,S,D) view of a (B,S,H,D) output.
 
 On CUDA tensors it launches a hand-written kernel of
 `csrc/flash_attention.cu` (on the current stream, without synchronising),
-the one `route(q, k, v)` names (`variant(dtype, D, tma)` when q, k and v
-share one type, "simt" otherwise), at the width `width(name, D)` picks
-from its compiled ones (WIDTHS):
+the one `route(q, k, v)` names: `variant(C, D, tma)` for the compute type
+C = `compute_type(q, k, v)` of the tensor cores, "simt" where there is
+none; at the width `width(name, D)` picks from its compiled ones
+(WIDTHS).  C is float16 where some operand is float16 and each other
+float16 or a float8 format but e8m0fnu, bfloat16 where none is float16
+or float32 (bfloat16 and the float8 formats), none otherwise (float32
+anywhere, bfloat16 beside float16, float16 beside e8m0fnu): every float8
+value decodes exactly into C, so the tensor cores compute what the
+Pallas kernel computes in float32 but for the order of the sums and P
+rounded to C before P V, as for one 16-bit type.
 
-  "wgmma"  float16 or bfloat16, D % 8 == 0, D <= 256, on layouts the TMA
-           takes (`tma_layout`): TMA, mbarrier ring and warpgroup MMA at
-           width 64, 128 or 256; a D below its width runs on TMA's zero
-           fill of the columns past D.  Bound by the tensor cores' rate
-           (and, below D = 64, by the exponentials' rate);
-  "mma"    float16 or bfloat16 at D <= 256 otherwise (D % 8 != 0, or a
-           layout the TMA cannot take): mma.sync m16n8k16 fed by ldmatrix
-           from a cp.async ring (16, 8 or 4 bytes a copy, or element by
-           element: `copy_elems`), width 32 to 256;
-  "simt"   float32 at any D, float16 or bfloat16 at D > 256, and every
-           float8 input or mix of types at any D: float32 FMA, no TF32; a
-           block computes 32, 64 or 128 output columns and a grid
-           dimension of column chunks covers any D.  A mix or a float8
-           input runs its own kernel of the file, which reads and writes
-           each tensor in its own type (`DTYPES`; float8 decoded
-           through `ref.decode_table`, the 256 values of its format).
+  "wgmma"  C exists, D % 8 == 0, D <= 256, on layouts the TMA takes
+           (`tma_layout`, each tensor in its own bytes): TMA, mbarrier
+           ring and warpgroup MMA at width 64, 128 or 256; a D below its
+           width runs on TMA's zero fill of the columns past D; a float8
+           operand comes raw and the producer warps decode it into C.
+           Bound by the tensor cores' rate (and, below D = 64, by the
+           exponentials' rate);
+  "mma"    C exists, D <= 256 otherwise (D % 8 != 0, or a layout the TMA
+           cannot take): mma.sync m16n8k16 fed by ldmatrix from a cp.async
+           ring (16, 8 or 4 bytes a copy, or element by element:
+           `copy_elems`), width 32 to 256; a float8 K or V comes raw and
+           each copying thread decodes its own copies;
+  "simt"   no C (float32 anywhere, bfloat16 with float16, float16 with
+           e8m0fnu) at any D, and D > 256: float32 FMA, no TF32; a block
+           computes 32, 64 or 128 output columns and a grid dimension of
+           column chunks covers any D.  A mix or a float8 input runs its
+           own kernel of the file, which reads and writes each tensor in
+           its own type (`DTYPES`; float8 decoded through
+           `ref.decode_table`, the 256 values of its format).
+
+Each tensor is read in its own type, and the output is written in q's.
 
 On CPU tensors it computes the plain version, `ref.flash_attention_ref`.
 There is no other route: on a CUDA tensor the kernel runs or the call
@@ -43,7 +55,7 @@ raises.
 LAUNCHES counts the kernel launches, VARIANT_LAUNCHES the launches of each
 variant and DTYPE_LAUNCHES those of each (variant, dtype) pair, keyed
 "wgmma/float16" and so on, or by the four types of q, k, v and the output
-where they differ ("simt/bfloat16,float8_e4m3fn,float8_e4m3fn,bfloat16"),
+where they differ ("wgmma/bfloat16,float8_e4m3fn,float8_e4m3fn,bfloat16"),
 so a run can show that its attention went through the kernel.
 """
 from __future__ import annotations
@@ -77,8 +89,9 @@ _launch = None
 
 
 def variant(dtype: torch.dtype, head_dim: int, tma: bool = True) -> str:
-    """The kernel that runs inputs of `dtype` and `head_dim`; `tma` says
-    whether q, k, v and the output all lie as the TMA takes them."""
+    """The kernel that runs inputs of compute type `dtype` (one type of q,
+    k, v, or `compute_type`'s) and `head_dim`; `tma` says whether q, k, v
+    and the output all lie as the TMA takes them."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention takes float32, bfloat16, float16 "
                         f"or a float8 type, got {dtype}")
@@ -87,6 +100,24 @@ def variant(dtype: torch.dtype, head_dim: int, tma: bool = True) -> str:
     if dtype not in DTYPES[1:3] or head_dim > TC_MAX_HEAD_DIM:
         return "simt"
     return "wgmma" if tma and head_dim % 8 == 0 else "mma"
+
+
+def compute_type(*dtypes: torch.dtype) -> torch.dtype | None:
+    """The 16-bit type into which every one of these (q's, k's, v's)
+    decodes exactly, for the tensor cores: float16 where some is float16
+    and each other float16 or a float8 format but e8m0fnu (whose 2^-127
+    to 2^127 float16 cannot hold), bfloat16 where none is float16 or
+    float32, None otherwise."""
+    for t in dtypes:
+        if t not in DTYPES:
+            raise TypeError(f"flash_attention takes float32, bfloat16, "
+                            f"float16 or a float8 type, got {t}")
+    if torch.float32 in dtypes:
+        return None
+    if torch.float16 in dtypes:
+        mixed = {torch.bfloat16, torch.float8_e8m0fnu} & set(dtypes)
+        return None if mixed else torch.float16
+    return torch.bfloat16
 
 
 def width(name: str, head_dim: int) -> int:
@@ -135,14 +166,12 @@ def copy_elems(t: torch.Tensor) -> int:
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           out: torch.Tensor | None = None) -> str:
     """The variant that runs these inputs and output (by default
-    `torch.empty_like(q)`, the wrapper's): by dtype, D and layout; "simt"
-    for q, k and v of more than one type."""
+    `torch.empty_like(q)`, the wrapper's): by their compute type, D and
+    layout; "simt" where they have no compute type."""
     out = torch.empty_like(q) if out is None else out
-    name = variant(q.dtype, q.shape[-1],
-                   all(tma_layout(t) for t in (q, k, v, out)))
-    for t in (k, v):
-        variant(t.dtype, 1)               # raises for a type no kernel reads
-    return name if k.dtype == v.dtype == q.dtype else "simt"
+    c = compute_type(q.dtype, k.dtype, v.dtype)
+    tma = c is not None and all(tma_layout(t) for t in (q, k, v, out))
+    return variant(c or torch.float32, q.shape[-1], tma)
 
 
 def dtype_key(name: str, *dtypes: torch.dtype) -> str:
@@ -212,7 +241,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     c_vecs = (ctypes.c_int * 4)(*[copy_elems(t) for t in tensors])
     c_types = (ctypes.c_int * 4)(*[DTYPES.index(t.dtype) for t in tensors])
     with torch.cuda.device(q.device):
-        # each float8 input's 256 values, which the kernel decodes through
+        # each float8 input's 256 values, which the simt kernel decodes
+        # through (the tensor-core kernels decode arithmetically)
         c_tables = (ctypes.c_void_p * 3)(*[
             ref.decode_table(t.dtype, q.device).data_ptr()
             if t.element_size() == 1 else None for t in (q, k, v)])

@@ -74,7 +74,8 @@ def decode_table(dtype: torch.dtype, device) -> torch.Tensor:
     """(256,) float32 on `device`: the value of each byte of the float8
     `dtype`, as torch decodes it on the CPU (the reference's values:
     tests/test_torch_flash.py holds them to JAX's); made once a device.
-    The CUDA kernel decodes through it too."""
+    The simt kernel decodes through it too; the tensor-core kernels'
+    arithmetic decoding is held to it bit for bit on the card."""
     key = (dtype, torch.device(device))
     t = _TABLES.get(key)
     if t is None:
