@@ -51,8 +51,10 @@ the last line:
      other types the Pallas kernel computes (each operand read in its own
      type, the output in q's), on the tensor cores where the types have a
      compute type (float8 decoded into bfloat16 or float16 by the wgmma
-     and mma kernels) and on the PerTensor simt kernel otherwise: each of
-     the five float8 formats alone and 13 mixes (MIXED) at TYPED_SHAPES,
+     and mma kernels; bfloat16 beside float16 and float16 beside e8m0fnu
+     decoded into tf32 by the wgmma_tf32 kernel) and on the PerTensor
+     simt kernel otherwise: each of the five float8 formats alone and 20
+     mixes (MIXED) at TYPED_SHAPES,
      windows -1 and -7 (no window, as in Pallas) on every route, float8
      tensors as (B,S,H,D) views, one byte off an aligned start and with a
      column stride of 2, each element by element against the plain
@@ -62,7 +64,9 @@ the last line:
      bit patterns and its decoding of every float8 byte, and the same
      through the tensor cores: every float8 byte decoded into bfloat16
      and float16, and every bfloat16 pattern rounded to each float8
-     format, bit for bit;
+     format, bit for bit; and through the tf32 kernel every float8 byte,
+     every bfloat16 and float16 pattern (subnormals included) and every
+     float16 pattern rounded to each float8 format, bit for bit;
   8. at the prefill shapes of qwen3-4b (B=2, S=4096, in bfloat16, float16
      and float32 at D=128 and 64, and one layer of prefill_32k: B=1,
      S=32768), a gemma3-12b global layer (D=256, B=2, S=4096), zamba2-7b's
@@ -71,7 +75,10 @@ the last line:
      320 (simt), and q bf16 with float8 (e4m3fn) k and v and all three
      e4m3fn at D=128 (wgmma) and all three at D=100 (mma; no library call
      takes them, and beside the card's float8 bound the design's 16-bit
-     one): the kernel
+     one), q bf16 with f16 k and v and q f16 with e8m0fnu k and e5m2 v
+     (wgmma_tf32, beside the design's tf32 bound), q f32 with bf16 k and
+     v at D=128 and all three e4m3fn at D=320 (PerTensor simt) beside
+     simt<float> at D=128 and 320: the kernel
      against its plain version, element by element within a limit scaled
      to each output, then its times beside the bound
      (the largest of the products at the type's peak, the bytes, and one
@@ -169,9 +176,10 @@ and 15; no result line.
 
     python3 chip_smoke.py --typed-times
 
-runs phases 1, 2 and phase 8's float8 times alone; no result line.  A
-copy of this file in another checkout times that checkout's kernels (an
-older tree's, beside this one's, in one call on one card).
+runs phases 1, 2 and phase 8's typed times (FLASH_TYPED_TIMED) alone;
+no result line.  A copy of this file in another checkout times that
+checkout's kernels (an older tree's, beside this one's, in one call on
+one card; it builds only the sources that checkout has).
 """
 from __future__ import annotations
 
@@ -191,7 +199,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # the H100 SXM's peak rates, the denominators of every bound below
 from repro_torch.kernels.hardware import (  # noqa: E402
     BF16_FLOPS_PER_S, F32_FLOPS_PER_S, FP8_FLOPS_PER_S, HBM_BYTES_PER_S,
-    INT32_OPS_PER_S, exp2_per_s)
+    INT32_OPS_PER_S, TF32_FLOPS_PER_S, exp2_per_s)
 
 MAIN_MIB = 512
 STRIPE = 1 << 20
@@ -779,7 +787,9 @@ def check_flash(torch, fa, ref, dev) -> dict:
          max_abs_err=worst, max_abs_err_by_variant=by_variant,
          tolerance=FLASH_TOL, variant_launches=ran,
          head_dims=head_dims, edges_over_scaled_limit=scaled)
-    if not all(ran.values()):
+    # every kernel of one type (wgmma_tf32 takes mixes only: phase 7's
+    # check_flash_types holds it)
+    if not all(ran[name] for name in ("simt", "mma", "wgmma")):
         raise AssertionError(f"a flash variant was never checked: {ran}")
     return {"max_abs_err": worst, "by_variant": by_variant, "shapes": n,
             "head_dims": sorted({D for pairs in held.values()
@@ -789,8 +799,10 @@ def check_flash(torch, fa, ref, dev) -> dict:
 # phase 7's other types: each float8 format alone and the mixes below
 # (each operand read in its own type, the output in q's), on the route
 # `fa.route` gives (the tensor cores where the types have a compute type
-# C, `fa.compute_type`: wgmma at D=64 and 128, mma at D=40; the PerTensor
-# simt kernel at D=320 and for the sets without C), at TYPED_SHAPES (B, H,
+# C, `fa.compute_type`: wgmma at D=64 and 128, mma at D=40, wgmma_tf32 at
+# D=64 and 128 (and at 40 where no operand is float8) for the tf32 sets;
+# the PerTensor simt kernel at D=320, for the tf32 sets off the TMA's
+# layouts and for the sets with float32), at TYPED_SHAPES (B, H,
 # Hkv, Sq, Sk, D, window, causal: GQA, a window, Sq < Sk without causal,
 # column chunks over D = 320, a longer sequence); negative windows (-1,
 # -7: no window, as in the Pallas kernel) on each route; the float8
@@ -811,7 +823,16 @@ MIXED = (("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
          ("float8_e4m3fnuz", "float8_e4m3fnuz", "bfloat16"),
          ("bfloat16", "bfloat16", "float8_e5m2fnuz"),
          ("float16", "float8_e5m2", "float8_e5m2"),
-         ("float8_e4m3fn", "float16", "float16"))
+         ("float8_e4m3fn", "float16", "float16"),
+         # the tf32 sets: bfloat16 beside float16, float16 beside e8m0fnu
+         # (with or without other float8 formats), no float32
+         ("bfloat16", "float16", "float16"),
+         ("float16", "bfloat16", "bfloat16"),
+         ("float16", "float16", "bfloat16"),
+         ("bfloat16", "float16", "float8_e4m3fn"),
+         ("float8_e5m2fnuz", "bfloat16", "float16"),
+         ("float16", "float8_e8m0fnu", "float8_e8m0fnu"),
+         ("float8_e8m0fnu", "float16", "float16"))
 TYPED_SHAPES = ((1, 4, 2, 192, 192, 64, 100, True),
                 (2, 8, 2, 300, 300, 128, 0, True),
                 (1, 4, 4, 100, 257, 40, 0, False),
@@ -833,11 +854,14 @@ TYPED_LAYOUTS = (True, "off1", "col2")
 # an H100 (max abs err 1.0e-6 at |v|_P about 0.8)
 F32_ORDER_TOL = 2.0 ** -16
 # the tensor-core kernels round P to their compute type C before P V (the
-# row sums take it unrounded): each weight moves by at most half a unit of
-# C (2^-9 bfloat16, 2^-11 float16), so the unrounded output by at most
-# that share of |v|_P; u_C, twice it, leaves the slack that
-# check_flash_scaled documents (and covers the float32 sums' order)
-P_ROUND_TOL = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -10}
+# row sums take it unrounded): each weight moves by at most C's unit
+# roundoff (2^-8 bfloat16, 2^-11 float16 and tf32, whose 10-bit mantissa
+# is float16's; the tf32 kernel rounds to nearest, ties away), so the
+# unrounded output by at most that share of |v|_P; u_C covers it, with
+# the slack that check_flash_scaled documents for float16 and tf32 (and
+# the float32 sums' order)
+P_ROUND_TOL = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -10,
+               "tf32": 2.0 ** -10}
 
 
 def check_typed(torch, fa, ref, got, q, k, v, causal=True,
@@ -847,8 +871,8 @@ def check_typed(torch, fa, ref, got, q, k, v, causal=True,
     within tol |v|_P of the plain version's float32 output x0, where tol
     is F32_ORDER_TOL on the simt kernels (they round nothing before the
     output and sum in float32 as the plain version does) and u_C =
-    P_ROUND_TOL[C] on the wgmma and mma kernels (they round P to their
-    compute type C before P V).  As rounding is monotone, that is a value
+    P_ROUND_TOL[C] on the wgmma, wgmma_tf32 and mma kernels (they round P
+    to their compute type C before P V).  As rounding is monotone, that is a value
     between the roundings of x0 -/+ that margin, or NaN where one of them
     is NaN (float8_e8m0fnu at x <= 0): exactly the plain version's output
     but within the kernel's own error of a rounding boundary, for every
@@ -981,12 +1005,79 @@ def tc_sweeps(torch, fa, ref, dev) -> dict:
                                  f"{dname} unlike the plain version: {bad} "
                                  "of 65,536 bfloat16 patterns")
         out[f"bfloat16->{dname}"] = 65536
+    out.update(tf32_sweeps(torch, fa, ref, dev, zeros, same_bits))
     out["dtype_launches"] = {k: n - before.get(k, 0)
                              for k, n in fa.DTYPE_LAUNCHES.items()
                              if n != before.get(k, 0)}
-    if any(not k.startswith("wgmma/") for k in out["dtype_launches"]):
+    if any(not k.startswith(("wgmma/", "wgmma_tf32/"))
+           for k in out["dtype_launches"]):
         raise AssertionError(f"a sweep left the tensor cores: "
                              f"{out['dtype_launches']}")
+    return out
+
+
+def tf32_sweeps(torch, fa, ref, dev, zeros, same_bits) -> dict:
+    """`tc_sweeps` through the tf32 kernel (D=32, one key a row, every
+    weight exactly 1: q zeros, so every score is 0 whatever k holds).
+    Decoder: v each of the 256 bytes of each float8 format, q bfloat16
+    and k float16 (tf32: bfloat16 beside float16): the bfloat16 output
+    must be the table's value bit for bit (every float8 value is one of
+    bfloat16's; -0 comes out +0, the sum starting at +0); q float16 and k
+    e8m0fnu: the float16 output must be the plain version's rounding of
+    the table.  Then v every bfloat16 pattern (q bfloat16, k float16) and
+    every float16 pattern (q float16, k bfloat16): the output must be v
+    bit for bit, subnormals included, bfloat16's being float32
+    subnormals in tf32: a tensor core that flushed them, or e8m0fnu's
+    2^-127, breaks the sweep.  Encoder: q zeros in each float8 format F, k
+    bfloat16, v every float16 pattern: the output in F must be
+    `ref.round_to(v, F)` bit for bit but the sign of a NaN.  Every launch
+    must be the tf32 kernel's."""
+    out, before = {}, dict(fa.DTYPE_LAUNCHES)
+    bf, hf, e8 = torch.bfloat16, torch.float16, torch.float8_e8m0fnu
+    shape = (1, 8, 1, 32)
+    for dname in FLOAT8:
+        td = getattr(torch, dname)
+        codes = torch.arange(256, dtype=torch.uint8, device=dev).view(td)
+        table = ref.decode_table(td, dev) + 0.0          # -0 as +0
+        v = codes.view(shape)
+        for q, k in ((zeros(shape, bf), zeros(shape, hf)),
+                     (zeros(shape, hf), zeros(shape, e8))):
+            got = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            if not same_bits(got.reshape(-1), ref.round_to(table, q.dtype)):
+                raise AssertionError(
+                    f"the {fa.route(q, k, v)} kernel decodes {dname} with "
+                    f"q {q.dtype}, k {k.dtype} unlike the table")
+        out[f"{dname}->tf32"] = 256
+    big = (1, 2048, 1, 32)
+    pats = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(
+        torch.int16)
+    for vd, qd, kd in ((bf, bf, hf), (hf, hf, bf)):
+        v = pats.view(vd).view(big)
+        got = fa.flash_attention(zeros(big, qd), zeros(big, kd), v)
+        torch.cuda.synchronize()
+        if not same_bits(got, ref.round_to(v.float() + 0.0, qd)):
+            bad = int((ref.bits(got) != ref.bits(v)).sum())
+            raise AssertionError(f"the tf32 kernel passes {vd} values "
+                                 f"unlike the plain version: {bad} of "
+                                 f"65,536 patterns")
+        out[f"{str(vd).removeprefix('torch.')}->tf32"] = 65536
+    v = pats.view(hf).view(big)
+    for dname in FLOAT8:
+        td = getattr(torch, dname)
+        got = fa.flash_attention(zeros(big, td), zeros(big, bf), v)
+        want = ref.round_to(v.float() + 0.0, td)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            bad = int((ref.bits(got) != ref.bits(want)).sum())
+            raise AssertionError(f"the tf32 kernel's output rounds to "
+                                 f"{dname} unlike the plain version: {bad} "
+                                 "of 65,536 float16 patterns")
+        out[f"float16->{dname} (tf32)"] = 65536
+    ran = {k: n - before.get(k, 0) for k, n in fa.DTYPE_LAUNCHES.items()
+           if n != before.get(k, 0)}
+    if any(not k.startswith("wgmma_tf32/") for k in ran):
+        raise AssertionError(f"a tf32 sweep left the tf32 kernel: {ran}")
     return out
 
 
@@ -1035,6 +1126,9 @@ def check_flash_types(torch, fa, ref, dev) -> dict:
     ran = {k: v - before.get(k, 0) for k, v in fa.DTYPE_LAUNCHES.items()
            if v != before.get(k, 0)}
     missing = {k: n for k, n in expected.items() if ran.get(k, 0) < n}
+    for name in fa.VARIANTS:           # each route took some typed set
+        if not any(k.split("/")[0] == name for k in ran):
+            missing[name] = "no typed launch"
     sweeps = typed_sweeps(torch, fa, ref, dev)
     out = {"cases": len(cases), "combos": len(combos),
            "max_err": worst, "margin_use": margin_use,
@@ -1180,26 +1274,47 @@ def time_flash(torch, fa, ref, dev) -> dict:
     return out
 
 
-# phase 8's other types at the main path's shape, on the tensor cores
-# (compute type bfloat16): q bf16 with float8 (e4m3fn) k and v, and all
-# three e4m3fn, on wgmma at D=128; all three e4m3fn at D=100 on mma
-# (100-byte rows, which the TMA cannot take) (name, (q, k, v types), B, H,
-# Hkv, S, D, reps).  No library call takes them.
+# phase 8's other types at the main path's shape: on the 16-bit tensor
+# cores (compute type bfloat16) q bf16 with float8 (e4m3fn) k and v, and
+# all three e4m3fn, on wgmma at D=128; all three e4m3fn at D=100 on mma
+# (100-byte rows, which the TMA cannot take); on the tf32 kernel q bf16
+# with f16 k and v, and q f16 with e8m0fnu k and e5m2 v; on the PerTensor
+# simt kernel q f32 with bf16 k and v at D=128 and all three e4m3fn at
+# D=320; and simt<float> at D=128 and 320, the yardsticks of the
+# PerTensor kernel (name, (q, k, v types), B, H, Hkv, S, D, reps).  No
+# library call takes a mix; SDPA in float32 is timed beside the float32
+# cases.
 FLASH_TYPED_TIMED = (
     ("bf16_q_e4m3fn_kv", ("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
      2, 32, 8, 4096, 128, 9),
     ("e4m3fn", ("float8_e4m3fn",) * 3, 2, 32, 8, 4096, 128, 9),
-    ("e4m3fn_d100_mma", ("float8_e4m3fn",) * 3, 2, 32, 8, 4096, 100, 9))
+    ("e4m3fn_d100_mma", ("float8_e4m3fn",) * 3, 2, 32, 8, 4096, 100, 9),
+    ("bf16_q_f16_kv", ("bfloat16", "float16", "float16"),
+     2, 32, 8, 4096, 128, 9),
+    ("f16_q_e8m0_k_e5m2_v", ("float16", "float8_e8m0fnu", "float8_e5m2"),
+     2, 32, 8, 4096, 128, 9),
+    ("f32_q_bf16_kv", ("float32", "bfloat16", "bfloat16"),
+     2, 32, 8, 4096, 128, 3),
+    ("f32_d128", ("float32",) * 3, 2, 32, 8, 4096, 128, 3),
+    ("e4m3fn_d320", ("float8_e4m3fn",) * 3, 2, 32, 8, 4096, 320, 3),
+    ("f32_d320", ("float32",) * 3, 2, 32, 8, 4096, 320, 3))
+# the rate at which each route's design takes its products: 16-bit for
+# the tensor-core routes that decode float8 (an fp8 P V would round P to
+# 3 mantissa bits where the reference keeps float32), tf32 for wgmma_tf32,
+# the FMA units' for simt
+DESIGN_RATE = {"wgmma": BF16_FLOPS_PER_S, "mma": BF16_FLOPS_PER_S,
+               "wgmma_tf32": TF32_FLOPS_PER_S, "simt": F32_FLOPS_PER_S}
 
 
 def time_flash_types(torch, fa, ref, dev) -> dict:
     """K3 at FLASH_TYPED_TIMED: the kernel held against its plain version
     element by element (`check_typed`), then both timed beside the card's
-    bound (all-float8 products at the float8 rate) and the design's
-    (`design_bound_ms`: the products at the rate of the compute type the
-    kernel runs them in, 16-bit, since a float8 P V would round P to 3
-    mantissa bits where the reference keeps float32).  Run on an older
-    tree (the same file copied there), it times that tree's kernels."""
+    bound (the products at the rate of the widest input type: float8's
+    where all are float8) and the design's (`design_bound_ms`: the
+    products at the rate of the route that runs them, DESIGN_RATE), and
+    SDPA in float32 where all three are float32.  Run on an older tree
+    (the same file copied there), it times that tree's kernels."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     clock = sm_clock_mhz()
     out = {}
     for name, names, B, H, Hkv, S, D, reps in FLASH_TYPED_TIMED:
@@ -1213,20 +1328,23 @@ def time_flash_types(torch, fa, ref, dev) -> dict:
             raise AssertionError(f"flash_attention at {name} differs from "
                                  f"its plain version: {check}")
         del got
+        variant = fa.route(q, k, v)
         cost = flash_cost(B, H, Hkv, S, D, names, clock)
         design = flash_cost(B, H, Hkv, S, D, names, clock,
-                            peak=BF16_FLOPS_PER_S)
+                            peak=DESIGN_RATE[variant])
         kern = time_on_card(torch, lambda t: fa.flash_attention(*t),
                             [(q, k, v)], reps)
         plain_t = time_on_card(torch, lambda t: ref.flash_attention_ref(*t),
                                [(q, k, v)], reps)
-        variant = fa.route(q, k, v)
+        lib = time_on_card(torch, lambda t: sdpa(
+            *t, is_causal=True, enable_gqa=True), [(q, k, v)], reps)[
+                "graph_ms"] if set(names) == {"float32"} else None
         out[name] = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
                      "dtypes": names, "variant": variant,
                      "width": fa.width(variant, D), "check": check,
                      "flops": cost["flops"], "bytes": cost["bytes"],
                      "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
-                     "plain_ms": plain_t["graph_ms"], "library_ms": None,
+                     "plain_ms": plain_t["graph_ms"], "library_ms": lib,
                      "bound_ms": cost["bound_ms"],
                      "bound_by": cost["bound_by"], "bound_term": cost["term"],
                      "bound_terms_ms": cost["terms_ms"],
@@ -3069,10 +3187,21 @@ DEC_FIRST_TYPES = {
                 ("float8_e4m3fnuz", "float8_e5m2fnuz", "float16"))}
 
 
+# the tf32 kernel at each width (D 8-64 at 64, 72-128 at 128), q of each
+# kind of type it takes, float8 beside float16 and bfloat16, e8m0fnu
+# beside float16
+TF32_FIRST = ((("bfloat16", "float16", "float16"), 64),
+              (("float16", "bfloat16", "bfloat16"), 128),
+              (("float16", "float8_e8m0fnu", "float8_e5m2"), 32),
+              (("float8_e4m3fn", "float16", "bfloat16"), 96),
+              (("float8_e8m0fnu", "float16", "float8_e4m3fnuz"), 112))
+
+
 def first_flash_calls(torch, fa, ref, dev):
     """One short call of each compiled kernel, checked before anything
-    heavier runs: a fault of a pipeline shows here in seconds.  wgmma has
-    a kernel per width and Q K^T step count (WGMMA_FIRST_DIMS holds one D
+    heavier runs: a fault of a pipeline shows here in seconds.  The tf32
+    kernel first (TF32_FIRST, each on the wgmma_tf32 route); wgmma has a
+    kernel per width and Q K^T step count (WGMMA_FIRST_DIMS holds one D
     of each; most leave a last TMA box mostly empty), mma one per width
     (at width - 4, which is no multiple of 8), simt one per column chunk
     in float32 (at width - 4) and one for 16-bit types (D = 300); the
@@ -3081,6 +3210,17 @@ def first_flash_calls(torch, fa, ref, dev):
     then each wgmma and mma kernel that decodes float8, for each compute
     type (DEC_WGMMA_FIRST_DIMS, mma at width - 4, DEC_FIRST_TYPES in
     turn), each held by check_typed and on the route it should take."""
+    for combo, D in TF32_FIRST:
+        q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
+                      tuple(getattr(torch, d) for d in combo), D, dev)
+        name = fa.route(q, k, v)
+        check = check_typed(torch, fa, ref, fa.flash_attention(q, k, v),
+                            q, k, v)
+        emit("kernel_first_call", kernel="flash_attention", dtypes=combo,
+             D=D, width=fa.width(name, D), **check)
+        if name != "wgmma_tf32" or not check["ok"]:
+            raise AssertionError(f"{name} kernel (wgmma_tf32 wanted), "
+                                 f"{combo}, D={D}: {check}")
     for combo, D in [(MIXED[1], w - 4) for w in fa.WIDTHS["simt"]] + [
             ((d, d, "float32"), 60) for d in FLOAT8]:
         q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
@@ -3195,13 +3335,14 @@ def run(mode: str = "") -> int:
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    built = _build.build({"--flash-only": ["flash_attention"],
-                          "--parity-only": ["xor_parity"],
-                          "--train-only": ["xor_parity"],
-                          "--entry-only": ["xor_parity"],
-                          "--parallel-only": ["flash_attention"],
-                          "--typed-times": ["flash_attention"]}.get(
-                              mode, ["xor_parity", "flash_attention"]))
+    flash = ["flash_attention", "flash_tf32"]
+    names = {"--flash-only": flash, "--parity-only": ["xor_parity"],
+             "--train-only": ["xor_parity"], "--entry-only": ["xor_parity"],
+             "--parallel-only": flash, "--typed-times": flash}.get(
+                 mode, ["xor_parity", *flash])
+    if mode == "--typed-times":     # an older tree has no tf32 source
+        names = [n for n in names if (_build.CSRC / f"{n}.cu").exists()]
+    built = _build.build(names)
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
                         "spills": spills(v["log"]),
@@ -3300,6 +3441,26 @@ def run(mode: str = "") -> int:
                       "design_bound_ms")}}
                  for name, shape in (("wgmma", "e4m3fn"),
                                      ("mma", "e4m3fn_d100_mma"))]
+    # the tf32 kernel and the PerTensor simt kernel, each at its timed
+    # shapes (the main path launches neither)
+    variants += [{"name": name, "source": source, "shape": shape,
+                  "launches": typed_launches(name.split("/")[0]),
+                  "max_abs_err": typed_times[shape]["check"]["max_abs_err"],
+                  **{k: typed_times[shape].get(k) for k in (
+                      "B", "H", "Hkv", "S", "D", "dtypes", "variant", "ms",
+                      "plain_ms", "bound_ms", "bound_by", "bound_term",
+                      "library_ms", "design_bound_ms")}}
+                 for name, source, shape in (
+                     ("wgmma_tf32", "src/repro_torch/csrc/flash_tf32.cu",
+                      "bf16_q_f16_kv"),
+                     ("wgmma_tf32", "src/repro_torch/csrc/flash_tf32.cu",
+                      "f16_q_e8m0_k_e5m2_v"),
+                     ("simt/per_tensor",
+                      "src/repro_torch/csrc/flash_attention.cu",
+                      "f32_q_bf16_kv"),
+                     ("simt/per_tensor",
+                      "src/repro_torch/csrc/flash_attention.cu",
+                      "e4m3fn_d320"))]
     print(json.dumps({"kernels": [{
         "name": "xor_parity", "route": "cuda",
         "source": "src/repro_torch/csrc/xor_parity.cu",

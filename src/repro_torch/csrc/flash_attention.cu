@@ -36,10 +36,14 @@
 // causal diagonal, the window edge or the end of the keys, takes exp2 with
 // scale * log2(e) folded into one FMA, and starts the query tiles with the
 // most keys first (the slow grid dimension, last tile first), so the tail
-// of the grid holds the short ones.  Three kernels, chosen by the
+// of the grid holds the short ones.  Three kernels here, chosen by the
 // wrapper's `route` by the compute type C of q, k and v (`compute_code`:
 // float16 or bfloat16, into which every operand decodes exactly), D and
-// layout.  The two tensor-core kernels run every set with a C; where
+// layout; the sets whose C is tf32 (bfloat16 beside float16, float16
+// beside e8m0fnu) run flash_tf32.cu's kernel on the TMA's layouts at
+// D <= 128, and `flash_fwd_simt<PerTensor, DC>` otherwise; the helpers
+// both sources use are in flash_common.cuh.  The two 16-bit tensor-core
+// kernels run every set with a 16-bit C; where
 // some operand is float8 (DEC), it is decoded into C on its way into
 // shared memory, with no table (`dec4`: e4m3fn and e5m2 by the hardware's
 // cvt to f16x2, the others from their bits), and the output is rounded
@@ -118,26 +122,32 @@
 //     PERF.md).
 //   * `flash_fwd_simt`: float32 at any D, float16 or bfloat16 above
 //     D = 256, and (`flash_fwd_simt<PerTensor, DC>`, one kernel a column
-//     chunk) every set without C (float32 in a mix, bfloat16 with
-//     float16, float16 with e8m0fnu) and every float8 set above D = 256:
-//     float32 FMA, no TF32, bound by the FMA rate.  A block of 4
+//     chunk) every set with float32 in a mix, the tf32 sets off the tf32
+//     kernel's route and every float8 set above D = 256: float32 FMA, no
+//     TF32, bound by the FMA rate.  A block of 4
 //     warps owns 64 query rows; thread (rg, kg) holds an 8 x 4 register
 //     tile of S (rows rg + 8 i, keys kg + 16 j) and an 8 x DC/16 tile of O,
 //     so every 16-byte shared load feeds 8 or 16 FMAs.  DC (32, 64 or 128)
 //     output columns a block, a grid dimension of ceil(D / DC) column
 //     chunks over D, each recomputing S over all of D in 32-column chunks:
-//     any D runs.  K chunks, V half-tiles (and Q chunks where Q does not
-//     stay in shared memory with two blocks an SM) stream through a
-//     3-slot ring by cp.async (16 bytes a copy where the layout allows,
-//     else 4), one barrier a step; 1- and 2-byte inputs come raw by
-//     cp.async (16, 8 or 4 bytes a copy, else element by element) and each
-//     thread converts its own copies to float32 in shared memory, a float8
-//     byte through its format's 256 values (a table per tensor in shared
-//     memory, made on the host from torch's decoding).  P goes through
-//     shared memory into P V.  The PerTensor kernel reads each tensor's
-//     type code from Params, so 3 kernels take the 8^4 combinations; it
-//     rounds its output as the reference's `astype` does (`encode_f8`:
-//     to nearest even, each format's own overflow, NaN and zero).
+//     any D runs.  Q stays in shared memory as float32, converted once a
+//     block, where two blocks still fit an SM (D <= 128 with 16-bit K and
+//     V: `simt::layout` sizes every region to the call's types); K
+//     chunks, V half-tiles (and Q chunks where Q does not stay) stream
+//     through a 3-slot ring by cp.async (16 bytes a copy where the layout
+//     allows, else 4), one barrier a step; 1- and 2-byte inputs come raw
+//     by cp.async (16, 8 or 4 bytes a copy, else element by element) and
+//     each thread converts its own copies to float32 in shared memory,
+//     halfway through the step before them (the copies have landed by
+//     then, and the conversion runs beside the other warps' FMAs), in a
+//     loop compiled for the tensor's type (`with_type`: one branch a
+//     tensor, uniform over the block) that decodes 16 raw bytes at a time
+//     and stores 16 bytes of float32 at a time, float8 from its bits
+//     (`dec4_f32`, no table).  P goes through shared memory into P V.
+//     The PerTensor kernel reads each tensor's type code from Params, so
+//     3 kernels take the 8^4 combinations; it rounds its output as the
+//     reference's `astype` does (`encode_f8`: to nearest even, each
+//     format's own overflow, NaN and zero).
 //
 // 16-bit products are exact in float32, so Q K^T differs from the
 // reference only in summation order; P is rounded to C for the P V
@@ -149,48 +159,9 @@
 // the TMA descriptors are
 // encoded on the host at every call and passed by value, so a captured
 // CUDA graph keeps them.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-typedef __half f16;
-
-constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
-constexpr int kThreads = 128;      // 4 warps (simt and mma kernels)
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int B, H, Hkv, Sq, Sk, D;
-  int causal, window;
-  float scale;
-  // element strides of batch, head, row and column (a dimension of size 1
-  // may have any)
-  int64_t q_sb, q_sh, q_ss, q_sd, k_sb, k_sh, k_ss, k_sd, v_sb, v_sh, v_ss,
-      v_sd, o_sb, o_sh, o_ss, o_sd;
-  // elements a copy of the mma and simt kernels moves: 16, 8, 4 or 2 (16
-  // bytes' worth at most, the column stride 1, start, strides and D
-  // multiples of it), or 1 (element by element, any strides)
-  int q_vec, k_vec, v_vec, o_vec;
-  // the type codes of q, k, v and o (read by the PerTensor simt kernel): 0
-  // float32, 1 bfloat16, 2 float16, 3 float8_e4m3fn, 4 float8_e5m2, 5
-  // float8_e4m3fnuz, 6 float8_e5m2fnuz, 7 float8_e8m0fnu
-  int q_type, k_type, v_type, o_type;
-  // the 256 values of q's, k's and v's float8 type, in device memory
-  // (null for a tensor that is not float8)
-  const float* lut[3];
-};
 
 // The simt kernel's element type that stands for "each tensor in the type
 // its code in Params names".
@@ -198,298 +169,31 @@ struct PerTensor {};
 template <typename T>
 constexpr bool kPer = std::is_same_v<T, PerTensor>;
 
+// The type code of the simt kernel's T (PerTensor: none, each tensor has
+// its own in Params).
 template <typename T>
-constexpr bool kIsF16 = std::is_same_v<T, f16>;
+constexpr int kCodeOf = std::is_same_v<T, float>  ? 0
+                        : std::is_same_v<T, bf16> ? 1
+                        : kIsF16<T>               ? 2
+                                                  : -1;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x) {
-  if constexpr (kIsF16<T>) return __float2half_rn(x);
-  else if constexpr (std::is_same_v<T, bf16>) return __float2bfloat16_rn(x);
-  else return x;
-}
-
-// two floats -> a pair of T (f16 or bf16), `lo` in the low half (the
-// lower column index)
-template <typename T>
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  if constexpr (kIsF16<T>) {
-    __half2 t = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&t);
-  } else {
-    __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&t);
-  }
-}
-
-// ------------------------------------------------------- float8 and codes
-
-__host__ __device__ inline int code_bytes(int code) {
-  return code == 0 ? 4 : code < 3 ? 2 : 1;
-}
-
-// 2^k for k in [-126, 127], from its bits (exact)
-__device__ __forceinline__ float pow2(int k) {
-  return __uint_as_float((uint32_t)(k + 127) << 23);
-}
-
-// float32 -> the float8 type `code` (3-7), as the reference's `astype`
-// rounds (XLA and ml_dtypes): to nearest, ties to even, at the format's
-// spacing at |x|, with its own overflow, NaN and zero.  e4m3fn: no
-// infinity, overflow and NaN give 0x7f | sign; e5m2: overflow gives
-// infinity; the fnuz formats: one NaN code 0x80 (overflow too) and no
-// negative zero.  e8m0fnu (exponent only, no sign, no zero): NaN 0xff for
-// x <= 0, infinities and NaN, else the exponent of x plus one when bit 22
-// of its mantissa is set and x is not a tie at 2^-127.
-__device__ __forceinline__ uint8_t encode_f8(float x, int code) {
-  const uint32_t b = __float_as_uint(x);
-  if (code == 7) {
-    const uint32_t e = b >> 23;
-    if (!(x > 0.f) || e == 255) return 0xff;
-    return (uint8_t)(e + ((b & 0x400000) && ((b & 0x3fffff) || e > 0)));
-  }
-  const uint32_t sign = (b >> 24) & 0x80;
-  const bool fnuz = code >= 5;
-  const int mb = code == 3 || code == 5 ? 3 : 2;
-  const int bias = code == 3 ? 7 : code == 4 ? 15 : code == 5 ? 8 : 16;
-  const float top = code == 3 ? 448.f : code == 5 ? 240.f : 57344.f;
-  const uint8_t nan = fnuz ? 0x80 : (uint8_t)(sign | (mb == 3 ? 0x7f : 0x7e));
-  if (isnan(x)) return nan;
-  const int emin = 1 - bias;  // the least normal exponent
-  const int e = max((int)((b >> 23) & 0xff) - 127, emin);
-  // |x| at the spacing 2^(e - mb), rounded: exact scalings by powers of two
-  const float y = rintf(fabsf(x) * pow2(mb - e)) * pow2(e - mb);
-  if (y > top) return code == 4 ? (uint8_t)(sign | 0x7c) : nan;
-  uint32_t mag = 0;
-  if (y != 0.f) {
-    const uint32_t yb = __float_as_uint(y);
-    const int ye = (int)(yb >> 23) - 127;
-    mag = ye >= emin ? ((uint32_t)(ye + bias) << mb) |
-                           ((yb >> (23 - mb)) & ((1u << mb) - 1))
-                     : (uint32_t)(y * pow2(mb - emin));
-  }
-  return fnuz && mag == 0 ? 0 : (uint8_t)(sign | mag);
-}
-
-// Two float32 outputs encoded as the float8 type CODE, the first in the
-// low byte.  e4m3fn and e5m2 by the hardware's conversion (round to
-// nearest even, as `encode_f8`), whose `satfinite` keeps the largest
-// finite value where the reference overflows: past it, at the rounding
-// midpoint to the next power of two (464 for e4m3fn, 61440 for e5m2, a
-// tie there rounding up), e4m3fn gives NaN (0x7f | sign) and e5m2
-// infinity (0x7c | sign), as `encode_f8` does.  The others by
-// `encode_f8`, its constants folded.
-template <int CODE>
-__device__ __forceinline__ uint16_t encode_f8x2(float lo, float hi) {
-  if constexpr (CODE == 3 || CODE == 4) {
-    uint16_t r;
-    if constexpr (CODE == 3)
-      asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;\n"
-          : "=h"(r) : "f"(hi), "f"(lo));
-    else
-      asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;\n"
-          : "=h"(r) : "f"(hi), "f"(lo));
-    const float big = CODE == 3 ? 464.f : 61440.f;
-    const uint16_t over = CODE == 3 ? 0x7f : 0x7c;
-    const bool olo = CODE == 3 ? fabsf(lo) > big : fabsf(lo) >= big;
-    const bool ohi = CODE == 3 ? fabsf(hi) > big : fabsf(hi) >= big;
-    if (olo) r = (r & 0xff00) | over | ((__float_as_uint(lo) >> 24) & 0x80);
-    if (ohi)
-      r = (r & 0x00ff) | ((over | ((__float_as_uint(hi) >> 24) & 0x80)) << 8);
-    return r;
-  } else {
-    return (uint16_t)(encode_f8(lo, CODE) | (encode_f8(hi, CODE) << 8));
-  }
-}
-
-// Four float8 bytes of type CODE (3-7) decoded into four values of the
-// compute type T (f16 or bf16) for the tensor cores: bytes 0 and 1 as the
-// pair `lo`, 2 and 3 as `hi`, the lower byte in the lower half.  Exact:
-// every value of these formats is one of bfloat16's, and of float16's but
-// for e8m0fnu (the route never pairs the two).  No table: e4m3fn and e5m2
-// by the hardware's conversion to f16x2 (then f16 -> f32 -> bf16 for a
-// bfloat16 T, each step exact: four instructions a pair; a bit-arithmetic
-// decode of nine measured slower); the fnuz formats from their bits as a
-// float32 scaled by a power of two (a float8 subnormal is a float32
-// subnormal there, and the product is not flushed), NaN for their one NaN
-// code 0x80; e8m0fnu
-// (2^(b - 127), 0xff NaN) as bfloat16 bits, byte 0 a bfloat16 subnormal.
-template <typename T, int CODE>
-__device__ __forceinline__ void dec4(uint32_t x, uint32_t& lo, uint32_t& hi) {
-  if constexpr (CODE == 3 || CODE == 4) {
-    uint32_t a, b;
-    if constexpr (CODE == 3)
-      asm("{\n.reg .b16 l, h;\nmov.b32 {l, h}, %2;\n"
-          "cvt.rn.f16x2.e4m3x2 %0, l;\ncvt.rn.f16x2.e4m3x2 %1, h;\n}\n"
-          : "=r"(a), "=r"(b)
-          : "r"(x));
-    else
-      asm("{\n.reg .b16 l, h;\nmov.b32 {l, h}, %2;\n"
-          "cvt.rn.f16x2.e5m2x2 %0, l;\ncvt.rn.f16x2.e5m2x2 %1, h;\n}\n"
-          : "=r"(a), "=r"(b)
-          : "r"(x));
-    if constexpr (kIsF16<T>) {
-      lo = a;
-      hi = b;
-    } else {
-      const float2 fa = __half22float2(*reinterpret_cast<const __half2*>(&a));
-      const float2 fb = __half22float2(*reinterpret_cast<const __half2*>(&b));
-      lo = pack<T>(fa.x, fa.y);
-      hi = pack<T>(fb.x, fb.y);
-    }
-  } else if constexpr (CODE == 5 || CODE == 6) {
-    constexpr int mb = CODE == 5 ? 3 : 2, bias = CODE == 5 ? 8 : 16;
-    // 2^(127 - bias): the float32 read of the magnitude bits is the value
-    // over it
-    const float scale = __uint_as_float((uint32_t)(254 - bias) << 23);
-    float f[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t byte = (x >> (8 * i)) & 0xff;
-      const float m = __fmul_rn(__uint_as_float((byte & 0x7f) << (23 - mb)),
-                                scale);
-      f[i] = byte == 0x80 ? __uint_as_float(0x7fc00000u)
-                          : (byte & 0x80 ? -m : m);
-    }
-    lo = pack<T>(f[0], f[1]);
-    hi = pack<T>(f[2], f[3]);
-  } else {
-    static_assert(CODE == 7 && !kIsF16<T>, "e8m0fnu decodes to bf16 only");
-    uint32_t h[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t byte = (x >> (8 * i)) & 0xff;
-      h[i] = byte == 0 ? 0x0040u : byte == 0xff ? 0x7fc0u : byte << 7;
-    }
-    lo = h[0] | (h[1] << 16);
-    hi = h[2] | (h[3] << 16);
-  }
-}
-
-// Calls f(std::integral_constant<int, CODE>) for the float8 type code
-// `code` that compute type T takes (a branch uniform over the block), so
-// each decoding loop is compiled once a format.
+// Calls f(std::integral_constant<int, CODE>) for a tensor of type code
+// `code` of the simt kernel: T's own code, or for PerTensor `code` (a
+// branch uniform over the block), so each loop over its elements is
+// compiled once a type.
 template <typename T, typename F>
-__device__ __forceinline__ void with_code(int code, F&& f) {
-  switch (code) {
-    case 3: f(std::integral_constant<int, 3>{}); break;
-    case 4: f(std::integral_constant<int, 4>{}); break;
-    case 5: f(std::integral_constant<int, 5>{}); break;
-    case 6: f(std::integral_constant<int, 6>{}); break;
-    default:
-      if constexpr (!kIsF16<T>) f(std::integral_constant<int, 7>{});
-  }
+__device__ __forceinline__ void with_type(int code, F&& f) {
+  if constexpr (kPer<T>) with_any_code(code, f);
+  else f(std::integral_constant<int, kCodeOf<T>>{});
 }
 
-// Element access of the simt kernel: T's own type, or for PerTensor the
-// type `code` names (a float8 byte through its 256-entry table `lut`).
-template <typename T>
-__device__ __forceinline__ int elem_bytes(int code) {
-  if constexpr (kPer<T>) return code_bytes(code);
-  else return (int)sizeof(T);
-}
-template <typename T>
-__device__ __forceinline__ bool is_f32(int code) {
-  if constexpr (kPer<T>) return code == 0;
-  else return std::is_same_v<T, float>;
-}
-template <typename T>
-__device__ __forceinline__ float load_f32(const char* p, int code,
-                                          const float* lut) {
-  if constexpr (kPer<T>) {
-    switch (code) {
-      case 0: return *reinterpret_cast<const float*>(p);
-      case 1: return to_f32(*reinterpret_cast<const bf16*>(p));
-      case 2: return to_f32(*reinterpret_cast<const f16*>(p));
-      default: return lut[*reinterpret_cast<const uint8_t*>(p)];
-    }
-  } else {
-    return to_f32(*reinterpret_cast<const T*>(p));
-  }
-}
-template <typename T>
-__device__ __forceinline__ void store_f32(char* p, int code, float x) {
-  if constexpr (kPer<T>) {
-    switch (code) {
-      case 0: *reinterpret_cast<float*>(p) = x; break;
-      case 1: *reinterpret_cast<bf16*>(p) = from_f32<bf16>(x); break;
-      case 2: *reinterpret_cast<f16*>(p) = from_f32<f16>(x); break;
-      default: *reinterpret_cast<uint8_t*>(p) = encode_f8(x, code);
-    }
-  } else {
-    *reinterpret_cast<T*>(p) = from_f32<T>(x);
-  }
-}
-
-__device__ __forceinline__ bool kept(const Params& p, int qpos, int kpos) {
-  return kpos < p.Sk && (!p.causal || kpos <= qpos) &&
-         (p.window <= 0 || qpos - kpos < p.window);
-}
-
-// First and one-past-last key position that query positions
-// [q_first, q_last] can keep.
-__device__ __forceinline__ void kv_range(const Params& p, int q_first,
-                                         int q_last, int& kbeg, int& kend) {
-  kbeg = 0;
-  kend = p.Sk;
-  if (p.causal) kend = min(kend, q_last + 1);
-  if (p.window > 0) kbeg = max(0, q_first - p.window + 1);
-}
-
-// ------------------------------------------------------- copies and fragments
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// N bytes (4, 8 or 16) from global `src` to shared `dst`, asynchronously;
-// zeros when !ok (then nothing is read).
-template <int N>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         bool ok) {
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-                 "l"(src), "n"(N), "r"(ok ? N : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// waits until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// four 8x8 16-bit matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8, and register i receives matrix i (`.trans`:
-// transposed)
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
+// float32 x stored at p in type CODE, rounded as the reference rounds
+template <int CODE>
+__device__ __forceinline__ void store_as(unsigned char* p, float x) {
+  if constexpr (CODE == 0) *reinterpret_cast<float*>(p) = x;
+  else if constexpr (CODE == 1) *reinterpret_cast<bf16*>(p) = from_f32<bf16>(x);
+  else if constexpr (CODE == 2) *reinterpret_cast<f16*>(p) = from_f32<f16>(x);
+  else *p = encode_f8(x, CODE);
 }
 
 // Thread tid's share of `rows` x `per_row` items, i = tid, tid + kThreads,
@@ -524,50 +228,82 @@ constexpr int kLdP = kBK + 16;    // row stride of P: the two rows a warp
 // 1 KB reserved a block)
 constexpr int kTwoBlocks = 233472 / 2 - 1024;
 constexpr int kSlots = 3;         // the copy ring
-// floats of a ring slot: a K chunk and a streamed Q chunk, or half a V
-// tile (kBK / 2 keys x DC columns)
-template <int DC>
-__host__ __device__ constexpr int slot_floats() {
-  return 2 * kBQ * kLdC > (kBK / 2) * (DC + 4) ? 2 * kBQ * kLdC
-                                               : (kBK / 2) * (DC + 4);
-}
 __host__ __device__ inline int q_cols(int D) {
   return (D + kKC - 1) / kKC * kKC;
 }
-// floats of the raw staging of the 1- and 2-byte inputs, room for 2-byte
-// elements: a K chunk (64 x 32), a streamed Q chunk (64 x 32, from byte
-// kRawQ) and half a V tile at DC = 128 (32 x 128, from byte kRawV).  Each
-// thread converts the copies it issued; K's, Q's and V's copies are laid
-// out differently, so each has its own region, and a thread's next copies
-// never land on bytes another thread has yet to convert.
-constexpr int kRawFloats = 2 * kBK * kKC;
-constexpr int kRawQ = kBK * kKC * 2;
-constexpr int kRawV = 2 * kRawQ;
-// shared memory without Q (the PerTensor kernel adds the float8 tables of
-// q, k and v, 256 floats each), and whether Q (D rounded up to kKC, as
-// float32) stays in shared memory: where two blocks still fit an SM; else
-// its chunks stream through the ring beside K's
-template <typename T, int DC>
-__host__ __device__ constexpr int base_bytes() {
-  return 4 * (kSlots * slot_floats<DC>() + kBQ * kLdP +
-              (std::is_same_v<T, float> ? 0 : kRawFloats) +
-              (kPer<T> ? 3 * 256 : 0));
+
+// A block's shared memory at column chunk DC for head dim D and q's, k's
+// and v's bytes an element (4: float32, which needs no staging), in order:
+//   the ring, kSlots slots of `slot` floats: a K chunk (kBK x kKC, rows
+//     kLdC apart) and, where Q streams, a Q chunk behind it; or half a V
+//     tile (kBK / 2 keys x DC, dense rows: the threads that read a row
+//     read the same row);
+//   P, [kBQ][kLdP] floats;
+//   the raw copies of the 1- and 2-byte inputs, in their own bytes: a K
+//     chunk (from byte raw_k of the region), a streamed Q chunk (raw_q)
+//     and half a V tile (raw_v).  Each thread converts the copies it
+//     issued; K's, Q's and V's copies are laid out differently, so each
+//     has its own region, and a thread's next copies never land on bytes
+//     another thread has yet to convert;
+//   Q (from byte q_off), [kBQ][q_cols(D) + 4] floats converted once a
+//     block (`q_res`), where two blocks still fit an SM with it; else its
+//     chunks stream through the ring beside K's.
+// Resident, Q needs no raw region and the ring's slots no room for its
+// chunks: at D = 128, DC = 128 with 16-bit K and V that is 115,712 bytes,
+// two blocks an SM.
+struct Layout {
+  int slot, raw_k, raw_q, raw_v, q_off, bytes;
+  bool q_res;
+};
+__host__ __device__ inline Layout layout(int DC, int D, int qb, int kb,
+                                         int vb) {
+  const int vhalf = (kBK / 2) * DC;
+  const int rk = kb < 4 ? kBK * kKC * kb : 0;
+  const int rv = vb < 4 ? (kBK / 2) * DC * vb : 0;
+  const int q_bytes = 4 * kBQ * (q_cols(D) + 4);
+  Layout L;
+  L.slot = kBK * kLdC > vhalf ? kBK * kLdC : vhalf;
+  L.q_res = 4 * (kSlots * L.slot + kBQ * kLdP) + rk + rv + q_bytes <=
+            kTwoBlocks;
+  if (!L.q_res && 2 * kBK * kLdC > L.slot) L.slot = 2 * kBK * kLdC;
+  const int rq = L.q_res || qb == 4 ? 0 : kBQ * kKC * qb;
+  L.raw_k = 0;
+  L.raw_q = rk;
+  L.raw_v = rk + rq;
+  L.q_off = 4 * (kSlots * L.slot + kBQ * kLdP) + rk + rq + rv;
+  L.bytes = L.q_off + (L.q_res ? q_bytes : 0);
+  return L;
 }
-template <typename T, int DC>
-__host__ __device__ inline bool q_resident(int D) {
-  return base_bytes<T, DC>() + 4 * kBQ * (q_cols(D) + 4) <= kTwoBlocks;
+
+// log2 of a power of two, at compile time
+__host__ __device__ constexpr int log2i(int x) {
+  return x > 1 ? 1 + log2i(x / 2) : 0;
 }
-template <typename T, int DC>
-size_t smem_bytes(int D) {
-  return base_bytes<T, DC>() +
-         (q_resident<T, DC>(D) ? 4 * kBQ * (q_cols(D) + 4) : 0);
+
+// The row r and column c of item i of a block `cols` wide, `vec` columns
+// an item: by shifts where COLS, the block's width (a power of two, as vec
+// is), is known at compile time, as for the blocks of every step; by a
+// division otherwise (COLS = 0: Q's D columns, once a block).
+template <int COLS>
+__device__ __forceinline__ void item_at(int i, int cols, int vec, int& r,
+                                        int& c) {
+  if constexpr (COLS > 0) {
+    const int lv = __ffs(vec) - 1, sh = log2i(COLS) - lv;
+    r = i >> sh;
+    c = (i & ((1 << sh) - 1)) << lv;
+  } else {
+    const int per_row = cols / vec;
+    r = i / per_row;
+    c = (i - r * per_row) * vec;
+  }
 }
 
 // Copies the rows x cols block at columns [col0, col0 + cols) of a float32
 // tensor (row r, column c at src + r * ss + c * sd) into dst (row stride ld)
 // by cp.async: 16 bytes a copy when vec4 (column stride 1, start, strides
 // and D multiples of 4 elements), else 4; rows from `valid` and columns from
-// D on are zeros.
+// D on are zeros.  (Indexed by `item_at`'s shifts this measured slower
+// in simt<float>: the division stays.)
 __device__ __forceinline__ void copy_f32(float* dst, int ld, const float* src,
                                          int64_t ss, int64_t sd, int rows,
                                          int cols, int valid, int col0, int D,
@@ -590,74 +326,105 @@ __device__ __forceinline__ void copy_f32(float* dst, int ld, const float* src,
   }
 }
 
-// The same block of a tensor of 1- or 2-byte elements (type `code`, `eb`
-// bytes an element, at byte address src), converted on its way into
-// shared memory.  Where `vec` elements make a copy of 16, 8 or 4 bytes
-// (column stride 1, start, strides and D multiples of it) `copy_raw`
-// brings the raw block into `raw` (rows x cols elements, dense) by
-// cp.async, and `convert_raw`, once this thread's copies have landed,
-// writes the elements it copied into dst as float32: no registers hold the
-// block in between.  Otherwise (any strides) `convert_raw` loads element by
-// element from src itself.  Rows from `valid` and columns from D on are
-// zeros.
-__device__ __forceinline__ void copy_raw(char* raw, const char* src,
-                                         int64_t ss, int rows, int cols,
-                                         int valid, int col0, int D, int vec,
-                                         int eb, int tid) {
-  const int bytes = vec * eb;
-  if (bytes < 4) return;
-  const int per_row = cols / vec;
-  for (int i = tid; i < rows * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * vec, col = col0 + c;
-    const bool ok = r < valid && col < D;
-    const char* g = ok ? src + (r * ss + col) * eb : src;
-    const uint32_t d = smem_u32(raw + (r * cols + c) * eb);
-    if (bytes == 16) cp_async<16>(d, g, ok);
-    else if (bytes == 8) cp_async<8>(d, g, ok);
-    else cp_async<4>(d, g, ok);
-  }
+// Calls f(std::integral_constant<int, N>) for a copy of `bytes` = 16, 8 or
+// 4, so each loop over copies is compiled for its size.
+template <typename F>
+__device__ __forceinline__ void with_copy_bytes(int bytes, F&& f) {
+  if (bytes == 16) f(std::integral_constant<int, 16>{});
+  else if (bytes == 8) f(std::integral_constant<int, 8>{});
+  else f(std::integral_constant<int, 4>{});
 }
-template <typename T>
-__device__ __forceinline__ void convert_raw(float* dst, int ld,
-                                            const char* raw, const char* src,
-                                            int64_t ss, int64_t sd, int rows,
-                                            int cols, int valid, int col0,
-                                            int D, int vec, int eb, int code,
-                                            const float* lut, int tid) {
-  if (vec * eb < 4) {
+
+// The same block of a tensor of 1- or 2-byte elements (`eb` bytes an
+// element, at byte address src), converted on its way into shared memory.
+// Where `vec` elements make a copy of 16, 8 or 4 bytes (column stride 1,
+// start, strides and D multiples of it) `copy_raw` brings the raw block
+// into `raw` (rows x cols elements, dense) by cp.async, and `convert`,
+// once this thread's copies have landed, writes the elements it copied
+// into dst as float32: no registers hold the block in between.  Otherwise
+// (any strides) `convert` loads element by element from src itself.
+// Rows from `valid` and columns from D on are zeros.  Both loops are
+// compiled for the copy's size.
+template <int COLS>
+__device__ __forceinline__ void copy_raw(unsigned char* raw,
+                                         const unsigned char* src, int64_t ss,
+                                         int rows, int cols, int valid,
+                                         int col0, int D, int vec, int eb,
+                                         int tid) {
+  if (vec * eb < 4) return;
+  with_copy_bytes(vec * eb, [&](auto nv) {
+    constexpr int N = decltype(nv)::value;
+    for (int i = tid; i < rows * cols / vec; i += kThreads) {
+      int r, c;
+      item_at<COLS>(i, cols, vec, r, c);
+      const int col = col0 + c;
+      const bool ok = r < valid && col < D;
+      cp_async<N>(smem_u32(raw + (r * cols + c) * eb),
+                  ok ? src + (r * ss + col) * eb : src, ok);
+    }
+  });
+}
+// The block in type CODE (1-7) as float32 into dst: each copy of `vec`
+// elements that this thread issued decoded from `raw` (or, where raw is
+// null, read from src itself in the same pieces: Q, once a block) and
+// stored 16 bytes at a time (`store_decoded`); element by element from src
+// where no copy of 4 bytes or more takes the layout.  One loop a type and
+// copy size: no test of either, and no table, inside.  (Four copies'
+// loads in flight before the first store measured slower: more
+// registers, no latency to hide.)
+template <int CODE, int COLS>
+__device__ __forceinline__ void convert(float* dst, int ld,
+                                        const unsigned char* raw,
+                                        const unsigned char* src, int64_t ss,
+                                        int64_t sd, int rows, int cols,
+                                        int valid, int col0, int D, int vec,
+                                        int tid) {
+  constexpr int EB = kBytes<CODE>;
+  if (vec * EB < 4) {
     for (int i = tid; i < rows * cols; i += kThreads) {
-      const int r = i / cols, c = i - r * cols, col = col0 + c;
-      dst[r * ld + c] =
-          r < valid && col < D
-              ? load_f32<T>(src + (r * ss + (int64_t)col * sd) * eb, code, lut)
-              : 0.f;
+      int r, c;
+      item_at<COLS>(i, cols, 1, r, c);
+      const int col = col0 + c;
+      float x = 0.f;
+      if (r < valid && col < D) {
+        const unsigned char* e = src + (r * ss + (int64_t)col * sd) * EB;
+        x = dec1<CODE>(EB == 2 ? *reinterpret_cast<const uint16_t*>(e) : *e);
+      }
+      dst[r * ld + c] = x;
     }
     return;
   }
-  const int per_row = cols / vec;
-  for (int i = tid; i < rows * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * vec;
-    const bool ok = r < valid && col0 + c < D;  // a copy lies in D or past
-    const char* x = raw + (r * cols + c) * eb;
-    for (int e = 0; e < vec; ++e)
-      dst[r * ld + c + e] = ok ? load_f32<T>(x + e * eb, code, lut) : 0.f;
-  }
+  with_copy_bytes(vec * EB, [&](auto nv) {
+    constexpr int N = decltype(nv)::value;
+    for (int i = tid; i < rows * cols / vec; i += kThreads) {
+      int r, c;
+      item_at<COLS>(i, cols, vec, r, c);
+      const bool ok = r < valid && col0 + c < D;  // in D or past, whole
+      store_decoded<CODE, N>(
+          dst + r * ld + c,
+          ok ? load_copy<N>(raw ? raw + (r * cols + c) * EB
+                                : src + (r * ss + col0 + c) * EB)
+             : make_uint4(0, 0, 0, 0),
+          ok);
+    }
+  });
 }
 
 // Brings a block of a tensor of type `code` toward its float32 slot `dst`:
 // float32 straight into it, 1- and 2-byte types into `raw` (`land` then
 // converts them).
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, char* raw,
-                                      const char* src, int64_t ss, int64_t sd,
-                                      int rows, int cols, int valid, int col0,
-                                      int D, int vec, int eb, int code,
+template <int COLS>
+__device__ __forceinline__ void stage(float* dst, int ld, unsigned char* raw,
+                                      const unsigned char* src, int64_t ss,
+                                      int64_t sd, int rows, int valid,
+                                      int col0, int D, int vec, int code,
                                       int tid) {
-  if (is_f32<T>(code))
-    copy_f32(dst, ld, reinterpret_cast<const float*>(src), ss, sd, rows, cols,
-             valid, col0, D, vec == 4, tid);
+  if (code == 0)
+    copy_f32(dst, ld, reinterpret_cast<const float*>(src), ss, sd, rows,
+             COLS, valid, col0, D, vec == 4, tid);
   else
-    copy_raw(raw, src, ss, rows, cols, valid, col0, D, vec, eb, tid);
+    copy_raw<COLS>(raw, src, ss, rows, COLS, valid, col0, D, vec,
+                   code_bytes(code), tid);
 }
 }  // namespace simt
 
@@ -672,44 +439,37 @@ __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_simt(const Params p) {
   using namespace simt;
   constexpr bool kF32 = std::is_same_v<T, float>;
-  constexpr int kSlot = slot_floats<DC>();
   constexpr int kCols = DC / 16;          // O columns a thread holds
-  constexpr int kLdV = DC + 4;
+  constexpr int kLdV = DC;
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;                     // [kSlots][kSlot]
-  float* Ps = ring + kSlots * kSlot;      // [kBQ][kLdP]
-  char* raw = reinterpret_cast<char*>(Ps + kBQ * kLdP);  // 1- and 2-byte
-  float* luts = Ps + kBQ * kLdP + (kF32 ? 0 : kRawFloats);  // [3][256]
-  float* Qs = luts + (kPer<T> ? 3 * 256 : 0);  // [kBQ][dq + 4], resident
 
   // each tensor's type code and element bytes (constants but for
-  // PerTensor), and its float8 table in shared memory
-  const int qt = kPer<T> ? p.q_type : 0, kt = kPer<T> ? p.k_type : 0,
-            vt = kPer<T> ? p.v_type : 0, ot = kPer<T> ? p.o_type : 0;
-  const int qb = elem_bytes<T>(qt), kb = elem_bytes<T>(kt),
-            vb = elem_bytes<T>(vt), ob = elem_bytes<T>(ot);
-  const float *lq = luts, *lk = luts + 256, *lv = luts + 512;
+  // PerTensor)
+  const int qt = kPer<T> ? p.q_type : kCodeOf<T>,
+            kt = kPer<T> ? p.k_type : kCodeOf<T>,
+            vt = kPer<T> ? p.v_type : kCodeOf<T>,
+            ot = kPer<T> ? p.o_type : kCodeOf<T>;
+  const int qb = code_bytes(qt), kb = code_bytes(kt), vb = code_bytes(vt);
   const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;
-  if constexpr (kPer<T>) {
-    const int codes[3] = {qt, kt, vt};
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-      if (codes[t] >= 3)
-        for (int i = tid; i < 256; i += kThreads)
-          luts[t * 256 + i] = p.lut[t][i];
-    __syncthreads();
-  }
-
   const int D = p.D, dq = q_cols(D), nkc = dq / kKC;
-  const bool q_res = q_resident<T, DC>(D);
+  const Layout L = layout(DC, D, qb, kb, vb);
+  const int kSlot = L.slot;
+  const bool q_res = L.q_res;
+  float* ring = smem;                     // [kSlots][kSlot]
+  float* Ps = ring + kSlots * kSlot;      // [kBQ][kLdP]
+  unsigned char* raw = reinterpret_cast<unsigned char*>(Ps + kBQ * kLdP);
+  float* Qs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) +
+                                       L.q_off);  // [kBQ][dq + 4], resident
   const int ldq = q_res ? dq + 4 : kLdC;
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const char* q = (const char*)p.q + (b * p.q_sb + h * p.q_sh) * qb;
-  const char* k = (const char*)p.k + (b * p.k_sb + hk * p.k_sh) * kb;
-  const char* v = (const char*)p.v + (b * p.v_sb + hk * p.v_sh) * vb;
-  char* o = (char*)p.o + (b * p.o_sb + h * p.o_sh) * ob;
+  const unsigned char* q =
+      (const unsigned char*)p.q + (b * p.q_sb + h * p.q_sh) * qb;
+  const unsigned char* k =
+      (const unsigned char*)p.k + (b * p.k_sb + hk * p.k_sh) * kb;
+  const unsigned char* v =
+      (const unsigned char*)p.v + (b * p.v_sb + hk * p.v_sh) * vb;
 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // last tile first
   const int c0 = blockIdx.z * DC;
@@ -722,64 +482,74 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int spt = nkc + 2, n_steps = n_tiles * spt;
 
   // the first row of each tensor's block
-  const char* qrow = q + q0 * p.q_ss * qb;
+  const unsigned char* qrow = q + q0 * p.q_ss * qb;
 
-  // Q, converted to float32 and kept whole when it fits
-  if (q_res) {
-    if (is_f32<T>(qt)) {
-      copy_f32(Qs, ldq, reinterpret_cast<const float*>(qrow), p.q_ss, p.q_sd,
-               kBQ, dq, p.Sq - q0, 0, D, p.q_vec == 4, tid);
-    } else {
-      for (int i = tid; i < kBQ * dq; i += kThreads) {
-        const int r = i / dq, c = i - r * dq;
-        Qs[r * ldq + c] =
-            q0 + r < p.Sq && c < D
-                ? load_f32<T>(qrow + (r * p.q_ss + c * p.q_sd) * qb, qt, lq)
-                : 0.f;
-      }
-    }
-  }
+  // Q, converted to float32 once and kept whole when it fits (a float32
+  // Q by cp.async, in the first copy group)
+  if (q_res)
+    with_type<T>(qt, [&](auto cv) {
+      constexpr int CODE = decltype(cv)::value;
+      if constexpr (CODE == 0)
+        copy_f32(Qs, ldq, reinterpret_cast<const float*>(qrow), p.q_ss,
+                 p.q_sd, kBQ, dq, p.Sq - q0, 0, D, p.q_vec == 4, tid);
+      else
+        convert<CODE, 0>(Qs, ldq, nullptr, qrow, p.q_ss, p.q_sd, kBQ, dq,
+                         p.Sq - q0, 0, D, p.q_vec, tid);
+    });
 
-  // issues the copies of step j: float32 into its slot, 1- and 2-byte
+  // A step is named by its tile, its place r in the tile (nkc steps of
+  // Q K^T, then two of P V) and its ring slot.
+  // issues the copies of a step: float32 into its slot, 1- and 2-byte
   // types raw into the staging
-  auto issue = [&](int j) {
-    float* slot = ring + (j % kSlots) * kSlot;
-    const int tile = j / spt, r = j - tile * spt;
+  auto issue = [&](int tile, int r, float* slot)
+                   __attribute__((always_inline)) {
     const int k0 = (t_first + tile) * kBK;
     if (r < nkc) {
-      stage<T>(slot, kLdC, raw, k + k0 * p.k_ss * kb, p.k_ss, p.k_sd, kBK,
-               kKC, p.Sk - k0, r * kKC, D, p.k_vec, kb, kt, tid);
+      stage<kKC>(slot, kLdC, raw + L.raw_k, k + k0 * p.k_ss * kb, p.k_ss,
+                 p.k_sd, kBK, p.Sk - k0, r * kKC, D, p.k_vec, kt, tid);
       if (!q_res)
-        stage<T>(slot + kBK * kLdC, kLdC, raw + kRawQ, qrow, p.q_ss, p.q_sd,
-                 kBQ, kKC, p.Sq - q0, r * kKC, D, p.q_vec, qb, qt, tid);
+        stage<kKC>(slot + kBK * kLdC, kLdC, raw + L.raw_q, qrow, p.q_ss,
+                   p.q_sd, kBQ, p.Sq - q0, r * kKC, D, p.q_vec, qt, tid);
     } else {
       const int kv0 = k0 + (r - nkc) * (kBK / 2);
-      stage<T>(slot, kLdV, raw + kRawV, v + kv0 * p.v_ss * vb, p.v_ss,
-               p.v_sd, kBK / 2, DC, p.Sk - kv0, c0, D, p.v_vec, vb, vt, tid);
+      stage<DC>(slot, kLdV, raw + L.raw_v, v + kv0 * p.v_ss * vb, p.v_ss,
+                p.v_sd, kBK / 2, p.Sk - kv0, c0, D, p.v_vec, vt, tid);
     }
   };
-  // once this thread's copies of step j have landed, converts the 1- and
-  // 2-byte ones into the step's slot
-  auto land = [&](int j) {
+  // once this thread's copies of a step have landed, converts the 1- and
+  // 2-byte ones into the step's slot, each tensor by the loop of its type
+  // (inlined: as a call it saved the live registers on the stack and
+  // the PerTensor kernel ran slower)
+  auto land = [&](int tile, int r, float* slot)
+                  __attribute__((always_inline)) {
     if constexpr (!kF32) {
       cp_wait<0>();
-      float* slot = ring + (j % kSlots) * kSlot;
-      const int tile = j / spt, r = j - tile * spt;
       const int k0 = (t_first + tile) * kBK;
       if (r < nkc) {
-        if (!is_f32<T>(kt))
-          convert_raw<T>(slot, kLdC, raw, k + k0 * p.k_ss * kb, p.k_ss,
-                         p.k_sd, kBK, kKC, p.Sk - k0, r * kKC, D, p.k_vec, kb,
-                         kt, lk, tid);
-        if (!q_res && !is_f32<T>(qt))
-          convert_raw<T>(slot + kBK * kLdC, kLdC, raw + kRawQ, qrow, p.q_ss,
-                         p.q_sd, kBQ, kKC, p.Sq - q0, r * kKC, D, p.q_vec, qb,
-                         qt, lq, tid);
-      } else if (!is_f32<T>(vt)) {
+        with_type<T>(kt, [&](auto cv) {
+          constexpr int CODE = decltype(cv)::value;
+          if constexpr (CODE != 0)
+            convert<CODE, kKC>(slot, kLdC, raw + L.raw_k,
+                               k + k0 * p.k_ss * kb, p.k_ss, p.k_sd, kBK,
+                               kKC, p.Sk - k0, r * kKC, D, p.k_vec, tid);
+        });
+        if (!q_res)
+          with_type<T>(qt, [&](auto cv) {
+            constexpr int CODE = decltype(cv)::value;
+            if constexpr (CODE != 0)
+              convert<CODE, kKC>(slot + kBK * kLdC, kLdC, raw + L.raw_q,
+                                 qrow, p.q_ss, p.q_sd, kBQ, kKC, p.Sq - q0,
+                                 r * kKC, D, p.q_vec, tid);
+          });
+      } else {
         const int kv0 = k0 + (r - nkc) * (kBK / 2);
-        convert_raw<T>(slot, kLdV, raw + kRawV, v + kv0 * p.v_ss * vb, p.v_ss,
-                       p.v_sd, kBK / 2, DC, p.Sk - kv0, c0, D, p.v_vec, vb,
-                       vt, lv, tid);
+        with_type<T>(vt, [&](auto cv) {
+          constexpr int CODE = decltype(cv)::value;
+          if constexpr (CODE != 0)
+            convert<CODE, DC>(slot, kLdV, raw + L.raw_v,
+                              v + kv0 * p.v_ss * vb, p.v_ss, p.v_sd, kBK / 2,
+                              DC, p.Sk - kv0, c0, D, p.v_vec, tid);
+        });
       }
     }
   };
@@ -795,18 +565,27 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float sl2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
   const float kMinusInf = __int_as_float(0xff800000);
 
-  if (n_steps > 0) issue(0);
+  if (n_steps > 0) issue(0, 0, ring);
   cp_commit();
-  if (n_steps > 0) land(0);  // after the commit: a wait sees only groups
+  if (n_steps > 0) land(0, 0, ring);  // after the commit: a wait sees
+                                      // only groups
   // One barrier a step: step j + 1's copies go into the slot of step
   // j - 2, which every thread has left once it passed step j - 1's barrier.
+  // They are issued before step j's products and converted after them,
+  // when they have had the step's time to land.  Step j is (tile, r) in
+  // slot `cur`; the next step's indices are stepped, not divided.
+  int tile = 0, r = 0, cur = 0;
   for (int j = 0; j < n_steps; ++j) {
-    if (j + 1 < n_steps) issue(j + 1);
+    const bool more = j + 1 < n_steps;
+    const int nxt = cur == kSlots - 1 ? 0 : cur + 1;
+    const int ntile = r + 1 == spt ? tile + 1 : tile;
+    const int nr = r + 1 == spt ? 0 : r + 1;
+    float* next = ring + nxt * kSlot;
+    if (more) issue(ntile, nr, next);
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const float* slot = ring + (j % kSlots) * kSlot;
-    const int tile = j / spt, r = j - tile * spt;
+    const float* slot = ring + cur * kSlot;
     const int k0 = (t_first + tile) * kBK;
     if (r < nkc) {
       // S += Q K^T over D columns [32 r, 32 r + 32)
@@ -881,8 +660,8 @@ __global__ void __launch_bounds__(kThreads, 2)
           float2 vv[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            vv[e] = *reinterpret_cast<const float2*>(slot + (kk + e) * kLdV +
-                                                     2 * kg);
+            vv[e] = *reinterpret_cast<const float2*>(
+                slot + (kk + e) * kLdV + 2 * kg);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const float4 pv = *reinterpret_cast<const float4*>(
@@ -921,27 +700,37 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
     }
-    if (j + 1 < n_steps) land(j + 1);
+    if (more) land(ntile, nr, next);
+    tile = ntile;
+    r = nr;
+    cur = nxt;
   }
   cp_wait<0>();
 
+  // the output in o's type, the rounding compiled once a type
+  with_type<T>(ot, [&](auto cv) {
+    constexpr int CODE = decltype(cv)::value;
+    unsigned char* o = (unsigned char*)p.o +
+                       (b * p.o_sb + h * p.o_sh) * kBytes<CODE>;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float tot = l[i];
+    for (int i = 0; i < 8; ++i) {
+      float tot = l[i];
 #pragma unroll
-    for (int sh = 8; sh > 0; sh >>= 1) tot += __shfl_xor_sync(kFull, tot, sh);
-    const float inv = 1.f / (tot == 0.f ? 1.f : tot);
-    const int row = q0 + rg + 8 * i;
-    if (row >= p.Sq) continue;
+      for (int sh = 8; sh > 0; sh >>= 1)
+        tot += __shfl_xor_sync(kFull, tot, sh);
+      const float inv = 1.f / (tot == 0.f ? 1.f : tot);
+      const int row = q0 + rg + 8 * i;
+      if (row >= p.Sq) continue;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = c0 + (kCols == 2 ? 2 * kg + c
-                                       : 64 * (c / 4) + 4 * kg + c % 4);
-      if (col < D)
-        store_f32<T>(o + (row * p.o_ss + col * p.o_sd) * ob, ot,
-                     acc[i][c] * inv);
+      for (int c = 0; c < kCols; ++c) {
+        const int col = c0 + (kCols == 2 ? 2 * kg + c
+                                         : 64 * (c / 4) + 4 * kg + c % 4);
+        if (col < D)
+          store_as<CODE>(o + (row * p.o_ss + col * p.o_sd) * kBytes<CODE>,
+                         acc[i][c] * inv);
+      }
     }
-  }
+  });
 }
 
 // --------------------------------- float16 / bfloat16 tensor cores, mma.sync
@@ -1514,10 +1303,6 @@ constexpr size_t smem_bytes() {
 }
 }  // namespace wg
 
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Decodes ROWS rows of a float8 tile of type `code` as the TMA brought it
 // (box c of 64 columns at raw + RAW_PANEL c, 64 bytes a row) into the
 // 16-bit tile that the wgmma descriptors read (panel c at dst + DST_PANEL
@@ -1566,118 +1351,6 @@ __device__ __noinline__ void decode_q_rows(unsigned char* dst,
   decode_tile<T, PANELS, 64, wg::kBQ * wg::kPanelRow, wg::kBQ * 64>(
       dst, raw, code, D, tid);
 }
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`.  A
-// wait that never ends is a fault of the pipeline: after 2^22 polls
-// (seconds) the block traps, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 22)) __trap();
-  }
-}
-
-// One 64-column panel of a tile: box (64, rows) of a 4-d tensor map
-// (D, S, heads, B) at (col, row, head, b), into 128-byte swizzled rows.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row,
-                                         int head, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row), "r"(head), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands
-// (Q, K): rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the
-// leading offset is unused.  MN-major (V read transposed): 8-key groups
-// 1024 bytes apart (SBO), 64-column panels `lbo` bytes apart.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins reads and writes of an accumulator after the wait that made it
-// valid: the compiler sees each register as rewritten here.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// The accumulator operands of a wgmma: N/2 floats a thread ("+f"), and
-// the matching placeholders %0 ... of the instruction's first operand.
-#define FLASH_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define FLASH_F16(i) FLASH_F4(i), FLASH_F4(i + 4), FLASH_F4(i + 8), \
-                     FLASH_F4(i + 12)
-#define FLASH_F32(i) FLASH_F16(i), FLASH_F16(i + 16)
-#define FLASH_F64(i) FLASH_F32(i), FLASH_F32(i + 32)
-#define FLASH_F128(i) FLASH_F64(i), FLASH_F64(i + 64)
-#define FLASH_R32                                  \
-  "%0, %1, %2, %3, %4, %5, %6, %7, "               \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "         \
-  "%16, %17, %18, %19, %20, %21, %22, %23, "       \
-  "%24, %25, %26, %27, %28, %29, %30, %31"
-#define FLASH_R64                                  \
-  FLASH_R32 ", "                                   \
-  "%32, %33, %34, %35, %36, %37, %38, %39, "       \
-  "%40, %41, %42, %43, %44, %45, %46, %47, "       \
-  "%48, %49, %50, %51, %52, %53, %54, %55, "       \
-  "%56, %57, %58, %59, %60, %61, %62, %63"
-#define FLASH_R128                                 \
-  FLASH_R64 ", "                                   \
-  "%64, %65, %66, %67, %68, %69, %70, %71, "       \
-  "%72, %73, %74, %75, %76, %77, %78, %79, "       \
-  "%80, %81, %82, %83, %84, %85, %86, %87, "       \
-  "%88, %89, %90, %91, %92, %93, %94, %95, "       \
-  "%96, %97, %98, %99, %100, %101, %102, %103, "   \
-  "%104, %105, %106, %107, %108, %109, %110, %111, " \
-  "%112, %113, %114, %115, %116, %117, %118, %119, " \
-  "%120, %121, %122, %123, %124, %125, %126, %127"
 
 // S (64 x N, f32) (+)= A (64 x 16) B (N x 16)^T in T (f16 or bf16), A and
 // B in shared memory, both K-major; `accumulate` = 0 overwrites S.
@@ -2177,68 +1850,6 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
 
 // ----------------------------------------------------------------- launch
 
-template <typename Kernel>
-int set_smem(Kernel kernel, bool& attr_set, size_t smem) {
-  if (attr_set) return 0;  // once per kernel, before any graph capture
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attr_set = true;
-  return 0;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's tensor-map encoder, found in the libcuda the process has
-// loaded (this library links no libcuda of its own).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(
-          dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// A tensor (B, heads, S, D) of type `code` (1 bfloat16, 2 float16, 3-7
-// float8) with element strides sb, sh, ss as the 4-d map (D, S, heads, B);
-// boxes of 64 columns x `rows`, columns past D and rows past S read as
-// zeros.  A 16-bit tensor lands in the 128-byte swizzle the wgmma
-// descriptors read; a float8 one as raw bytes (UINT8, no swizzle: 64
-// bytes a row), which the producer decodes.  A dimension of size 1
-// (stride 0 here) gets the stride of a dense layout.
-bool encode(CUtensorMap* map, const void* base, int code, int D, int S,
-            int heads, int B, int64_t sb, int64_t sh, int64_t ss, int rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const int eb = code_bytes(code);
-  if (S == 1) ss = D;
-  if (heads == 1) sh = ss * S;
-  if (B == 1) sb = sh * heads;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(ss * eb), (cuuint64_t)(sh * eb),
-                                 (cuuint64_t)(sb * eb)};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map,
-             code == 1   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-             : code == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                         : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-             4, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE,
-             eb == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int DC>
 int launch_simt(const Params& p, cudaStream_t stream) {
   static bool attr = false;
@@ -2246,8 +1857,10 @@ int launch_simt(const Params& p, cudaStream_t stream) {
   if (e) return e;
   const dim3 grid(p.B * p.H, (p.Sq + simt::kBQ - 1) / simt::kBQ,
                   (p.D + DC - 1) / DC);
-  flash_fwd_simt<T, DC>
-      <<<grid, kThreads, simt::smem_bytes<T, DC>(p.D), stream>>>(p);
+  const simt::Layout L =
+      simt::layout(DC, p.D, code_bytes(p.q_type), code_bytes(p.k_type),
+                   code_bytes(p.v_type));
+  flash_fwd_simt<T, DC><<<grid, kThreads, L.bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -2373,22 +1986,6 @@ int launch_per_tensor(const Params& p, int width, cudaStream_t st) {
   }
 }
 
-// The compute type of the tensor cores for q, k and v of type codes
-// `types` (the wrapper's `compute_type`): 2 (float16) where some is
-// float16 and each other float16 or a float8 format but e8m0fnu; 1
-// (bfloat16) where none is float16 or float32; -1 (none) otherwise.
-int compute_code(const int* types) {
-  bool f16 = false, bf16 = false, e8m0 = false;
-  for (int i = 0; i < 3; ++i) {
-    if (types[i] == 0) return -1;
-    f16 = f16 || types[i] == 2;
-    bf16 = bf16 || types[i] == 1;
-    e8m0 = e8m0 || types[i] == 7;
-  }
-  if (f16) return bf16 || e8m0 ? -1 : 2;
-  return 1;
-}
-
 bool copy_ok(int vec, int D, int64_t sd, int type) {
   return vec == 1 ||
          ((vec == 2 || vec == 4 || vec == 8 || vec == 16) && D % vec == 0 &&
@@ -2399,13 +1996,13 @@ bool copy_ok(int vec, int D, int64_t sd, int type) {
 // q (B,H,Sq,D), k and v (B,Hkv,Sk,D), o (B,H,Sq,D), each addressed by its
 // element strides (batch, head, row, column; `strides` holds 16 of them in
 // the order q, k, v, o), on the current device; `vecs` holds q's, k's, v's
-// and o's elements a copy and `types` their type codes (see Params); `luts`
-// q's, k's and v's float8 tables (null for one that is not float8).
+// and o's elements a copy and `types` their type codes (see Params).
 // variant:
 //   0 = simt, float32 FMA: float32 at any D (width 32, 64 or 128: the
 //       output columns a block computes, D beyond it split over the grid),
 //       16-bit types at D > 256 (width 128), and (PerTensor, width 32, 64
-//       or 128) any other types: a float8 tensor or a mix; any strides;
+//       or 128) any other types: a float8 tensor or a mix with float32,
+//       or the tf32 sets (flash_tf32.cu) off its route; any strides;
 //   1 = mma.sync: q, k, v of one compute type (`compute_code`: one
 //       16-bit type, or float8 beside it or alone) and o of q's, D <= width
 //       (32, 64, 96, 112, 128, 160, 192 or 256), any strides;
@@ -2421,8 +2018,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Hkv, int Sq, int Sk, int D,
                                       const int64_t* strides, const int* vecs,
                                       int causal, int window, float scale,
-                                      const int* types,
-                                      const float* const* luts, int variant,
+                                      const int* types, int variant,
                                       int width, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 ||
       window < 0 || D < 1 || variant < 0 || variant > 2 ||
@@ -2430,9 +2026,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   bool one_type = true;
   for (int i = 0; i < 4; ++i) {
-    if (types[i] < 0 || types[i] > 7 ||
-        (i < 3 && types[i] >= 3 && luts[i] == nullptr))
-      return (int)cudaErrorInvalidValue;
+    if (types[i] < 0 || types[i] > 7) return (int)cudaErrorInvalidValue;
     one_type = one_type && types[i] == types[0];
   }
   const int64_t* s = strides;
@@ -2442,7 +2036,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                  s[4],    s[5],     s[6],     s[7],     s[8],     s[9],
                  s[10],   s[11],    s[12],    s[13],    s[14],    s[15],
                  vecs[0], vecs[1],  vecs[2],  vecs[3],  types[0], types[1],
-                 types[2], types[3], {luts[0], luts[1], luts[2]}};
+                 types[2], types[3]};
   if (!copy_ok(p.q_vec, D, p.q_sd, p.q_type) ||
       !copy_ok(p.k_vec, D, p.k_sd, p.k_type) ||
       !copy_ok(p.v_vec, D, p.v_sd, p.v_type) ||
@@ -2458,9 +2052,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
   if (variant == 0) return launch_per_tensor(p, width, st);
   // the tensor cores, some input decoded from float8: where the types
-  // have a compute type and the output is q's
+  // have a 16-bit compute type and the output is q's
   const int c = compute_code(types);
-  if (c < 0 || types[3] != types[0]) return (int)cudaErrorInvalidValue;
+  if (c < 1 || c > 2 || types[3] != types[0])
+    return (int)cudaErrorInvalidValue;
   return c == 1 ? launch_tc<bf16, true>(p, variant, width, st)
                 : launch_tc<f16, true>(p, variant, width, st);
 }

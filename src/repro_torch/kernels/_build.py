@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`.
 Builds happen at first use, never at import, into `build/repro_torch/`
 at the root of the checkout (listed in `.gitignore`).  The library's
-file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.
+file name carries a hash of the source, the headers of `csrc/` it
+includes (`#include "..."`) and the flags, so an edited source or header
+is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -42,9 +44,23 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(path: pathlib.Path,
+             seen: list[pathlib.Path]) -> list[pathlib.Path]:
+    """`path` and the headers of `csrc/` it includes, recursively, each
+    once, in the order first met."""
+    if path not in seen:
+        seen.append(path)
+        for inc in re.findall(rb'^\s*#include\s+"([^"]+)"',
+                              path.read_bytes(), re.M):
+            _sources(CSRC / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu", []):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

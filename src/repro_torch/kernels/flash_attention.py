@@ -14,37 +14,42 @@ memory order (`torch.empty_like(q)`): the (B,H,S,D) view of a (B,S,H,D)
 q gets the (B,H,S,D) view of a (B,S,H,D) output.
 
 On CUDA tensors it launches a hand-written kernel of
-`csrc/flash_attention.cu` (on the current stream, without synchronising),
-the one `route(q, k, v)` names: `variant(C, D, tma)` for the compute type
-C = `compute_type(q, k, v)` of the tensor cores, "simt" where there is
-none; at the width `width(name, D)` picks from its compiled ones
-(WIDTHS).  C is float16 where some operand is float16 and each other
-float16 or a float8 format but e8m0fnu, bfloat16 where none is float16
-or float32 (bfloat16 and the float8 formats), none otherwise (float32
-anywhere, bfloat16 beside float16, float16 beside e8m0fnu): every float8
-value decodes exactly into C, so the tensor cores compute what the
-Pallas kernel computes in float32 but for the order of the sums and P
-rounded to C before P V, as for one 16-bit type.
+`csrc/flash_attention.cu` or `csrc/flash_tf32.cu` (on the current stream,
+without synchronising), the one `route(q, k, v)` names: `variant(C, D,
+tma)` for the compute type C = `compute_type(q, k, v)` of the tensor
+cores, "simt" where there is none; at the width `width(name, D)` picks
+from its compiled ones (WIDTHS).  C is float16 where some operand is
+float16 and each other float16 or a float8 format but e8m0fnu, bfloat16
+where none is float16 or float32 (bfloat16 and the float8 formats), tf32
+(`TF32`) where some is float16 beside bfloat16 or e8m0fnu and none is
+float32, none where some is float32: every operand decodes exactly into
+C, so the tensor cores compute what the Pallas kernel computes in
+float32 but for the order of the sums and P rounded to C before P V
+(`ref.round_tf32` for tf32), as for one 16-bit type.
 
-  "wgmma"  C exists, D % 8 == 0, D <= 256, on layouts the TMA takes
+  "wgmma"  C 16-bit, D % 8 == 0, D <= 256, on layouts the TMA takes
            (`tma_layout`, each tensor in its own bytes): TMA, mbarrier
            ring and warpgroup MMA at width 64, 128 or 256; a D below its
            width runs on TMA's zero fill of the columns past D; a float8
            operand comes raw and the producer warps decode it into C.
            Bound by the tensor cores' rate (and, below D = 64, by the
            exponentials' rate);
-  "mma"    C exists, D <= 256 otherwise (D % 8 != 0, or a layout the TMA
+  "mma"    C 16-bit, D <= 256 otherwise (D % 8 != 0, or a layout the TMA
            cannot take): mma.sync m16n8k16 fed by ldmatrix from a cp.async
            ring (16, 8 or 4 bytes a copy, or element by element:
            `copy_elems`), width 32 to 256; a float8 K or V comes raw and
            each copying thread decodes its own copies;
-  "simt"   no C (float32 anywhere, bfloat16 with float16, float16 with
-           e8m0fnu) at any D, and D > 256: float32 FMA, no TF32; a block
-           computes 32, 64 or 128 output columns and a grid dimension of
-           column chunks covers any D.  A mix or a float8 input runs its
-           own kernel of the file, which reads and writes each tensor in
-           its own type (`DTYPES`; float8 decoded through
-           `ref.decode_table`, the 256 values of its format).
+  "wgmma_tf32"  C is tf32, D % 8 == 0, D <= 128, on layouts the TMA takes:
+           K and V raw by TMA, decoded into tf32 by the producer warps
+           (V transposed), Q held in registers, wgmma m64nNk8 tf32 at
+           width 64 or 128;
+  "simt"   no C (float32 anywhere) at any D, C tf32 off its route (D > 128,
+           D % 8 != 0, layouts the TMA cannot take), and D > 256: float32
+           FMA, no TF32; a block computes 32, 64 or 128 output columns and
+           a grid dimension of column chunks covers any D.  A mix or a
+           float8 input runs its own kernel of the file, which reads and
+           writes each tensor in its own type (`DTYPES`; float8 decoded
+           from its bits, as `ref.decode_table` holds its values).
 
 Each tensor is read in its own type, and the output is written in q's.
 
@@ -73,25 +78,39 @@ from repro_torch.kernels import ref
 DTYPES = (torch.float32, torch.bfloat16, torch.float16,
           torch.float8_e4m3fn, torch.float8_e5m2, torch.float8_e4m3fnuz,
           torch.float8_e5m2fnuz, torch.float8_e8m0fnu)
-VARIANTS = ("simt", "mma", "wgmma")                      # C launcher codes
+# the first three: flash_attention.cu's launcher codes; "wgmma_tf32" is
+# flash_tf32.cu's one kernel
+VARIANTS = ("simt", "mma", "wgmma", "wgmma_tf32")
 # the widths each variant is compiled for: the narrowest that holds D runs
 # it (wgmma and mma: the pipeline's columns; simt: the output columns a
 # block computes, the widest when D is wider)
 WIDTHS = {"simt": (32, 64, 128),
           "mma": (32, 64, 96, 112, 128, 160, 192, 256),
-          "wgmma": (64, 128, 256)}
-TC_MAX_HEAD_DIM = 256   # widest D of the tensor-core variants
+          "wgmma": (64, 128, 256),
+          "wgmma_tf32": (64, 128)}
+TC_MAX_HEAD_DIM = 256   # widest D of the 16-bit tensor-core variants
+# the compute type of the tf32 tensor cores (torch has no dtype for it),
+# and the widest D of its kernel: at 256, Q in registers beside the
+# accumulator does not fit, nor Q in shared memory beside the rings
+TF32 = "tf32"
+TF32_MAX_HEAD_DIM = 128
 
 LAUNCHES = 0
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 DTYPE_LAUNCHES: dict[str, int] = {}
-_launch = None
+_launch: dict = {}
 
 
-def variant(dtype: torch.dtype, head_dim: int, tma: bool = True) -> str:
+def variant(dtype: torch.dtype | str, head_dim: int,
+            tma: bool = True) -> str:
     """The kernel that runs inputs of compute type `dtype` (one type of q,
-    k, v, or `compute_type`'s) and `head_dim`; `tma` says whether q, k, v
-    and the output all lie as the TMA takes them."""
+    k, v, or `compute_type`'s, TF32 among them) and `head_dim`; `tma` says
+    whether q, k, v and the output all lie as the TMA takes them."""
+    if dtype == TF32:
+        if head_dim < 1:
+            raise ValueError(f"flash_attention: head_dim {head_dim} < 1")
+        return "wgmma_tf32" if (tma and head_dim % 8 == 0 and
+                                head_dim <= TF32_MAX_HEAD_DIM) else "simt"
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention takes float32, bfloat16, float16 "
                         f"or a float8 type, got {dtype}")
@@ -102,12 +121,14 @@ def variant(dtype: torch.dtype, head_dim: int, tma: bool = True) -> str:
     return "wgmma" if tma and head_dim % 8 == 0 else "mma"
 
 
-def compute_type(*dtypes: torch.dtype) -> torch.dtype | None:
-    """The 16-bit type into which every one of these (q's, k's, v's)
-    decodes exactly, for the tensor cores: float16 where some is float16
-    and each other float16 or a float8 format but e8m0fnu (whose 2^-127
-    to 2^127 float16 cannot hold), bfloat16 where none is float16 or
-    float32, None otherwise."""
+def compute_type(*dtypes: torch.dtype) -> torch.dtype | str | None:
+    """The tensor cores' type into which every one of these (q's, k's,
+    v's) decodes exactly: float16 where some is float16 and each other
+    float16 or a float8 format but e8m0fnu (whose 2^-127 to 2^127 float16
+    cannot hold), bfloat16 where none is float16 or float32, TF32 where
+    some is float16 beside bfloat16 or e8m0fnu and none is float32 (tf32
+    holds every value of each), None where some is float32 (no TF32 for
+    float32 data)."""
     for t in dtypes:
         if t not in DTYPES:
             raise TypeError(f"flash_attention takes float32, bfloat16, "
@@ -116,7 +137,7 @@ def compute_type(*dtypes: torch.dtype) -> torch.dtype | None:
         return None
     if torch.float16 in dtypes:
         mixed = {torch.bfloat16, torch.float8_e8m0fnu} & set(dtypes)
-        return None if mixed else torch.float16
+        return TF32 if mixed else torch.float16
     return torch.bfloat16
 
 
@@ -181,18 +202,28 @@ def dtype_key(name: str, *dtypes: torch.dtype) -> str:
     return f"{name}/{names[0] if len(set(names)) == 1 else ','.join(names)}"
 
 
-def _launcher():
-    global _launch
-    if _launch is None:
-        fn = _build.load("flash_attention").flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _launcher(name: str):
+    """The C launcher of variant `name`: flash_attention.cu's for simt,
+    mma and wgmma (which takes the variant's code), flash_tf32.cu's for
+    wgmma_tf32."""
+    lib = "flash_tf32" if name == "wgmma_tf32" else "flash_attention"
+    fn = _launch.get(lib)
+    if fn is None:
+        ints = ctypes.POINTER(ctypes.c_int)
+        if lib == "flash_tf32":
+            fn = _build.load(lib).flash_tf32_launch
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ints, ctypes.c_int, ctypes.c_void_p]
+        else:
+            fn = _build.load(lib).flash_attention_launch
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+                ctypes.POINTER(ctypes.c_int64), ints, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ints, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _launch = fn
-    return _launch
+        _launch[lib] = fn
+    return fn
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -240,18 +271,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         for s in layout_strides(t)])
     c_vecs = (ctypes.c_int * 4)(*[copy_elems(t) for t in tensors])
     c_types = (ctypes.c_int * 4)(*[DTYPES.index(t.dtype) for t in tensors])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        # each float8 input's 256 values, which the simt kernel decodes
-        # through (the tensor-core kernels decode arithmetically)
-        c_tables = (ctypes.c_void_p * 3)(*[
-            ref.decode_table(t.dtype, q.device).data_ptr()
-            if t.element_size() == 1 else None for t in (q, k, v)])
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), B, H, Hkv, Sq, Sk, D, c_strides,
-                          c_vecs, int(bool(causal)), window, scale, c_types,
-                          c_tables, VARIANTS.index(name), width(name, D),
-                          stream)
+        if name == "wgmma_tf32":
+            err = _launcher(name)(*ptrs, B, H, Hkv, Sq, Sk, D, c_strides,
+                                  int(bool(causal)), window, scale, c_types,
+                                  width(name, D), stream)
+        else:
+            err = _launcher(name)(*ptrs, B, H, Hkv, Sq, Sk, D, c_strides,
+                                  c_vecs, int(bool(causal)), window, scale,
+                                  c_types, VARIANTS.index(name),
+                                  width(name, D), stream)
     key = dtype_key(name, *(t.dtype for t in tensors))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({key}) launch failed: "

@@ -7,6 +7,7 @@ special function units)."""
 HBM_BYTES_PER_S = 3.35e12      # device memory (HBM3)
 BF16_FLOPS_PER_S = 989e12      # dense tensor-core bfloat16 (and float16)
 FP8_FLOPS_PER_S = 1979e12      # dense tensor-core float8 (e4m3, e5m2)
+TF32_FLOPS_PER_S = 494e12      # dense tensor-core tf32 (half of bf16's)
 F32_FLOPS_PER_S = 67e12        # float32 FMA outside the tensor cores
 # no int32 XOR rate is published: the float32 rate outside the tensor
 # cores stands in (the XOR kernel is bound by memory anyway)

@@ -16,7 +16,9 @@ NEG_INF = -1e30
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: float | None = None,
-                        block_k: int = 128) -> torch.Tensor:
+                        block_k: int = 128,
+                        round_p: torch.dtype | str | None = None
+                        ) -> torch.Tensor:
     """q (B,H,Sq,D), k/v (B,Hkv,Sk,D) -> (B,H,Sq,D) in q's dtype, each
     operand read as float32 in its own floating type (`decode`), the
     output rounded as the reference rounds (`round_to`).
@@ -28,7 +30,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (causal) and `qpos - kpos < window` (window > 0, causal or not).  A
     row that keeps no key is 0.  Query head h reads key/value head
     h // (H // Hkv).  q, k, v may be any strided views (the kernel's
-    (B,S,H,D)-transposed inputs among them); the result is contiguous."""
+    (B,S,H,D)-transposed inputs among them); the result is contiguous.
+
+    `round_p` (a 16-bit dtype, or "tf32") rounds P to the tensor cores'
+    compute type before P V, as those kernels do (`round_tf32` for tf32),
+    the row sums taking it unrounded; None (the Pallas kernel's function)
+    keeps it in float32."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -61,10 +68,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(s - m_new).masked_fill(~keep, 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vt)
+        pv = p if round_p is None else round_tf32(p) if round_p == "tf32" \
+            else p.to(round_p).float()
+        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", pv, vt)
         m = m_new
     out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
     return round_to(out.reshape(B, H, Sq, D), q.dtype)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to tf32 (a float32 with its low 13 mantissa
+    bits zero) to nearest, ties away from zero, as the tf32 kernel rounds P
+    (`cvt.rna.tf32.f32`): half a unit (bit 12) added to the magnitude's
+    bits, then the 13 bits cleared; NaN and the infinities unchanged."""
+    x = x.float()
+    b = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = torch.where(torch.isfinite(x), (b + 0x1000) & 0xFFFFE000, b)
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r)
+    return r.to(torch.int32).view(torch.float32)
 
 
 _TABLES: dict[tuple[torch.dtype, torch.device], torch.Tensor] = {}
@@ -74,8 +95,8 @@ def decode_table(dtype: torch.dtype, device) -> torch.Tensor:
     """(256,) float32 on `device`: the value of each byte of the float8
     `dtype`, as torch decodes it on the CPU (the reference's values:
     tests/test_torch_flash.py holds them to JAX's); made once a device.
-    The simt kernel decodes through it too; the tensor-core kernels'
-    arithmetic decoding is held to it bit for bit on the card."""
+    The kernels' arithmetic decoding is held to it bit for bit on the
+    card."""
     key = (dtype, torch.device(device))
     t = _TABLES.get(key)
     if t is None:

@@ -526,16 +526,20 @@ def _rule(names, D, tma):
     apart from the wrapper: the compute type C of the tensor cores is
     float16 where some operand is float16 and each other float16 or a
     float8 format but e8m0fnu, bfloat16 where none is float16 or float32,
-    none otherwise; with C and D <= 256, wgmma where D % 8 == 0 and every
-    tensor lies as the TMA takes it (`tma`), else mma; simt without C or
-    above 256."""
+    tf32 where some is float16 beside bfloat16 or e8m0fnu and none is
+    float32, none where some is float32; with a 16-bit C and D <= 256,
+    wgmma where D % 8 == 0 and every tensor lies as the TMA takes it
+    (`tma`), else mma; with tf32, wgmma_tf32 where D % 8 == 0, D <= 128
+    and the TMA takes every tensor; simt otherwise."""
     if "float32" in names:
         c = None
     elif "float16" in names:
-        c = None if {"bfloat16", "float8_e8m0fnu"} & set(names) \
+        c = "tf32" if {"bfloat16", "float8_e8m0fnu"} & set(names) \
             else "float16"
     else:
         c = "bfloat16"
+    if c == "tf32":
+        return "wgmma_tf32" if tma and D % 8 == 0 and D <= 128 else "simt"
     if c is None or D > 256:
         return "simt"
     return "wgmma" if tma and D % 8 == 0 else "mma"
@@ -587,7 +591,8 @@ def _close(got, want):
 # a fine float8 format (e5m2's subnormals are 2^-16 apart), so one
 # rounding of the output does not hold it; u_C, twice the half unit, is
 # chip_smoke.py's bracket for these routes.
-U_C = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -10}
+U_C = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -10,
+       fa.TF32: 2.0 ** -10}
 
 
 def _close_on_route(got, q, k, v, **kw):
@@ -705,7 +710,15 @@ _MIXED = [("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
           ("bfloat16", "float32", "float32"),
           ("float8_e4m3fn", "bfloat16", "bfloat16"),
           ("float16", "float8_e8m0fnu", "float8_e5m2"),
-          ("float8_e8m0fnu", "float32", "float8_e8m0fnu")]
+          ("float8_e8m0fnu", "float32", "float8_e8m0fnu"),
+          # the tf32 sets without float32: bfloat16 beside float16, and
+          # float16 beside e8m0fnu, with or without other float8 formats
+          ("bfloat16", "float16", "float16"),
+          ("float16", "bfloat16", "float16"),
+          ("float16", "float16", "bfloat16"),
+          ("bfloat16", "float16", "float8_e4m3fn"),
+          ("float16", "float8_e8m0fnu", "float8_e8m0fnu"),
+          ("float8_e8m0fnu", "float16", "float16")]
 
 
 @pytest.mark.parametrize("dtypes", _MIXED, ids="-".join)
@@ -768,37 +781,58 @@ def test_float8_layouts_compute_in_place(pallas, kind):
     assert ref.rounding_steps(fa.flash_attention(lay, k, v), want) <= 1
 
 
-@pytest.mark.parametrize("cname", ["bfloat16", "float16"])
-@pytest.mark.parametrize("dtype", FLOAT8)
+@pytest.mark.parametrize("cname", ["bfloat16", "float16", "tf32"])
+@pytest.mark.parametrize("dtype", FLOAT8 + ["bfloat16", "float16"])
 def test_float8_decodes_exactly_into_the_compute_type(cname, dtype):
-    """The route's premise: every value of a float8 format is one of its
-    compute type's, so the tensor cores read each operand exactly as the
-    Pallas kernel does (in float32).  float16 cannot hold e8m0fnu's 2^-127
-    to 2^127, which is why no set with float16 and e8m0fnu has a compute
-    type."""
-    table = ref.decode_table(getattr(torch, dtype), "cpu")
-    there = table.to(getattr(torch, cname)).float()
+    """The routes' premise: every value of each operand's type is one of
+    its compute type's, so the tensor cores read each operand exactly as
+    the Pallas kernel does (in float32).  A 16-bit type is the compute
+    type of a pair exactly where it holds every value of the other:
+    float16 cannot hold e8m0fnu's 2^-127 to 2^127 nor bfloat16's range,
+    bfloat16 not float16's 11-bit significands.  Those pairs compute in
+    tf32, which holds every value of all seven types: a float32 whose low
+    13 mantissa bits are zero (float16's subnormals are normal there,
+    e8m0fnu's 2^-127 a subnormal)."""
+    td = getattr(torch, dtype)
+    if td.itemsize == 1:
+        table = ref.decode_table(td, "cpu")
+    else:                                      # every 16-bit pattern
+        table = torch.arange(-32768, 32768).to(torch.int16).view(td).float()
     nan = torch.isnan(table)
+    if cname == "tf32":
+        low = table.view(torch.int32) & 0x1FFF
+        assert int(low.masked_fill(nan, 0).abs().max()) == 0
+        assert torch.equal(ref.round_tf32(table).masked_fill(nan, 0),
+                           table.masked_fill(nan, 0))
+        assert fa.compute_type(td, torch.bfloat16, torch.float16) == fa.TF32
+        return
+    there = table.to(getattr(torch, cname)).float()
     exact = bool(torch.equal(torch.isnan(there), nan) and torch.equal(
         there.masked_fill(nan, 0), table.masked_fill(nan, 0)))
-    assert exact == ((cname, dtype) != ("float16", "float8_e8m0fnu"))
-    assert (fa.compute_type(getattr(torch, cname), getattr(torch, dtype))
-            is None) == (not exact)
+    assert exact == ((cname, dtype) not in (("float16", "float8_e8m0fnu"),
+                                            ("float16", "bfloat16"),
+                                            ("bfloat16", "float16")))
+    got = fa.compute_type(getattr(torch, cname), td)
+    assert (got == getattr(torch, cname)) == exact
+    if not exact:
+        assert got == fa.TF32
 
 
 _TYPES = ["float32", "bfloat16", "float16"] + FLOAT8
 
 
 @pytest.mark.parametrize("layout", ["dense_64", "dense_40", "dense_320",
-                                    "one_element_off"])
+                                    "one_element_off", "dense_136"])
 def test_route_over_every_type_triple(layout):
     """Every one of the 8^3 sets of q, k, v types routes as `_rule` says:
-    at D=64 (every row a multiple of 16 bytes: wgmma wherever there is a
-    compute type), D=40 (a float8 row of 40 bytes keeps the TMA out: mma),
-    D=320 (simt) and on views one element past an aligned start (mma);
-    every set with float32 in it on simt."""
+    at D=64 (every row a multiple of 16 bytes: wgmma or wgmma_tf32
+    wherever there is a compute type), D=40 (a float8 row of 40 bytes
+    keeps the TMA out: mma, or simt for tf32), D=320 (simt), D=136 (wgmma
+    for a 16-bit compute type, simt for tf32, whose kernel ends at 128)
+    and on views one element past an aligned start (mma, or simt for
+    tf32); every set with float32 in it on simt."""
     D = {"dense_64": 64, "dense_40": 40, "dense_320": 320,
-         "one_element_off": 64}[layout]
+         "one_element_off": 64, "dense_136": 136}[layout]
 
     def tensor(heads, name):
         td = getattr(torch, name)
@@ -815,6 +849,91 @@ def test_route_over_every_type_triple(layout):
         assert fa.route(q, k, v) == want, names
         if "float32" in names:
             assert want == "simt"
+        if want == "wgmma_tf32":
+            assert fa.compute_type(*(t.dtype for t in (q, k, v))) == fa.TF32
+
+
+@pytest.mark.parametrize("D,tma,want", [
+    (8, True, "wgmma_tf32"), (64, True, "wgmma_tf32"),
+    (72, True, "wgmma_tf32"), (128, True, "wgmma_tf32"),
+    (136, True, "simt"), (256, True, "simt"), (100, True, "simt"),
+    (64, False, "simt"), (512, True, "simt")])
+def test_tf32_variant_and_width(D, tma, want):
+    """The tf32 kernel takes D % 8 == 0 up to 128 on the TMA's layouts, at
+    width 64 up to D = 64 and 128 above; the PerTensor simt kernel the
+    rest of the tf32 sets."""
+    assert fa.variant(fa.TF32, D, tma) == want
+    if want == "wgmma_tf32":
+        assert fa.width(want, D) == (64 if D <= 64 else 128)
+    with pytest.raises(ValueError):
+        fa.variant(fa.TF32, 0)
+
+
+def _tf32_numpy(x):
+    """float32 `x` rounded to tf32 in float64 arithmetic: the multiple of
+    the tf32 spacing at |x| nearest to x, ties away from zero, overflow to
+    infinity (float32's largest exponent), NaN and infinities kept."""
+    with np.errstate(invalid="ignore"):      # signalling NaN patterns
+        x64 = x.astype(np.float64)
+    out = x64.copy()
+    fin = np.isfinite(x64) & (x64 != 0)
+    e = np.floor(np.log2(np.abs(x64[fin])))
+    spacing = 2.0 ** (np.maximum(e, -126) - 10)
+    out[fin] = np.sign(x64[fin]) * np.floor(np.abs(x64[fin]) / spacing
+                                            + 0.5) * spacing
+    with np.errstate(over="ignore"):
+        return out.astype(np.float32)
+
+
+def test_round_tf32_is_to_nearest_ties_away():
+    """The plain version's rounding of P for the tf32 route
+    (`ref.round_tf32`, the kernel's cvt.rna.tf32.f32) against the same
+    rounding in float64: random float32 bit patterns, the midpoints
+    between neighbouring tf32 values (ties, which go away from zero) and
+    one float32 step on either side, subnormals and float32's edges."""
+    rng = np.random.default_rng(25)
+    x = rng.integers(0, 2 ** 32, 200_000, dtype=np.uint64).astype(
+        np.uint32)
+    ties = (x & ~np.uint32(0x1FFF)) | np.uint32(0x1000)
+    x = np.concatenate([x, ties, ties + 1, ties - 1]).view(np.float32)
+    x = np.concatenate([x, np.array(
+        [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1e-39,
+         2.0 ** -127, 3.4e38, -3.4e38, 1.0, 1.0 + 2.0 ** -11,
+         1.0 + 3 * 2.0 ** -11, 0.5 - 2.0 ** -25], np.float32)])
+    got = ref.round_tf32(torch.from_numpy(x)).numpy()
+    want = _tf32_numpy(x)
+    np.testing.assert_array_equal(got.view(np.uint32)[~np.isnan(x)],
+                                  want.view(np.uint32)[~np.isnan(x)])
+    assert np.isnan(got[np.isnan(x)]).all()
+    assert got[-3] == 1.0 + 2.0 ** -10 and got[-2] == 1.0 + 2.0 ** -9
+
+
+# the unit roundoff of each compute type: 2^-p for p significant bits (8
+# bfloat16, 11 float16 and tf32), the most a rounding moves a weight
+UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11,
+                 fa.TF32: 2.0 ** -11}
+
+
+@pytest.mark.parametrize("round_p", [torch.bfloat16, torch.float16,
+                                     fa.TF32])
+def test_plain_version_rounds_p_within_the_routes_bracket(round_p):
+    """The plain version with P rounded as a tensor-core route rounds it
+    (`round_p`) lies within the unit roundoff of C times |v|_P of the
+    plain version in float32, element by element (each weight moves by at
+    most that share), which the route's bracket U_C covers; with one key
+    a row every weight is exactly 1 and the two agree bit for bit."""
+    q, k, v = (torch.from_numpy(a) for a in
+               _inputs((2, 4, 96, 32), (2, 2, 96, 32), 9))
+    want = ref.flash_attention_ref(q, k, v, window=40)
+    got = ref.flash_attention_ref(q, k, v, window=40, round_p=round_p)
+    mean_v = ref.flash_attention_ref(q, k, v.abs(), window=40)
+    assert not torch.equal(got, want)
+    assert UNIT_ROUNDOFF[round_p] <= U_C[round_p]
+    assert ((got - want).abs() <= UNIT_ROUNDOFF[round_p] * mean_v
+            + 1e-7).all()
+    one = [t[:, :, :1] for t in (q, k, v)]
+    assert torch.equal(ref.flash_attention_ref(*one, round_p=round_p),
+                       ref.flash_attention_ref(*one))
 
 
 def test_float8_copy_widths_are_cp_async_sizes():
