@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import trace
 from repro_torch.core.osc import PAGE_SIZE
 from repro_torch.fsio.client import FsError, LustreClient
 from repro_torch.kernels import ops as kops
@@ -180,6 +181,10 @@ class CheckpointManager:
         """Write one checkpoint. Returns the manifest.  Each leaf comes to
         the host when its writer takes it, so one leaf's host copy is
         alive at a time."""
+        with trace.span("rt:ckpt.save"):
+            return self._save(step, tree, extra_meta)
+
+    def _save(self, step: int, tree: Any, extra_meta: dict | None) -> dict:
         leaves = list(_leaf_paths(tree))
         d = self._step_dir(step)
         # overwrite semantics: a re-save of the same step (two trainers
@@ -199,7 +204,9 @@ class CheckpointManager:
 
         def write_leaf(w_idx: int, name: str, leaf):
             fs = self.clients[w_idx % len(self.clients)]
-            arr, dtype = _host(leaf)
+            with trace.span("rt:ckpt.host"):
+                arr, dtype = _host(leaf)
+            trace.add("ckpt.host_bytes", arr.nbytes)
             qmeta = None
             if self.quantize == "int8" and arr.dtype.kind == "f" \
                     and arr.size >= 256:
@@ -209,22 +216,27 @@ class CheckpointManager:
                          "orig_dtype": dtype}
             else:
                 data = arr.tobytes()
-            fh = fs.creat(f"{d}/{name}.bin",
-                          stripe_count=self.stripe_count,
-                          stripe_size=self.stripe_size)
-            fs.write(fh, data, gid=1 + w_idx)       # group locks (ch.10.10)
-            fs.close(fh)
+            with trace.span("rt:ckpt.write"):
+                fh = fs.creat(f"{d}/{name}.bin",
+                              stripe_count=self.stripe_count,
+                              stripe_size=self.stripe_size)
+                fs.write(fh, data, gid=1 + w_idx)   # group locks (ch.10.10)
+                fs.close(fh)
+            trace.add("ckpt.write_bytes", len(data))
             entry = {"shape": list(arr.shape), "dtype": dtype,
                      "bytes": len(data), "writer": w_idx % len(self.clients)}
             if qmeta:
                 entry["quant"] = qmeta
             if self.parity and len(data) > 0:
-                p = self._parity_for(fh, data)
-                pfh = fs.creat(f"{d}/{name}.parity",
-                               stripe_count=1,
-                               stripe_offset=self._parity_ost(fh))
-                fs.write(pfh, p, gid=1 + w_idx)
-                fs.close(pfh)
+                with trace.span("rt:ckpt.parity"):
+                    p = self._parity_for(fh, data)
+                with trace.span("rt:ckpt.write"):
+                    pfh = fs.creat(f"{d}/{name}.parity",
+                                   stripe_count=1,
+                                   stripe_offset=self._parity_ost(fh))
+                    fs.write(pfh, p, gid=1 + w_idx)
+                    fs.close(pfh)
+                trace.add("ckpt.write_bytes", len(p))
                 entry["parity"] = True
             return name, entry
 
@@ -235,16 +247,17 @@ class CheckpointManager:
             for i, (n, v) in enumerate(leaves)])
         for name, entry in outs:
             manifest["leaves"][name] = entry
-        for fs in self.clients:
-            fs.sync()
-        # commit record LAST: a manifest present == checkpoint complete
-        mdata = json.dumps(manifest).encode()
-        fh = self.fs.creat(f"{d}/MANIFEST.json", stripe_count=1)
-        self.fs.write(fh, mdata)
-        self.fs.close(fh)
-        self.fs.sync()
-        for t in self.fs.cluster.ost_targets:       # durable commit point
-            t.commit()
+        with trace.span("rt:ckpt.commit"):
+            for fs in self.clients:
+                fs.sync()
+            # commit record LAST: a manifest present == checkpoint complete
+            mdata = json.dumps(manifest).encode()
+            fh = self.fs.creat(f"{d}/MANIFEST.json", stripe_count=1)
+            self.fs.write(fh, mdata)
+            self.fs.close(fh)
+            self.fs.sync()
+            for t in self.fs.cluster.ost_targets:   # durable commit point
+                t.commit()
         self.sim.stats.count("ckpt.saved")
         return manifest
 
@@ -292,6 +305,10 @@ class CheckpointManager:
         manifest). Reads leaves in parallel across reader clients;
         reconstructs stripes lost to dead OSTs from parity when
         enabled."""
+        with trace.span("rt:ckpt.restore"):
+            return self._restore(step)
+
+    def _restore(self, step: int | None) -> tuple[dict, dict]:
         if step is None:
             step = self.latest()
         if step is None:
@@ -306,16 +323,20 @@ class CheckpointManager:
             fs = self.clients[i % len(self.clients)]
             e = manifest["leaves"][name]
             try:
-                fh = fs.open(f"{d}/{name}.bin")
-                data = fs.read(fh, e["bytes"])
-                fs.close(fh)
+                with trace.span("rt:ckpt.read"):
+                    fh = fs.open(f"{d}/{name}.bin")
+                    data = fs.read(fh, e["bytes"])
+                    fs.close(fh)
                 if len(data) != e["bytes"]:
                     raise FsError(-5, "short read")
+                trace.add("ckpt.read_bytes", len(data))
             except Exception:       # the reference's client raises its own
                 if not e.get("parity"):
                     raise
-                data = self._reconstruct(fs, d, name, e)
-            return name, _decode(data, e)
+                with trace.span("rt:ckpt.rebuild"):
+                    data = self._reconstruct(fs, d, name, e)
+            with trace.span("rt:ckpt.decode"):
+                return name, _decode(data, e)
 
         outs = self.sim.parallel([
             (lambda i=i, n=n: read_leaf(i, n))
@@ -349,7 +370,10 @@ class CheckpointManager:
         par = _read_parity(fs, f"{d}/{name}.parity", max(
             lov_mod.Lov._obj_size_for(lsm, i, total)
             for i in range(len(lsm.objects))))
+        trace.add("ckpt.read_bytes", len(par) + sum(
+            len(r) for r in rows if r is not None))
         if missing is not None:
+            trace.add("ckpt.rebuilt", 1)
             surv = [r for r in rows if r is not None]
             want = lov_mod.Lov._obj_size_for(lsm, missing, total)
             rows[missing] = kops.reconstruct_bytes(
@@ -392,8 +416,9 @@ class CheckpointManager:
 
     def retain(self, keep: int = 3):
         """Delete old complete checkpoints beyond `keep`."""
-        for s in self.steps()[:-keep]:
-            d = self._step_dir(s)
-            for f in sorted(self.fs.readdir(d)):
-                self.fs.unlink(f"{d}/{f}")
-            self.fs.rmdir(d)
+        with trace.span("rt:ckpt.retain"):
+            for s in self.steps()[:-keep]:
+                d = self._step_dir(s)
+                for f in sorted(self.fs.readdir(d)):
+                    self.fs.unlink(f"{d}/{f}")
+                self.fs.rmdir(d)

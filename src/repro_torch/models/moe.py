@@ -40,6 +40,7 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import trace
 from repro_torch.parallel import shardings as sh
 from repro_torch.parallel.shardings import constrain
 
@@ -54,12 +55,13 @@ def capacity(cfg, n_tokens: int) -> int:
 
 def moe_ffn(cfg, p, x, rc):
     """x: (T, d) -> (T, d), aux load-balance loss (scalar)."""
-    if rc.shard_moe_tokens:
-        mesh = sh.get_ambient_mesh()
-        if mesh is not None and "model" in mesh.mesh_dim_names \
-                and cfg.n_experts % sh.axis_size(mesh, "model") == 0:
-            return moe_ffn_sharded(cfg, p, x, rc, mesh)
-    return _moe_ffn_global(cfg, p, x, rc)
+    with trace.span("rt:moe"):
+        if rc.shard_moe_tokens:
+            mesh = sh.get_ambient_mesh()
+            if mesh is not None and "model" in mesh.mesh_dim_names \
+                    and cfg.n_experts % sh.axis_size(mesh, "model") == 0:
+                return moe_ffn_sharded(cfg, p, x, rc, mesh)
+        return _moe_ffn_global(cfg, p, x, rc)
 
 
 def route(cfg, p, x):
@@ -167,22 +169,35 @@ def _moe_ffn_global(cfg, p, x, rc, stats=None):
     C = capacity(cfg, T)
     # keep tokens data-sharded through the (B,S)->(T,) reshape
     x = constrain(x, ("batch", None))
-    top_p, top_e, aux = route(cfg, p, x)
+    with trace.span("rt:moe.route"):
+        top_p, top_e, aux = route(cfg, p, x)
 
     def scatter(x, top_e):
         order, dest, keep = dispatch(cfg, top_e, C)
         return _scatter(x, order, dest, E, C, k, cdt), order, dest, keep
 
-    xe, order, dest, keep = _replicated(scatter, 4, x, top_e)
+    with trace.span("rt:moe.dispatch"):
+        xe, order, dest, keep = _replicated(scatter, 4, x, top_e)
+    _fill(T * k, E * C, keep)
     if stats is not None:
         stats["dropped"] = int((~keep).sum())
     xe = constrain(xe, ("model", None, None))
-    out = _experts(p, xe, cdt,
-                   lambda t: constrain(t, ("model", None, None)))
-    y = _replicated(lambda out, dest, order, top_p:
-                    _combine(out, dest, order, top_p, k),
-                    1, out, dest, order, top_p)
+    with trace.span("rt:moe.experts"):
+        out = _experts(p, xe, cdt,
+                       lambda t: constrain(t, ("model", None, None)))
+    with trace.span("rt:moe.combine"):
+        y = _replicated(lambda out, dest, order, top_p:
+                        _combine(out, dest, order, top_p, k),
+                        1, out, dest, order, top_p)
     return y, aux
+
+
+def _fill(assignments: int, slots: int, keep) -> None:
+    """The tracer's counts of an expert buffer: the assignments routed,
+    its rows and, on the device, the assignments kept in them."""
+    trace.add("moe.assignments", assignments)
+    trace.add("moe.slots", slots)
+    trace.add_device("moe.kept", keep)
 
 
 # ------------------------------------------------------------ shard-local
@@ -196,24 +211,29 @@ def _local_dispatch_ffn(cfg, rc, x_l, router, wg, wu, wd, e_off: int,
     T_l, d = x_l.shape
     k = cfg.top_k
     C = capacity(cfg, T_l)
-    top_p, top_e, aux = route(cfg, {"router": router}, x_l)
+    with trace.span("rt:moe.route"):
+        top_p, top_e, aux = route(cfg, {"router": router}, x_l)
 
-    flat_e = top_e.reshape(-1)
-    mine = (flat_e >= e_off) & (flat_e < e_off + E_l)
-    loc_e = torch.where(mine, flat_e - e_off,
-                        torch.full_like(flat_e, E_l))   # E_l = drop bucket
-    order = torch.argsort(loc_e, stable=True)
-    sorted_e = loc_e[order]
-    counts = _count(loc_e, E_l + 1)
-    starts = torch.cumsum(counts, dim=0) - counts
-    pos = torch.arange(T_l * k, device=x_l.device) - starts[sorted_e]
-    keep = (pos < C) & (sorted_e < E_l)
-    dest = torch.where(keep, sorted_e * C + pos,
-                       torch.full_like(pos, E_l * C))
-    xe = _scatter(x_l, order, dest, E_l, C, k, cdt)
-    out = _experts({"wg": wg, "wu": wu, "wd": wd}, xe, cdt)
+    with trace.span("rt:moe.dispatch"):
+        flat_e = top_e.reshape(-1)
+        mine = (flat_e >= e_off) & (flat_e < e_off + E_l)
+        loc_e = torch.where(mine, flat_e - e_off,
+                            torch.full_like(flat_e, E_l))  # E_l: drop bucket
+        order = torch.argsort(loc_e, stable=True)
+        sorted_e = loc_e[order]
+        counts = _count(loc_e, E_l + 1)
+        starts = torch.cumsum(counts, dim=0) - counts
+        pos = torch.arange(T_l * k, device=x_l.device) - starts[sorted_e]
+        keep = (pos < C) & (sorted_e < E_l)
+        dest = torch.where(keep, sorted_e * C + pos,
+                           torch.full_like(pos, E_l * C))
+        xe = _scatter(x_l, order, dest, E_l, C, k, cdt)
+    _fill(T_l * k, E_l * C, keep)
+    with trace.span("rt:moe.experts"):
+        out = _experts({"wg": wg, "wu": wu, "wd": wd}, xe, cdt)
     dropped = ((~keep) & (sorted_e < E_l)).sum()
-    return _combine(out, dest, order, top_p, k), aux, dropped
+    with trace.span("rt:moe.combine"):
+        return _combine(out, dest, order, top_p, k), aux, dropped
 
 
 def moe_ffn_sharded(cfg, p, x, rc, mesh, stats=None):

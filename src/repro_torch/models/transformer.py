@@ -35,6 +35,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -175,31 +176,40 @@ def attn_block(cfg, p, x, window: int, prefix_len, rc, positions=None,
 
     The flash kernel is taken only without a prefix and when every layer
     has the same window (`uniform_window`), as in the reference."""
-    cdt = _dtype(rc.compute_dtype)
-    B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, cdt)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    if cfg.rope_theta:
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
-    k = constrain(k, ("batch", None, "model", None))
-    v = constrain(v, ("batch", None, "model", None))
+    with trace.span("rt:attn"):
+        cdt = _dtype(rc.compute_dtype)
+        B, S, _ = x.shape
+        q, k, v = _qkv(cfg, p, x, cdt)
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        if cfg.rope_theta:
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+        k = constrain(k, ("batch", None, "model", None))
+        v = constrain(v, ("batch", None, "model", None))
+        with trace.span("rt:attn.kernel"):
+            out = _attention(q, k, v, window, prefix_len, rc, cdt,
+                             uniform_window)
+        return _attn_out(cfg, p, out, x, cdt), (k, v)
+
+
+def _attention(q, k, v, window: int, prefix_len, rc, cdt, uniform_window):
+    """Softmax attention of (B,S,H,D) q over k, v: the flash kernel, the
+    row-chunked form or the whole scores, by `rc.attn_impl`."""
+    S = q.shape[1]
     if rc.attn_impl == "flash" and not prefix_len and uniform_window:
         if torch.is_grad_enabled() and q.requires_grad:
             raise NotImplementedError(
                 "the flash-attention kernel is forward only, as the "
                 "reference's is: train with attn_impl 'ref', 'chunked' or "
                 "'auto'")
-        out = _flash(q, k, v, window).to(cdt)
-    elif rc.attn_impl == "chunked" or (rc.attn_impl == "auto" and S > 2048):
+        return _flash(q, k, v, window).to(cdt)
+    if rc.attn_impl == "chunked" or (rc.attn_impl == "auto" and S > 2048):
         chunk = next((c for c in (rc.attn_chunk, 512, 256, 128, 64)
                       if c <= S and S % c == 0), S)
-        out = _chunked_attention(q, k, v, window, prefix_len, chunk, cdt)
-    else:
-        mask = L.causal_mask(S, S, window, prefix_len, device=x.device)
-        out = L.attention_scores(q, k, v, mask[None], dtype=cdt)
-    return _attn_out(cfg, p, out, x, cdt), (k, v)
+        return _chunked_attention(q, k, v, window, prefix_len, chunk, cdt)
+    mask = L.causal_mask(S, S, window, prefix_len, device=q.device)
+    return L.attention_scores(q, k, v, mask[None], dtype=cdt)
 
 
 def _flash(q, k, v, window: int):
@@ -277,13 +287,14 @@ def mlp_block(cfg, p, x, rc):
         if isinstance(y, DTensor):
             y = y.redistribute(hf.device_mesh, hf.placements)
         return constrain(x + y.reshape(B, S, d), ("batch", None, None)), aux
-    g = L.matmul(h, p["wg"].to(cdt))
-    u = L.matmul(h, p["wu"].to(cdt))
-    hidden = L.act_fn(cfg.act)(g) * u
-    hidden = constrain(hidden, ("batch", None, "model"))
-    y = L.matmul(hidden, p["wd"].to(cdt))
-    return (constrain(x + y, ("batch", None, None)),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    with trace.span("rt:mlp"):
+        g = L.matmul(h, p["wg"].to(cdt))
+        u = L.matmul(h, p["wu"].to(cdt))
+        hidden = L.act_fn(cfg.act)(g) * u
+        hidden = constrain(hidden, ("batch", None, "model"))
+        y = L.matmul(hidden, p["wd"].to(cdt))
+        return (constrain(x + y, ("batch", None, None)),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # ----------------------------------------------------------------- stacks

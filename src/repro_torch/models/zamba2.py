@@ -26,6 +26,7 @@ from torch.distributed.tensor import DTensor, Partial
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -170,33 +171,35 @@ def _ssd(xh, Bm, Cm, da, dt, state, chunk: int, cdt):
 
 def _mamba_block(cfg, p, x, rc, conv_prev=None, state=None):
     """Returns (x_out, new_conv_state, new_ssm_state)."""
-    cdt = getattr(torch, rc.compute_dtype)
-    d_in, H, P, N, conv_dim = _dims(cfg)
-    B_, S, d = x.shape
-    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    # its gradient gathers the slices' in its own layout before the
-    # product's backward (they come back in layouts that mix badly)
-    zxbcdt = L.grad_as_forward(h @ p["in_proj"].to(cdt))
-    z = zxbcdt[..., :d_in]
-    xbc = zxbcdt[..., d_in: d_in + conv_dim]
-    dt_raw = zxbcdt[..., d_in + conv_dim:]
-    xbc, conv_state = _conv1d(xbc, p["conv_w"].to(cdt), conv_prev)
-    xbc = F.silu(xbc)
-    xh = L.split_heads(xbc[..., :d_in], H, P)
-    Bm = xbc[..., d_in: d_in + N]
-    Cm = xbc[..., d_in + N:]
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())                  # (H,)
-    da = dt * a                                          # (B,S,H) f32
-    chunk = next(c for c in (rc.ssm_chunk, 128, 64, 32, 16, 8, 4, 2, 1)
-                 if c <= S and S % c == 0)
-    y, state = _ssd(xh, Bm, Cm, da, dt, state, chunk, cdt)
-    y = y.to(cdt) + p["skip_d"].to(cdt)[None, None, :, None] * xh
-    y = L.merge_heads(y)
-    y = y * F.silu(z)
-    y = L.rms_norm(y, p["gn"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(cdt)
-    return constrain(x + out, ("batch", None, None)), conv_state, state
+    with trace.span("rt:mamba"):
+        cdt = getattr(torch, rc.compute_dtype)
+        d_in, H, P, N, conv_dim = _dims(cfg)
+        B_, S, d = x.shape
+        h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+        # its gradient gathers the slices' in its own layout before the
+        # product's backward (they come back in layouts that mix badly)
+        zxbcdt = L.grad_as_forward(h @ p["in_proj"].to(cdt))
+        z = zxbcdt[..., :d_in]
+        xbc = zxbcdt[..., d_in: d_in + conv_dim]
+        dt_raw = zxbcdt[..., d_in + conv_dim:]
+        xbc, conv_state = _conv1d(xbc, p["conv_w"].to(cdt), conv_prev)
+        xbc = F.silu(xbc)
+        xh = L.split_heads(xbc[..., :d_in], H, P)
+        Bm = xbc[..., d_in: d_in + N]
+        Cm = xbc[..., d_in + N:]
+        dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+        a = -torch.exp(p["a_log"].float())                  # (H,)
+        da = dt * a                                          # (B,S,H) f32
+        chunk = next(c for c in (rc.ssm_chunk, 128, 64, 32, 16, 8, 4, 2, 1)
+                     if c <= S and S % c == 0)
+        with trace.span("rt:mamba.ssd"):
+            y, state = _ssd(xh, Bm, Cm, da, dt, state, chunk, cdt)
+        y = y.to(cdt) + p["skip_d"].to(cdt)[None, None, :, None] * xh
+        y = L.merge_heads(y)
+        y = y * F.silu(z)
+        y = L.rms_norm(y, p["gn"], cfg.norm_eps)
+        out = y @ p["out_proj"].to(cdt)
+        return constrain(x + out, ("batch", None, None)), conv_state, state
 
 
 def _shared(params):

@@ -25,6 +25,7 @@ from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import registry
@@ -251,10 +252,13 @@ def _value_and_grad(cfg, rc, params, batch):
     grads have each leaf's dtype."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
     items = list(tree_items(leaves))
-    loss = loss_fn(cfg, leaves, batch, rc)
+    with trace.span("rt:train.forward"):
+        loss = loss_fn(cfg, leaves, batch, rc)
+    with trace.span("rt:train.backward"):
+        gs = torch.autograd.grad(loss, [t for _, t in items],
+                                 allow_unused=True)
     grads: dict = {}
-    for (path, t), g in zip(items, torch.autograd.grad(
-            loss, [t for _, t in items], allow_unused=True)):
+    for (path, t), g in zip(items, gs):
         if g is None:
             g = torch.zeros_like(t)
         elif isinstance(g, DTensor) and g.placements != t.placements:
@@ -286,8 +290,10 @@ def build_train_step(cfg: ModelConfig, rc: RunConfig,
         gradients are taken (and reduced) in bf16."""
         if gr_dt == torch.float32:
             return params
-        return tree_map(
-            lambda p: p.to(cdt) if p.dtype == torch.float32 else p, params)
+        with trace.span("rt:train.cast"):
+            return tree_map(
+                lambda p: p.to(cdt) if p.dtype == torch.float32 else p,
+                params)
 
     def step(params, opt_state, batch):
         _on(dev, params)
@@ -306,17 +312,20 @@ def build_train_step(cfg: ModelConfig, rc: RunConfig,
                 for i in range(trips):
                     l, g = _value_and_grad(cfg, rc, cparams,
                                            {k: v[i] for k, v in batch.items()})
-                    loss = loss + l
-                    if grads is None:           # 0 + g, in f32
-                        grads = tree_map(lambda t: t.float(), g)
-                    else:
-                        for path, acc in tree_items(grads):
-                            acc.add_(tree_get(g, path).float())
+                    with trace.span("rt:train.accumulate"):
+                        loss = loss + l
+                        if grads is None:           # 0 + g, in f32
+                            grads = tree_map(lambda t: t.float(), g)
+                        else:
+                            for path, acc in tree_items(grads):
+                                acc.add_(tree_get(g, path).float())
                     del g
-            loss = loss / nmb
-            grads = tree_map(lambda t: t.div_(nmb), grads)
-        new_params, new_opt, gnorm = adamw.apply_updates(
-            opt, params, grads, opt_state)
+            with trace.span("rt:train.accumulate"):
+                loss = loss / nmb
+                grads = tree_map(lambda t: t.div_(nmb), grads)
+        with trace.span("rt:optim.adamw"):
+            new_params, new_opt, gnorm = adamw.apply_updates(
+                opt, params, grads, opt_state)
         return new_params, new_opt, {"loss": _whole(loss),
                                      "grad_norm": _whole(gnorm)}
 
@@ -342,10 +351,12 @@ def build_prefill_step(cfg: ModelConfig, rc: RunConfig, device="cuda",
         _on(dev, params)
         batch = _place_batch(batch, dev, bspecs, mesh)
         with torch.no_grad(), _on_mesh(mesh):
-            x, _, cache, _, _ = registry.forward(cfg, params, batch, rc,
-                                                 return_cache=True)
-            logits = registry.unembed(cfg, params, x[:, -1:], rc)
-            next_tok = _argmax(logits)
+            with trace.span("rt:prefill.forward"):
+                x, _, cache, _, _ = registry.forward(cfg, params, batch, rc,
+                                                     return_cache=True)
+            with trace.span("rt:prefill.head"):
+                logits = registry.unembed(cfg, params, x[:, -1:], rc)
+                next_tok = _argmax(logits)
             if mesh is not None:
                 specs = cache_specs(cfg, mesh, {k: (v.shape, v.dtype)
                                                 for k, v in cache.items()})

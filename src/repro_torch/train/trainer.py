@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.core.cluster import LustreCluster
 from repro_torch.data import TokenDataset, TokenPipeline
@@ -104,7 +105,8 @@ class Trainer:
 
     # ---------------------------------------------------------------- data
     def _batch(self, step: int) -> dict:
-        toks = self.pipeline.batch_at(step)
+        with trace.span("rt:data.read"):
+            toks = self.pipeline.batch_at(step)
         # next-token labels within the stored sequence
         lab = np.roll(toks, -1, axis=-1)
         lab[:, -1] = 0
@@ -113,7 +115,9 @@ class Trainer:
         if nmb > 1:
             b = {k: v.reshape(nmb, v.shape[0] // nmb, *v.shape[1:])
                  for k, v in b.items()}
-        b = {k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
+        with trace.span("rt:data.to_device"):
+            b = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in b.items()}
         return {**b, **self.side_inputs(step)}
 
     def side_inputs(self, step: int) -> dict:
