@@ -142,7 +142,19 @@ the last line:
      tokens: none; zamba2-7b whole, 2 x 4096: 13 at D=112, against "ref"
      with a planted fault), whisper's and rwkv6's decode continuing their
      f32 prefill, gemma3's 1,100 f32 decode steps on the ring-buffered
-     and the full cache, and each family's f32 card-vs-CPU check.
+     and the full cache, and each family's f32 card-vs-CPU check;
+ 16. the multi-device path on a one-rank NCCL mesh (`--parallel-only`);
+ 17. the SSD kernel (`kernels.ssd`, csrc/ssd.cu) at the docs cell's shapes
+     (zamba2-7b's H = 112, P = N = 64, chunk 256, S = 512 ... 4096, B = 1)
+     against `_ssd_chunked` on the same inputs with TF32 off (relative
+     Frobenius norm of y and the final state, y element by element),
+     timed (graph replays) beside `_ssd_chunked` and its bound (bytes at
+     3.35 TB/s, products at the bf16 peak, one exp a kept pair at 16 a
+     clock an SM); then 12 docs requests (3 of each length) through
+     build_prefill_step on zamba2-7b whole, tracer on: 81 kernel launches
+     and no `_ssd_chunked` block each, and the same requests with the
+     plain version forced (81 `ssd.chunked` each), each route's median
+     wall time a request.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -173,6 +185,10 @@ runs phases 1, 2 and 13; no result line.
 
 runs phases 1, 2, one short call of each compiled flash kernel, then 14
 and 15; no result line.
+
+    python3 chip_smoke.py --ssd-only
+
+runs phases 1, 2 (the SSD and flash libraries) and 17; no result line.
 
     python3 chip_smoke.py --typed-times
 
@@ -3197,6 +3213,204 @@ TF32_FIRST = ((("bfloat16", "float16", "float16"), 64),
               (("float8_e8m0fnu", "float16", "float8_e4m3fnuz"), 112))
 
 
+# phase 17: the SSD kernel at the docs cell's shapes (zamba2-7b: H = 112,
+# P = N = 64, chunk 256, one prompt a call) and its requests
+SSD_LENGTHS = (512, 1024, 2048, 4096)
+SSD_HEADS, SSD_CHUNK = 112, 256
+# against `_ssd_chunked` on the card (tests/test_torch_ssd.py's limits):
+# y and the final state within SSD_REL_TOL in relative Frobenius norm; y
+# element by element within SSD_FLIP_TOL of max|y| (one bf16 step of an
+# att_ij that the two sums of C_i . B_j round to neighbours), at most
+# SSD_FLIP_SHARE of the elements past SSD_REL_TOL of max|y|
+SSD_REL_TOL, SSD_FLIP_TOL, SSD_FLIP_SHARE = 1e-4, 2.0 ** -8, 1e-3
+
+
+def ssd_inputs(torch, B, S, H, seed, dev):
+    """A block's SSD inputs as `_mamba_block` hands them (views of one
+    activation), drawn as the docs cell's Mamba2 leaves are: x, B, C silu
+    of normal draws in bf16, dt = softplus(raw + dt_bias) with dt0
+    log-uniform in [0.001, 0.1], A uniform in [1, 16]."""
+    N = P = 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xbc = torch.nn.functional.silu(torch.randn(
+        B, S, H * P + 2 * N, generator=g, device=dev)).to(torch.bfloat16)
+    u = torch.rand(H, generator=g, device=dev)
+    dt0 = torch.exp(math.log(1e-3) + (math.log(0.1) - math.log(1e-3)) * u)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=dev)
+        + dt0 + torch.log(-torch.expm1(-dt0)))
+    a = -(1.0 + 15.0 * torch.rand(H, generator=g, device=dev))
+    xh = xbc[..., :H * P].unflatten(-1, (H, P))
+    return (xh, xbc[..., H * P:H * P + N], xbc[..., H * P + N:], dt * a,
+            dt)
+
+
+def ssd_cost(B, S, H, Q, clock_mhz) -> dict:
+    """The least time of one block's SSD: its bytes (x, B, C, da, dt read
+    once, y and the final state written once) at HBM_BYTES_PER_S, the
+    products it needs (C B^T once a chunk and att x on the lower
+    triangles, the chunk states, C S_{c-1} past the first chunk) at the
+    bf16 peak, one exp a kept pair at exp2_per_s; and the design's own
+    products (C B^T for each head, B w in two pieces, S_{c-1} in three,
+    over whole 16 x 16 tiles of the triangles) at the bf16 peak."""
+    N = P = 64
+    nc, T = S // Q, Q // 16
+    nbytes = (B * S * H * P * (2 + 4) + 2 * B * S * N * 2
+              + 2 * B * S * H * 4 + B * H * N * P * 4)
+    kept = Q * (Q + 1) // 2
+    states, inter = 2 * B * S * H * N * P, 2 * B * (S - Q) * H * N * P
+    flops = 2 * B * nc * kept * (N + H * P) + states + inter
+    tiles = B * nc * H * T * (T + 1) // 2
+    design = tiles * 2 * 256 * (N + P) + 2 * states + 3 * inter
+    exps = B * nc * H * kept
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "products": flops / BF16_FLOPS_PER_S * 1e3,
+             "exp": exps / exp2_per_s(clock_mhz) * 1e3}
+    by = max(terms, key=terms.get)
+    return {"bytes": nbytes, "flops": flops, "design_flops": design,
+            "exps": exps, "terms_ms": terms, "bound_ms": terms[by],
+            "bound_by": by,
+            "design_bound_ms": max(terms["bytes"], terms["exp"],
+                                   design / BF16_FLOPS_PER_S * 1e3)}
+
+
+def ssd_check(torch, got, want) -> dict:
+    """The kernel's (y, state) against the plain version's."""
+    (y, st), (y_r, st_r) = got, want
+    off = (y - y_r).abs()
+    top = float(y_r.abs().max())
+    out = {"y_rel": float((y - y_r).norm() / y_r.norm()),
+           "state_rel": float((st - st_r).norm() / st_r.norm()),
+           "y_max_off": float(off.max()) / top,
+           "y_share_off": float((off > SSD_REL_TOL * top).float().mean()),
+           "finite": bool(torch.isfinite(y).all() and
+                          torch.isfinite(st).all())}
+    out["ok"] = (out["finite"] and out["y_rel"] <= SSD_REL_TOL
+                 and out["state_rel"] <= SSD_REL_TOL
+                 and out["y_max_off"] <= SSD_FLIP_TOL
+                 and out["y_share_off"] <= SSD_FLIP_SHARE)
+    return out
+
+
+def time_ssd(torch, dev) -> dict:
+    """Phase 17a: at each docs length the kernel held against
+    `_ssd_chunked` on the same inputs (TF32 off), then both timed
+    (time_on_card: graph replays over a pool of inputs past the L2),
+    beside the bound."""
+    from repro_torch.kernels import ssd
+    from repro_torch.models import zamba2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    clock = sm_clock_mhz()
+    out = {}
+    with torch.no_grad():
+        for S in SSD_LENGTHS:
+            cost = ssd_cost(1, S, SSD_HEADS, SSD_CHUNK, clock)
+            pool = [ssd_inputs(torch, 1, S, SSD_HEADS, SEED + i, dev)
+                    for i in range(max(2, -(-64_000_000 // cost["bytes"])))]
+            check = ssd_check(torch, ssd.ssd_chunked(*pool[0], SSD_CHUNK),
+                              zamba2._ssd_chunked(*pool[0], SSD_CHUNK))
+            emit("kernel_check", kernel="ssd", S=S, **check)
+            if not check["ok"]:
+                raise AssertionError(f"ssd kernel at S={S} differs from "
+                                     f"_ssd_chunked: {check}")
+            kern = time_on_card(torch, lambda t: ssd.ssd_chunked(
+                *t, SSD_CHUNK), pool)
+            plain = time_on_card(torch, lambda t: zamba2._ssd_chunked(
+                *t, SSD_CHUNK), pool[:2], reps=5)
+            out[S] = {"B": 1, "H": SSD_HEADS, "chunk": SSD_CHUNK,
+                      "check": check, "ms": kern["graph_ms"],
+                      "stream_ms": kern["stream_ms"],
+                      "plain_ms": plain["graph_ms"],
+                      "plain_stream_ms": plain["stream_ms"], **cost,
+                      "bound_share": cost["bound_ms"] / kern["graph_ms"],
+                      "sm_clock_mhz": clock}
+            del pool
+            torch.cuda.empty_cache()
+    emit("kernel_time", kernel="ssd", times=out)
+    return out
+
+
+def ssd_requests(torch, dev, rounds=3) -> dict:
+    """Phase 17b: `rounds` x SSD_LENGTHS docs requests (12) through
+    build_prefill_step on zamba2-7b whole (bf16 parameters from SEED,
+    chunk 256, flash), tracer on: each launches the SSD kernel once a
+    Mamba2 block (81) and runs `_ssd_chunked` in none; then the same
+    requests with the plain version forced (a route that refuses all),
+    which count 81 each in `ssd.chunked`.  Per length, the median wall
+    time of a request (the call to the next token on the host) on each
+    route, and whether the two routes serve the same token."""
+    from repro_torch import trace
+    from repro_torch.configs import zamba2_7b
+    from repro_torch.kernels import ssd
+    from repro_torch.models import layers, registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import build_prefill_step
+
+    cfg = zamba2_7b.CONFIG
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = layers.tree_init(registry.param_defs(cfg), gen, torch.bfloat16)
+    steps = {S: build_prefill_step(cfg, RunConfig(
+        seq_len=S, global_batch=1, kind="prefill", param_dtype="bfloat16",
+        attn_impl="flash", ssm_chunk=SSD_CHUNK), device=dev)
+        for S in SSD_LENGTHS}
+    toks = {S: torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                             device=dev, dtype=torch.int32)
+            for S in SSD_LENGTHS}
+    order = [S for _ in range(rounds) for S in SSD_LENGTHS]
+    route = ssd.route
+
+    def serve():
+        for S in SSD_LENGTHS:                      # warm each length
+            steps[S](params, {"tokens": toks[S]})
+        torch.cuda.synchronize()
+        trace.reset()
+        trace.enable()
+        walls, kept = {S: [] for S in SSD_LENGTHS}, {}
+        try:
+            for S in order:
+                t = time.perf_counter()
+                tok, _ = steps[S](params, {"tokens": toks[S]})
+                int(tok[0, 0])
+                walls[S].append(time.perf_counter() - t)
+                kept[S] = tok
+            counts = trace.counters()
+        finally:
+            trace.disable()
+            trace.reset()
+        return {"ms": {S: statistics.median(w) * 1e3
+                       for S, w in walls.items()},
+                "launches": counts.get("ssd.launches", 0),
+                "chunked": counts.get("ssd.chunked", 0)}, kept
+
+    kern, got = serve()
+    try:
+        ssd.route = lambda *a: "forced"
+        plain, want = serve()
+    finally:
+        ssd.route = route
+    blocks = cfg.n_layers * len(order)
+    same = {S: bool(torch.equal(got[S], want[S])) for S in SSD_LENGTHS}
+    out = {"requests": len(order), "blocks": blocks, "kernel": kern,
+           "plain": plain, "same_token": same}
+    emit("ssd_requests", **out)
+    if (kern["launches"], kern["chunked"]) != (blocks, 0) or \
+            (plain["launches"], plain["chunked"]) != (0, blocks):
+        raise AssertionError(f"ssd launches {kern['launches']}, chunked "
+                             f"{kern['chunked']} for {blocks} blocks; forced "
+                             f"plain: {plain['launches']}, "
+                             f"{plain['chunked']}")
+    del params
+    free(torch, dev)
+    return out
+
+
+def ssd_phase(torch, dev) -> dict:
+    """Phase 17: time_ssd, then ssd_requests."""
+    return {"times": time_ssd(torch, dev), "requests": ssd_requests(torch,
+                                                                    dev)}
+
+
 def first_flash_calls(torch, fa, ref, dev):
     """One short call of each compiled kernel, checked before anything
     heavier runs: a fault of a pipeline shows here in seconds.  The tf32
@@ -3338,8 +3552,9 @@ def run(mode: str = "") -> int:
     flash = ["flash_attention", "flash_tf32"]
     names = {"--flash-only": flash, "--parity-only": ["xor_parity"],
              "--train-only": ["xor_parity"], "--entry-only": ["xor_parity"],
-             "--parallel-only": flash, "--typed-times": flash}.get(
-                 mode, ["xor_parity", *flash])
+             "--parallel-only": flash, "--typed-times": flash,
+             "--ssd-only": ["ssd", *flash]}.get(
+                 mode, ["xor_parity", *flash, "ssd"])
     if mode == "--typed-times":     # an older tree has no tf32 source
         names = [n for n in names if (_build.CSRC / f"{n}.cu").exists()]
     built = _build.build(names)
@@ -3375,6 +3590,9 @@ def run(mode: str = "") -> int:
     if mode == "--parallel-only":
         first_flash_calls(torch, fa, ref, dev)
         parallel(torch, fa, dev, smi)
+        return 0
+    if mode == "--ssd-only":
+        ssd_phase(torch, dev)
         return 0
     worst = check_kernel(torch, parity, ref, dev)
     ints = check_int_rows(torch, parity, ref, dev)
@@ -3412,6 +3630,8 @@ def run(mode: str = "") -> int:
     entry = entry_points(torch, parity, ops, dev)
     fams = families(torch, fa, parity, ops, dev)
     par = parallel(torch, fa, dev, smi)
+    ssd_res = ssd_phase(torch, dev)
+    st = ssd_res["times"][max(SSD_LENGTHS)]
 
     k4, fm, fz = times[4], flash_times["main"], flash_times["zamba2_d112"]
     timed_keys = ("B", "H", "Hkv", "S", "D", "variant", "ms", "strided_ms",
@@ -3521,7 +3741,22 @@ def run(mode: str = "") -> int:
                 "dtypes", "variant", "width", "ms", "plain_ms", "bound_ms",
                 "bound_by", "bound_term", "design_bound_ms", "library_ms",
                 "check")}
-                for name, t in typed_times.items()}}}
+                for name, t in typed_times.items()}}}, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": None,
+        "launches": ssd_res["requests"]["kernel"]["launches"],
+        "chunked": ssd_res["requests"]["kernel"]["chunked"],
+        "max_rel_err": max(max(t["check"]["y_rel"], t["check"]["state_rel"])
+                           for t in ssd_res["times"].values()),
+        "ms": st["ms"], "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "design_bound_ms": st["design_bound_ms"], "library_ms": None,
+        "timed": {S: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "bound_share")}
+                  for S, t in ssd_res["times"].items()},
+        "request_ms": {"kernel": ssd_res["requests"]["kernel"]["ms"],
+                       "plain": ssd_res["requests"]["plain"]["ms"]}}
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3532,7 +3767,8 @@ def run(mode: str = "") -> int:
 
 if __name__ == "__main__":
     modes = ("--flash-only", "--parity-only", "--train-only", "--entry-only",
-             "--families-only", "--parallel-only", "--typed-times")
+             "--families-only", "--parallel-only", "--typed-times",
+             "--ssd-only")
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
         sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:

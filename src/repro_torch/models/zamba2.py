@@ -10,6 +10,8 @@ SSD runs in the chunked parallel form for train/prefill (`_ssd_chunked`,
 chunk `rc.ssm_chunk`) with the reference's dtypes: the decay cumsum/exp in
 f32, the big (B,nc,Q,Q,H) intra-chunk term cast to the compute dtype, and
 every contraction taken in f32 (the reference's preferred_element_type).
+A bf16 prefill on the card computes the same in `kernels.ssd` instead,
+with no (B,nc,Q,Q,H) tensor in device memory.
 Decode is a one-step state update, written into the cache in place.  With
 `rc.remat == "full"` each Mamba2 block is recomputed in the backward pass,
 and so is each whole group (shared attention included), nested as in the
@@ -27,6 +29,7 @@ from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import trace
+from repro_torch.kernels import ssd
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -136,6 +139,8 @@ def _ssd_chunked(xh, Bm, Cm, da, dt, chunk, cdt=torch.bfloat16):
 def _ssd(xh, Bm, Cm, da, dt, state, chunk: int, cdt):
     """The SSD of a block: chunked over the sequence without a state,
     else one decode step (S == 1) from `state`.  Returns (y f32, state).
+    The chunked form runs on the card's SSD kernel where `ssd.route` takes
+    the inputs (a bf16 prefill on CUDA tensors), else `_ssd_chunked`.
 
     On DTensors it runs on each device's own batch rows (dp axes) and
     heads ("model") through `local_map`: DTensor's einsum would merge a
@@ -144,6 +149,10 @@ def _ssd(xh, Bm, Cm, da, dt, state, chunk: int, cdt):
     over "model"."""
     def run(xh, Bm, Cm, da, dt, state):
         if state is None:
+            if ssd.route(xh, Bm, Cm, da, dt, chunk, cdt) == "kernel":
+                return ssd.ssd_chunked(xh, Bm, Cm, da, dt, chunk)
+            if xh.is_cuda:
+                trace.add("ssd.chunked", 1)
             return _ssd_chunked(xh, Bm, Cm, da, dt, chunk, cdt)
         kv = torch.einsum("bsn,bsh,bshp->bhnp", Bm.float(), dt, xh.float())
         state = torch.exp(da)[:, 0, :, None, None] * state + kv

@@ -29,7 +29,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
-from repro_torch.kernels import flash_attention, parity
+from repro_torch.kernels import flash_attention, parity, ssd
 
 SPANS = (
     "rt:prefill.forward",   # the prefill step's model forward
@@ -71,6 +71,7 @@ COUNTERS = (
     "ckpt.write_bytes",     # bytes written to data and parity files
     "ckpt.read_bytes",      # bytes read of data, surviving stripes, parity
     "ckpt.rebuilt",         # stripes rebuilt from parity
+    "ssd.chunked",          # blocks whose SSD ran `_ssd_chunked` on the card
 )
 
 _NULL = contextlib.nullcontext()
@@ -124,7 +125,8 @@ def add_device(name: str, t: torch.Tensor) -> None:
 
 def _launches() -> dict[str, int]:
     return {"flash.launches": flash_attention.LAUNCHES,
-            "parity.launches": parity.LAUNCHES}
+            "parity.launches": parity.LAUNCHES,
+            "ssd.launches": ssd.LAUNCHES}
 
 
 def enable() -> None:
@@ -147,7 +149,8 @@ def reset() -> None:
 
 def counters() -> dict:
     """{name: count} since the last `reset`: the host counters, the device
-    ones (read here, one transfer a device) and K3's and K1/K2's launches."""
+    ones (read here, one transfer a device) and the launches of K3, K1/K2
+    and the SSD kernel."""
     out = dict(_host)
     on: dict[torch.device, list[str]] = {}
     for n, acc in _device.items():

@@ -151,7 +151,8 @@ def test_off_enters_no_record_function(path, monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", _raise)
     monkeypatch.setattr(torch.autograd.profiler, "record_function", _raise)
     PATHS[path]()
-    assert trace.counters() == {"flash.launches": 0, "parity.launches": 0}
+    assert trace.counters() == {"flash.launches": 0, "parity.launches": 0,
+                                "ssd.launches": 0}
 
 
 def _same(a: dict, b: dict) -> None:
