@@ -154,7 +154,14 @@ the last line:
      build_prefill_step on zamba2-7b whole, tracer on: 81 kernel launches
      and no `_ssd_chunked` block each, and the same requests with the
      plain version forced (81 `ssd.chunked` each), each route's median
-     wall time a request.
+     wall time a request; then (17c) the kernel at Granite 4.0-H Small's
+     N = 128 (H = 128, P = 64, chunk 256) and beside it at N = 64
+     (zamba2's H = 112), S = 2048 ... 8192: each held against
+     `_ssd_chunked` and timed beside its bound, a block a call; K3 as
+     Granite calls it (H = 32, Hkv = 8, D = 128, softmax scale 1/128, on
+     the strided views) at the same S against its plain version; and a
+     request of each S on Granite 4.0-H Small whole: 36 SSD and 4 K3
+     launches each, none of `_ssd_chunked`.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -1186,7 +1193,7 @@ def flash_cost(B, H, Hkv, S, D, dtype, clock_mhz, peak=None) -> dict:
 
 
 def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
-                       window=0) -> dict:
+                       window=0, scale=None) -> dict:
     """The kernel's output `got` vs the plain version's `want` on q, k, v
     at a prefill shape, held element by element to
     r (|want| + |v|_P / 2) + a, where |v|_P is the plain version run on
@@ -1196,11 +1203,13 @@ def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
     rounding of P to bf16 before PV (2^-9 a weight, with slack); float16
     is the same at 2^-9, its rounding being 4 times finer.  At S=4096 a
     typical bf16 output is 0.03-0.04 and this limit about 3.5e-3, where a
-    fixed 2e-2 would pass a dropped or repeated KV tile."""
+    fixed 2e-2 would pass a dropped or repeated KV tile.  `scale` is the
+    softmax scale both were run with (None: 1/sqrt(D))."""
     dname = str(q.dtype).removeprefix("torch.")
     want = want.float()
     weighted = ref.flash_attention_ref(q, k, ref.decode(v).abs(),
-                                       causal=causal, window=window).float()
+                                       causal=causal, window=window,
+                                       scale=scale).float()
     err = (got.float() - want).abs()
     mag = want.abs()
     limit = (FLASH_REL_TOL[dname] * (mag + weighted / 2)
@@ -3225,12 +3234,12 @@ SSD_HEADS, SSD_CHUNK = 112, 256
 SSD_REL_TOL, SSD_FLIP_TOL, SSD_FLIP_SHARE = 1e-4, 2.0 ** -8, 1e-3
 
 
-def ssd_inputs(torch, B, S, H, seed, dev):
+def ssd_inputs(torch, B, S, H, seed, dev, N=64):
     """A block's SSD inputs as `_mamba_block` hands them (views of one
     activation), drawn as the docs cell's Mamba2 leaves are: x, B, C silu
     of normal draws in bf16, dt = softplus(raw + dt_bias) with dt0
-    log-uniform in [0.001, 0.1], A uniform in [1, 16]."""
-    N = P = 64
+    log-uniform in [0.001, 0.1], A uniform in [1, 16]; state size N."""
+    P = 64
     g = torch.Generator(device=dev).manual_seed(seed)
     xbc = torch.nn.functional.silu(torch.randn(
         B, S, H * P + 2 * N, generator=g, device=dev)).to(torch.bfloat16)
@@ -3245,7 +3254,7 @@ def ssd_inputs(torch, B, S, H, seed, dev):
             dt)
 
 
-def ssd_cost(B, S, H, Q, clock_mhz) -> dict:
+def ssd_cost(B, S, H, Q, clock_mhz, N=64) -> dict:
     """The least time of one block's SSD: its bytes (x, B, C, da, dt read
     once, y and the final state written once) at HBM_BYTES_PER_S, the
     products it needs (C B^T once a chunk and att x on the lower
@@ -3253,7 +3262,7 @@ def ssd_cost(B, S, H, Q, clock_mhz) -> dict:
     bf16 peak, one exp a kept pair at exp2_per_s; and the design's own
     products (C B^T for each head, B w in two pieces, S_{c-1} in three,
     over whole 16 x 16 tiles of the triangles) at the bf16 peak."""
-    N = P = 64
+    P = 64
     nc, T = S // Q, Q // 16
     nbytes = (B * S * H * P * (2 + 4) + 2 * B * S * N * 2
               + 2 * B * S * H * 4 + B * H * N * P * 4)
@@ -3292,11 +3301,13 @@ def ssd_check(torch, got, want) -> dict:
     return out
 
 
-def time_ssd(torch, dev) -> dict:
+def time_ssd(torch, dev, lengths=SSD_LENGTHS, H=SSD_HEADS, N=64,
+             label="ssd") -> dict:
     """Phase 17a: at each docs length the kernel held against
     `_ssd_chunked` on the same inputs (TF32 off), then both timed
     (time_on_card: graph replays over a pool of inputs past the L2),
-    beside the bound."""
+    beside the bound; at other `lengths`, heads `H` and state size `N`
+    for phase 17c."""
     from repro_torch.kernels import ssd
     from repro_torch.models import zamba2
 
@@ -3304,13 +3315,13 @@ def time_ssd(torch, dev) -> dict:
     clock = sm_clock_mhz()
     out = {}
     with torch.no_grad():
-        for S in SSD_LENGTHS:
-            cost = ssd_cost(1, S, SSD_HEADS, SSD_CHUNK, clock)
-            pool = [ssd_inputs(torch, 1, S, SSD_HEADS, SEED + i, dev)
+        for S in lengths:
+            cost = ssd_cost(1, S, H, SSD_CHUNK, clock, N)
+            pool = [ssd_inputs(torch, 1, S, H, SEED + i, dev, N)
                     for i in range(max(2, -(-64_000_000 // cost["bytes"])))]
             check = ssd_check(torch, ssd.ssd_chunked(*pool[0], SSD_CHUNK),
                               zamba2._ssd_chunked(*pool[0], SSD_CHUNK))
-            emit("kernel_check", kernel="ssd", S=S, **check)
+            emit("kernel_check", kernel=label, S=S, **check)
             if not check["ok"]:
                 raise AssertionError(f"ssd kernel at S={S} differs from "
                                      f"_ssd_chunked: {check}")
@@ -3318,7 +3329,7 @@ def time_ssd(torch, dev) -> dict:
                 *t, SSD_CHUNK), pool)
             plain = time_on_card(torch, lambda t: zamba2._ssd_chunked(
                 *t, SSD_CHUNK), pool[:2], reps=5)
-            out[S] = {"B": 1, "H": SSD_HEADS, "chunk": SSD_CHUNK,
+            out[S] = {"B": 1, "H": H, "N": N, "chunk": SSD_CHUNK,
                       "check": check, "ms": kern["graph_ms"],
                       "stream_ms": kern["stream_ms"],
                       "plain_ms": plain["graph_ms"],
@@ -3327,8 +3338,23 @@ def time_ssd(torch, dev) -> dict:
                       "sm_clock_mhz": clock}
             del pool
             torch.cuda.empty_cache()
-    emit("kernel_time", kernel="ssd", times=out)
+    emit("kernel_time", kernel=label, times=out)
     return out
+
+
+# phase 17c: the SSD kernel at Granite 4.0-H Small's state size (N = 128,
+# H = 128) beside zamba2's (N = 64, H = 112), a block a call
+SSD_SIZE_LENGTHS = (2048, 4096, 6144, 8192)
+GRANITE_SSD_HEADS = 128
+
+
+def time_ssd_sizes(torch, dev) -> dict:
+    """Phase 17c: time_ssd at N = 128 and at N = 64 over
+    SSD_SIZE_LENGTHS."""
+    return {"n128": time_ssd(torch, dev, SSD_SIZE_LENGTHS, GRANITE_SSD_HEADS,
+                             128, "ssd_n128"),
+            "n64": time_ssd(torch, dev, SSD_SIZE_LENGTHS, SSD_HEADS, 64,
+                            "ssd_n64")}
 
 
 def ssd_requests(torch, dev, rounds=3) -> dict:
@@ -3405,10 +3431,125 @@ def ssd_requests(torch, dev, rounds=3) -> dict:
     return out
 
 
+# K3 as Granite 4.0-H Small's attention layers call it: H, Hkv, D and the
+# softmax scale (attention_multiplier, 1/128 where 1/sqrt(D) would be
+# 1/11.3)
+GRANITE_ATTN = (32, 8, 128, 0.0078125)
+
+
+def check_granite_attention(torch, fa, ref, dev) -> dict:
+    """Phase 17c: K3 as `transformer._flash` calls it in Granite 4.0-H
+    Small (bf16, causal, GRANITE_ATTN, on the strided (B,S,H,D) views)
+    at S in SSD_SIZE_LENGTHS, held element by element against the plain
+    version with the same scale (check_flash_scaled)."""
+    H, Hkv, D, scale = GRANITE_ATTN
+    out = {}
+    for S in SSD_SIZE_LENGTHS:
+        q, k, v = qkv(torch, 1, H, Hkv, S, S, D, torch.bfloat16, S, dev,
+                      strided=True)
+        name = fa.route(q, k, v)
+        check = check_flash_scaled(
+            torch, ref, fa.flash_attention(q, k, v, scale=scale),
+            ref.flash_attention_ref(q, k, v, scale=scale), q, k, v,
+            scale=scale)
+        emit("kernel_check", kernel="flash_attention", shape="granite",
+             S=S, scale=scale, variant=name, **check)
+        if not check["worst_over_limit"] <= 1.0:
+            raise AssertionError(f"flash_attention at Granite's shape, "
+                                 f"S={S}, scale {scale}, differs from its "
+                                 f"plain version: {check}")
+        out[S] = {"variant": name, **check}
+        del q, k, v
+    return out
+
+
+def bf16_params(torch, cfg, dev, seed=SEED) -> dict:
+    """Random bf16 parameters of `cfg` on `dev`, drawn as
+    layers.tree_init draws them but a slice of a leaf's leading (layer)
+    axis at a time: a 64 GB model never holds a float32 leaf."""
+    from repro_torch.models import layers, registry
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for path, d in layers.tree_items(registry.param_defs(cfg)):
+        a = torch.empty(d.shape, dtype=torch.bfloat16, device=dev)
+        if d.init in ("zeros", "ones"):
+            a.fill_(float(d.init == "ones"))
+        else:
+            fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+            std = d.scale / math.sqrt(max(1, fan_in))
+            for part in (a if len(d.shape) >= 3 else [a]):
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       device=dev).mul_(std))
+        layers.tree_set(out, path, a)
+    return out
+
+
+def granite_requests(torch, fa, dev) -> dict:
+    """Phase 17c: a request of each length in SSD_SIZE_LENGTHS through
+    build_prefill_step on Granite 4.0-H Small whole (bf16_params, chunk
+    256, flash), each length warmed first; the kernels' launch counts set
+    to 0 just before the requests, then each request launches the SSD
+    kernel once a Mamba2 layer (36), K3 once an attention layer (4), and
+    runs `_ssd_chunked` in none (`ssd.chunked`, tracer on)."""
+    from repro_torch import trace
+    from repro_torch.configs import granite4_h_small
+    from repro_torch.kernels import ssd
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import build_prefill_step
+
+    cfg = granite4_h_small.CONFIG
+    params = bf16_params(torch, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    steps, toks = {}, {}
+    for S in SSD_SIZE_LENGTHS:
+        steps[S] = build_prefill_step(cfg, RunConfig(
+            seq_len=S, global_batch=1, kind="prefill",
+            param_dtype="bfloat16", attn_impl="flash",
+            ssm_chunk=SSD_CHUNK), device=dev)
+        toks[S] = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                                device=dev, dtype=torch.int32)
+        steps[S](params, {"tokens": toks[S]})
+    torch.cuda.synchronize()
+    mamba = cfg.layer_types.count("mamba")
+    want = {"ssd": mamba, "flash": cfg.n_layers - mamba}
+    trace.reset()
+    trace.enable()
+    ssd.LAUNCHES = fa.LAUNCHES = 0
+    per = {}
+    try:
+        for S in SSD_SIZE_LENGTHS:
+            s0, f0 = ssd.LAUNCHES, fa.LAUNCHES
+            t = time.perf_counter()
+            tok, _ = steps[S](params, {"tokens": toks[S]})
+            int(tok[0, 0])
+            per[S] = {"ms": (time.perf_counter() - t) * 1e3,
+                      "ssd": ssd.LAUNCHES - s0, "flash": fa.LAUNCHES - f0}
+        chunked = trace.counters().get("ssd.chunked", 0)
+    finally:
+        trace.disable()
+        trace.reset()
+    out = {"requests": per, "chunked": chunked, "want": want,
+           "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    emit("granite_requests", **out)
+    del params, steps
+    free(torch, dev)
+    if chunked or any({k: r[k] for k in want} != want for r in per.values()):
+        raise AssertionError(f"granite launches {per}, chunked {chunked}; "
+                             f"{want} a request wanted")
+    return out
+
+
 def ssd_phase(torch, dev) -> dict:
-    """Phase 17: time_ssd, then ssd_requests."""
-    return {"times": time_ssd(torch, dev), "requests": ssd_requests(torch,
-                                                                    dev)}
+    """Phase 17: time_ssd, ssd_requests, then time_ssd_sizes,
+    check_granite_attention and granite_requests (17c)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    return {"times": time_ssd(torch, dev),
+            "requests": ssd_requests(torch, dev),
+            "sizes": time_ssd_sizes(torch, dev),
+            "granite_attention": check_granite_attention(torch, fa, ref,
+                                                         dev),
+            "granite_requests": granite_requests(torch, fa, dev)}
 
 
 def first_flash_calls(torch, fa, ref, dev):
@@ -3756,7 +3897,11 @@ def run(mode: str = "") -> int:
                                         "bound_by", "bound_share")}
                   for S, t in ssd_res["times"].items()},
         "request_ms": {"kernel": ssd_res["requests"]["kernel"]["ms"],
-                       "plain": ssd_res["requests"]["plain"]["ms"]}}
+                       "plain": ssd_res["requests"]["plain"]["ms"]},
+        "sizes": {n: {S: {k: t[k] for k in ("H", "N", "ms", "bound_ms",
+                                             "bound_by", "bound_share")}
+                      for S, t in times.items()}
+                  for n, times in ssd_res["sizes"].items()}}
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@
 // This computes the same function without them, with the same rounding
 // points: xh (B, S, H, P) bf16, Bm and Cm (B, S, N) bf16, da and dt
 // (B, S, H) float32 -> y (B, S, H, P) float32 and the final state
-// (B, H, N, P) float32, for P = N = 64, any B and H, and a chunk Q of 16,
-// 32, 64, 128 or 256 dividing S.  Per chunk c and head h, with j <= i
+// (B, H, N, P) float32, for P = 64 and N = 64 (zamba2) or 128 (Granite
+// 4.0-H), any B and H, and a chunk Q of 16, 32, 64, 128 or 256 dividing S.
+// Every kernel is a template on N.  Per chunk c and head h, with j <= i
 // positions of the chunk:
 //
 //   seg_i = da_0 + ... + da_i                         (float32, in order)
@@ -44,16 +45,17 @@
 //     and w written head by head, so the other kernels read a head's
 //     positions side by side (read head by head from (B, S, H), they cost
 //     the states kernel a quarter of its time);
-//   ssd_states (grid H x nc x B, 4 warps): st_c by mma.sync m16n8k16, B w
-//     in two pieces, B's and x's rows in two copy groups so that the first
-//     half's products start while the second half lands;
+//   ssd_states (grid H x nc x B, N / 16 warps): st_c by mma.sync m16n8k16,
+//     B w in two pieces, B's and x's rows in two copy groups so that the
+//     first half's products start while the second half lands;
 //   ssd_scan (grid 16 x H x B): S_c over the chunks in order, an element
 //     a thread; st_c is overwritten by S_{c-1}, the state before chunk c
 //     (run instead by the last of a head's states blocks to finish, the
 //     scans queued at the end and took longer than this kernel);
-//   ssd_output (grid H x nc x B, Q / 32 warps, two blocks an SM): C's
-//     fragments in registers, then S_{c-1} in three bf16 pieces where C
-//     was; each warp owns query tiles t and T - 1 - t of 16 rows (equal
+//   ssd_output (grid H x nc x B, Q / 32 warps, two blocks an SM at N = 64,
+//     one at N = 128): C's fragments in registers, then S_{c-1} in three
+//     bf16 pieces where C was; each warp owns query tiles t and T - 1 - t
+//     of 16 rows (equal
 //     work) and walks the key tiles j <= i (none above the diagonal is
 //     computed or exponentiated): C . B and att in registers, att x and
 //     the pieces' products accumulated on the tensor cores.  Its first
@@ -61,16 +63,18 @@
 //     group.  Its largest cost in instructions is expf, which it keeps:
 //     a cheaper exponential would move att across bf16 rounding
 //     boundaries that the plain version's expf does not.
+//
+// Shared memory at Q = 256: B's and C's tiles are N wide, x's P wide.
+// ssd_states holds B and x (N = 64: 72.7 KB; N = 128: 107.5 KB, two
+// blocks an SM either way); ssd_output holds C (or the state's three
+// pieces, 3 x N rows of P), B, x, seg and dt: 110 KB at N = 64 and 174 KB
+// at N = 128, under the 227 KB a block may take.
 #include "flash_common.cuh"
 
 namespace {
 
-constexpr int kN = 64;                 // state size (zamba2's ssm_state)
-constexpr int kP = 64;                 // head dim (zamba2's ssm_head_dim)
-constexpr int kPitch = 2 * 64 + 16;    // bytes a tile row: 64 bf16 and 16
-                                       // of padding (ldmatrix, no conflict)
+constexpr int kP = 64;                 // head dim (ssm_head_dim)
 constexpr int kMaxQ = 256;
-constexpr int kStatesThreads = 128;    // 4 warps: 16 state rows each
 constexpr int kScanThreads = 256;
 constexpr int kPrepHeads = 32;         // ssd_prep: a lane a head
 constexpr int kPrepWarps = 8;
@@ -97,18 +101,26 @@ struct SsdParams {
   int B, S, H, Q;
 };
 
+// bytes a tile row of W bf16: the row and 16 of padding (ldmatrix reads
+// 8 rows without a bank conflict)
+__host__ __device__ constexpr int pitch(int W) { return 2 * W + 16; }
+
+// the byte offset of 16-byte piece `chunk` of row r in a tile W wide
+template <int W>
 __device__ __forceinline__ int at(int r, int chunk) {
-  return r * kPitch + (chunk << 4);
+  return r * pitch(W) + (chunk << 4);
 }
 
-// rows x 64 bf16 (row r at src + r * ss) into the tile `dst` by cp.async
+// rows x W bf16 (row r at src + r * ss) into the tile `dst` by cp.async
 // of 16 bytes
+template <int W>
 __device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src,
                                           int64_t ss, int rows, int tid,
                                           int threads) {
-  for (int i = tid; i < rows * 8; i += threads) {
-    const int r = i >> 3, ch = i & 7;
-    cp_async<16>(smem_u32(dst + at(r, ch)), src + r * ss + ch * 8, true);
+  constexpr int kPer = W / 8;
+  for (int i = tid; i < rows * kPer; i += threads) {
+    const int r = i / kPer, ch = i % kPer;
+    cp_async<16>(smem_u32(dst + at<W>(r, ch)), src + r * ss + ch * 8, true);
   }
 }
 
@@ -208,14 +220,20 @@ __global__ void __launch_bounds__(kPrepHeads * kPrepWarps)
   }
 }
 
-__global__ void __launch_bounds__(kStatesThreads)
+// ssd_states' threads: N / 16 warps, 16 state rows each
+template <int N>
+__host__ __device__ constexpr int states_threads() { return 2 * N; }
+
+template <int N>
+__global__ void __launch_bounds__(states_threads<N>())
     ssd_states(const SsdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kThreads = states_threads<N>();
   const int Q = p.Q, h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int nc = gridDim.y;
-  unsigned char* Bs = smem;                  // [Q][64] bf16, B_j
-  unsigned char* Xs = Bs + Q * kPitch;       // [Q][64] bf16, x_j of head h
-  float* w = reinterpret_cast<float*>(Xs + Q * kPitch);  // [Q] w_j
+  unsigned char* Bs = smem;                  // [Q][N] bf16, B_j
+  unsigned char* Xs = Bs + Q * pitch(N);     // [Q][P] bf16, x_j of head h
+  float* w = reinterpret_cast<float*>(Xs + Q * pitch(kP));  // [Q] w_j
   const int tid = threadIdx.x;
   const int64_t s0 = (int64_t)c * Q;
 
@@ -225,14 +243,14 @@ __global__ void __launch_bounds__(kStatesThreads)
   const bf16* xsrc = p.x + b * p.x_sb + s0 * p.x_ss + h * p.x_sh;
   for (int half = 0; half < 2; ++half) {
     const int r0 = half * Q / 2;
-    load_rows(Bs + r0 * kPitch, bsrc + r0 * p.b_ss, p.b_ss, Q / 2, tid,
-              kStatesThreads);
-    load_rows(Xs + r0 * kPitch, xsrc + r0 * p.x_ss, p.x_ss, Q / 2, tid,
-              kStatesThreads);
+    load_rows<N>(Bs + r0 * pitch(N), bsrc + r0 * p.b_ss, p.b_ss, Q / 2, tid,
+                 kThreads);
+    load_rows<kP>(Xs + r0 * pitch(kP), xsrc + r0 * p.x_ss, p.x_ss, Q / 2,
+                  tid, kThreads);
     cp_commit();
   }
   const float* wg = p.w + ((int64_t)b * p.H + h) * p.S + s0;
-  for (int j = tid; j < Q; j += kStatesThreads) w[j] = wg[j];
+  for (int j = tid; j < Q; j += kThreads) w[j] = wg[j];
   cp_wait<1>();
   __syncthreads();
 
@@ -250,7 +268,8 @@ __global__ void __launch_bounds__(kStatesThreads)
     }
     // A (n x j) from B stored [j][n]: transposed 8x8 matrices
     uint32_t a[4], hi[4], lo[4];
-    ldsm_x4_t(bs + at(16 * ks + lr + ((lm >> 1) << 3), 2 * wp + (lm & 1)), a);
+    ldsm_x4_t(bs + at<N>(16 * ks + lr + ((lm >> 1) << 3), 2 * wp + (lm & 1)),
+              a);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int j = 16 * ks + 2 * t + ((r >> 1) << 3);
@@ -263,15 +282,16 @@ __global__ void __launch_bounds__(kStatesThreads)
 #pragma unroll
     for (int dp = 0; dp < kP / 16; ++dp) {
       uint32_t bf[4];
-      ldsm_x4_t(xs + at(16 * ks + lr + ((lm & 1) << 3), 2 * dp + (lm >> 1)),
-                bf);
+      ldsm_x4_t(
+          xs + at<kP>(16 * ks + lr + ((lm & 1) << 3), 2 * dp + (lm >> 1)),
+          bf);
       mma_bf16(acc[2 * dp], hi, bf[0], bf[1]);
       mma_bf16(acc[2 * dp], lo, bf[0], bf[1]);
       mma_bf16(acc[2 * dp + 1], hi, bf[2], bf[3]);
       mma_bf16(acc[2 * dp + 1], lo, bf[2], bf[3]);
     }
   }
-  float* out = p.st + (((int64_t)b * nc + c) * p.H + h) * (kN * kP);
+  float* out = p.st + (((int64_t)b * nc + c) * p.H + h) * (N * kP);
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     const int n = 16 * wp + g, col = 8 * nt + 2 * t;
@@ -284,12 +304,13 @@ __global__ void __launch_bounds__(kStatesThreads)
 
 // S_c = exp(seg_last,c) * S_{c-1} + st_c over the chunks in order, an
 // element of (N, P) a thread; st_c becomes S_{c-1}
+template <int N>
 __global__ void __launch_bounds__(kScanThreads) ssd_scan(const SsdParams p) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int e = blockIdx.x * kScanThreads + threadIdx.x;
   const int nc = p.S / p.Q;
-  const int64_t step = (int64_t)p.H * kN * kP;
-  float* st = p.st + ((int64_t)b * nc * p.H + h) * (kN * kP) + e;
+  const int64_t step = (int64_t)p.H * N * kP;
+  float* st = p.st + ((int64_t)b * nc * p.H + h) * (N * kP) + e;
   const float* last = p.seg + ((int64_t)b * p.H + h) * p.S + p.Q - 1;
   float s = 0.f;
   for (int c0 = 0; c0 < nc; c0 += 8) {  // 8 chunks' loads in flight
@@ -307,25 +328,35 @@ __global__ void __launch_bounds__(kScanThreads) ssd_scan(const SsdParams p) {
         s = __fadd_rn(__fmul_rn(gl[k], s), add[k]);
       }
   }
-  p.state[((int64_t)b * p.H + h) * (kN * kP) + e] = s;
+  p.state[((int64_t)b * p.H + h) * (N * kP) + e] = s;
 }
 
-// bytes of ssd_output's shared memory at chunk Q: C's tile, where the
-// state's three pieces go after (3 x 64 rows), B's and x's, seg and dt
+// bytes of ssd_output's C region at chunk Q: C's tile (Q rows of N), where
+// the state's three pieces go after (3 x N rows of P)
+template <int N>
+__host__ __device__ constexpr int output_c_bytes(int Q) {
+  return Q * pitch(N) > 3 * N * pitch(kP) ? Q * pitch(N)
+                                          : 3 * N * pitch(kP);
+}
+
+// bytes of ssd_output's shared memory: the C region, B's and x's tiles,
+// seg and dt
+template <int N>
 __host__ __device__ constexpr int output_smem(int Q) {
-  return (Q > 3 * kN ? Q : 3 * kN) * kPitch + 2 * Q * kPitch + 2 * Q * 4;
+  return output_c_bytes<N>(Q) + Q * pitch(N) + Q * pitch(kP) + 2 * Q * 4;
 }
 
-__global__ void __launch_bounds__(kMaxQ, 2)
+template <int N>
+__global__ void __launch_bounds__(kMaxQ, N == 64 ? 2 : 1)
     ssd_output(const SsdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Q = p.Q, T = Q / 16, h = blockIdx.x, c = blockIdx.y,
             b = blockIdx.z;
   const int nc = gridDim.y;
-  unsigned char* Cs = smem;  // [Q][64] C_i; then [3][64][64] S_{c-1}
-  unsigned char* Bs = Cs + (Q > 3 * kN ? Q : 3 * kN) * kPitch;
-  unsigned char* Xs = Bs + Q * kPitch;
-  float* seg = reinterpret_cast<float*>(Xs + Q * kPitch);
+  unsigned char* Cs = smem;  // [Q][N] C_i; then [3][N][P] S_{c-1}
+  unsigned char* Bs = Cs + output_c_bytes<N>(Q);
+  unsigned char* Xs = Bs + Q * pitch(N);
+  float* seg = reinterpret_cast<float*>(Xs + Q * pitch(kP));
   float* dt = seg + Q;
   const int tid = threadIdx.x, threads = blockDim.x;
   const int64_t s0 = (int64_t)c * Q;
@@ -335,20 +366,20 @@ __global__ void __launch_bounds__(kMaxQ, 2)
   // (all a warp's first query tile needs), then the second half
   constexpr int kPre = 4;
   const float4* prev = reinterpret_cast<const float4*>(
-      p.st + (((int64_t)b * nc + c) * p.H + h) * (kN * kP));
+      p.st + (((int64_t)b * nc + c) * p.H + h) * (N * kP));
   float4 pre[kPre];
 #pragma unroll
   for (int k = 0; k < kPre; ++k)
-    if (c > 0 && tid + k * threads < kN * kP / 4) pre[k] = prev[tid + k * threads];
+    if (c > 0 && tid + k * threads < N * kP / 4) pre[k] = prev[tid + k * threads];
   const bf16* bsrc = p.bm + b * p.b_sb + s0 * p.b_ss;
   const bf16* xsrc = p.x + b * p.x_sb + s0 * p.x_ss + h * p.x_sh;
-  load_rows(Cs, p.cm + b * p.c_sb + s0 * p.c_ss, p.c_ss, Q, tid, threads);
+  load_rows<N>(Cs, p.cm + b * p.c_sb + s0 * p.c_ss, p.c_ss, Q, tid, threads);
   for (int half = 0; half < 2; ++half) {
     const int r0 = half * Q / 2;
-    load_rows(Bs + r0 * kPitch, bsrc + r0 * p.b_ss, p.b_ss, Q / 2, tid,
-              threads);
-    load_rows(Xs + r0 * kPitch, xsrc + r0 * p.x_ss, p.x_ss, Q / 2, tid,
-              threads);
+    load_rows<N>(Bs + r0 * pitch(N), bsrc + r0 * p.b_ss, p.b_ss, Q / 2, tid,
+                 threads);
+    load_rows<kP>(Xs + r0 * pitch(kP), xsrc + r0 * p.x_ss, p.x_ss, Q / 2,
+                  tid, threads);
     cp_commit();
   }
   {
@@ -365,15 +396,15 @@ __global__ void __launch_bounds__(kMaxQ, 2)
   const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
   const int ntiles = T == 1 ? 1 : 2;
   // the A fragments of C for this warp's query tiles wp and T - 1 - wp
-  uint32_t cf[2][kN / 16][4];
+  uint32_t cf[2][N / 16][4];
   const uint32_t cs = smem_u32(Cs), bs = smem_u32(Bs), xs = smem_u32(Xs);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     if (k < ntiles) {
       const int ti = k == 0 ? wp : T - 1 - wp;
 #pragma unroll
-      for (int ks = 0; ks < kN / 16; ++ks)
-        ldsm_x4(cs + at(16 * ti + lr + ((lm & 1) << 3), 2 * ks + (lm >> 1)),
+      for (int ks = 0; ks < N / 16; ++ks)
+        ldsm_x4(cs + at<N>(16 * ti + lr + ((lm & 1) << 3), 2 * ks + (lm >> 1)),
                 cf[k][ks]);
     }
   }
@@ -392,13 +423,14 @@ __global__ void __launch_bounds__(kMaxQ, 2)
       }
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        *reinterpret_cast<uint2*>(Cs + k * kN * kPitch + at(n, 0) + col * 2) =
+        *reinterpret_cast<uint2*>(Cs + k * N * pitch(kP) + at<kP>(n, 0) +
+                                  col * 2) =
             make_uint2(pair(pc[k][0], pc[k][1]), pair(pc[k][2], pc[k][3]));
     };
 #pragma unroll
     for (int k = 0; k < kPre; ++k)
-      if (tid + k * threads < kN * kP / 4) pieces(tid + k * threads, pre[k]);
-    for (int i = tid + kPre * threads; i < kN * kP / 4; i += threads)
+      if (tid + k * threads < N * kP / 4) pieces(tid + k * threads, pre[k]);
+    for (int i = tid + kPre * threads; i < N * kP / 4; i += threads)
       pieces(i, prev[i]);
   }
   if (c > 0 || T == 1) {  // the pieces written; one tile needs every row
@@ -424,9 +456,9 @@ __global__ void __launch_bounds__(kMaxQ, 2)
       // C . B for keys 16 u ... 16 u + 15
       float cb[2][4] = {};
 #pragma unroll
-      for (int ks = 0; ks < kN / 16; ++ks) {
+      for (int ks = 0; ks < N / 16; ++ks) {
         uint32_t bf[4];
-        ldsm_x4(bs + at(16 * u + lr + ((lm >> 1) << 3), 2 * ks + (lm & 1)),
+        ldsm_x4(bs + at<N>(16 * u + lr + ((lm >> 1) << 3), 2 * ks + (lm & 1)),
                 bf);
         mma_bf16(cb[0], cf[k][ks], bf[0], bf[1]);
         mma_bf16(cb[1], cf[k][ks], bf[2], bf[3]);
@@ -462,8 +494,9 @@ __global__ void __launch_bounds__(kMaxQ, 2)
 #pragma unroll
       for (int dp = 0; dp < kP / 16; ++dp) {
         uint32_t bf[4];
-        ldsm_x4_t(xs + at(16 * u + lr + ((lm & 1) << 3), 2 * dp + (lm >> 1)),
-                  bf);
+        ldsm_x4_t(
+            xs + at<kP>(16 * u + lr + ((lm & 1) << 3), 2 * dp + (lm >> 1)),
+            bf);
         mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
         mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
       }
@@ -474,13 +507,13 @@ __global__ void __launch_bounds__(kMaxQ, 2)
       for (int dp = 0; dp < kP / 16; ++dp) {
         float tmp[2][4] = {};
 #pragma unroll
-        for (int ks = 0; ks < kN / 16; ++ks)
+        for (int ks = 0; ks < N / 16; ++ks)
 #pragma unroll
           for (int pc = 0; pc < 3; ++pc) {
             uint32_t bf[4];
-            ldsm_x4_t(cs + pc * kN * kPitch +
-                          at(16 * ks + lr + ((lm & 1) << 3),
-                             2 * dp + (lm >> 1)),
+            ldsm_x4_t(cs + pc * N * pitch(kP) +
+                          at<kP>(16 * ks + lr + ((lm & 1) << 3),
+                                 2 * dp + (lm >> 1)),
                       bf);
             mma_bf16(tmp[0], cf[k][ks], bf[0], bf[1]);
             mma_bf16(tmp[1], cf[k][ks], bf[2], bf[3]);
@@ -504,18 +537,38 @@ __global__ void __launch_bounds__(kMaxQ, 2)
   }
 }
 
-bool prep_attr = false, states_attr = false, output_attr = false;
-
 __host__ constexpr int prep_smem(int Q) {
   return 2 * Q * (kPrepHeads + 1) * 4;
 }
-__host__ constexpr int states_smem(int Q) { return 2 * Q * kPitch + Q * 4; }
+template <int N>
+__host__ constexpr int states_smem(int Q) {
+  return Q * pitch(N) + Q * pitch(kP) + Q * 4;
+}
+
+bool prep_attr = false;
+
+// The three N-dependent kernels after ssd_prep, their shared memory set
+// once each
+template <int N>
+int launch_n(const SsdParams& p, int H, int S, int Q, int B,
+             cudaStream_t s) {
+  static bool states_attr = false, output_attr = false;
+  int err = set_smem(ssd_states<N>, states_attr, states_smem<N>(kMaxQ));
+  if (err == 0)
+    err = set_smem(ssd_output<N>, output_attr, output_smem<N>(kMaxQ));
+  if (err != 0) return err;
+  const dim3 grid(H, S / Q, B);  // the heads of a chunk side by side
+  ssd_states<N><<<grid, states_threads<N>(), states_smem<N>(Q), s>>>(p);
+  ssd_scan<N><<<dim3(N * kP / kScanThreads, H, B), kScanThreads, 0, s>>>(p);
+  ssd_output<N><<<grid, 32 * ((Q / 16 + 1) / 2), output_smem<N>(Q), s>>>(p);
+  return 0;
+}
 
 }  // namespace
 
 // Floats of scratch `ssd_launch` needs: seg, dt and w, then st.
-extern "C" int64_t ssd_scratch_floats(int B, int S, int H, int Q) {
-  return 3 * (int64_t)B * H * S + (int64_t)B * (S / Q) * H * kN * kP;
+extern "C" int64_t ssd_scratch_floats(int B, int S, int H, int N, int Q) {
+  return 3 * (int64_t)B * H * S + (int64_t)B * (S / Q) * H * N * kP;
 }
 
 // The SSD of one block, four kernels on `stream`.  Pointers: x, Bm, Cm
@@ -528,7 +581,8 @@ extern "C" int ssd_launch(const void* x, const void* bm, const void* cm,
                           void* state, void* scratch, const int64_t* strides,
                           int B, int S, int H, int N, int P, int Q,
                           void* stream) {
-  if (N != kN || P != kP || B < 1 || H < 1 || Q < 16 || Q > kMaxQ ||
+  if ((N != 64 && N != 128) || P != kP || B < 1 || H < 1 || Q < 16 ||
+      Q > kMaxQ ||
       (Q & (Q - 1)) != 0 || S < Q || S % Q != 0 ||
       (uintptr_t)scratch % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -554,15 +608,12 @@ extern "C" int ssd_launch(const void* x, const void* bm, const void* cm,
   p.H = H;
   p.Q = Q;
   int err = set_smem(ssd_prep, prep_attr, prep_smem(kMaxQ));
-  if (err == 0) err = set_smem(ssd_states, states_attr, states_smem(kMaxQ));
-  if (err == 0) err = set_smem(ssd_output, output_attr, output_smem(kMaxQ));
   if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(H, S / Q, B);  // the heads of a chunk side by side
   ssd_prep<<<dim3((H + kPrepHeads - 1) / kPrepHeads, S / Q, B),
              kPrepHeads * kPrepWarps, prep_smem(Q), s>>>(p);
-  ssd_states<<<grid, kStatesThreads, states_smem(Q), s>>>(p);
-  ssd_scan<<<dim3(kN * kP / kScanThreads, H, B), kScanThreads, 0, s>>>(p);
-  ssd_output<<<grid, 32 * ((Q / 16 + 1) / 2), output_smem(Q), s>>>(p);
+  err = N == 64 ? launch_n<64>(p, H, S, Q, B, s)
+                : launch_n<128>(p, H, S, Q, B, s);
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }

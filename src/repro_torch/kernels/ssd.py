@@ -24,7 +24,8 @@ import torch
 from repro_torch.kernels import _build
 
 CHUNKS = (16, 32, 64, 128, 256)  # the chunk lengths the kernel takes
-DIMS = (64, 64)                  # its (N, P): zamba2's state and head dim
+# the (N, P) pairs it takes: zamba2's and Granite 4.0-H's state and head dim
+DIMS = ((64, 64), (128, 64))
 
 LAUNCHES = 0
 _launch: list = []
@@ -48,7 +49,7 @@ def route(xh, Bm, Cm, da, dt, chunk: int, cdt) -> str:
                 kernel has no backward);
       "dtype"   xh, Bm, Cm not bfloat16, da, dt not float32, or `cdt` not
                 bfloat16;
-      "dims"    shapes that do not match, or (N, P) other than DIMS;
+      "dims"    shapes that do not match, or (N, P) not in DIMS;
       "chunk"   a chunk not in CHUNKS or not dividing S;
       "layout"  rows of xh, Bm, Cm not 16-byte aligned and dense;
       "device"  not all on one CUDA device (every CPU tensor)."""
@@ -62,7 +63,7 @@ def route(xh, Bm, Cm, da, dt, chunk: int, cdt) -> str:
     if xh.dim() != 4 or Bm.dim() != 3 or da.dim() != 3:
         return "dims"
     B, S, H, P = xh.shape
-    if ((Bm.shape[-1], P) != DIMS or Bm.shape != Cm.shape
+    if ((Bm.shape[-1], P) not in DIMS or Bm.shape != Cm.shape
             or tuple(Bm.shape[:2]) != (B, S)
             or da.shape != (B, S, H) or dt.shape != (B, S, H)):
         return "dims"
@@ -87,7 +88,7 @@ def _launcher():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         size = lib.ssd_scratch_floats
-        size.argtypes = [ctypes.c_int] * 4
+        size.argtypes = [ctypes.c_int] * 5
         size.restype = ctypes.c_int64
         _launch.extend((fn, size))
     return _launch
@@ -106,7 +107,7 @@ def ssd_chunked(xh, Bm, Cm, da, dt, chunk: int):
     y = torch.empty((B, S, H, P), **f32)
     state = torch.empty((B, H, N, P), **f32)
     launch, scratch_floats = _launcher()
-    scratch = torch.empty(scratch_floats(B, S, H, chunk), **f32)
+    scratch = torch.empty(scratch_floats(B, S, H, N, chunk), **f32)
     strides = (ctypes.c_int64 * 13)(
         *xh.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2],
         *da.stride(), *dt.stride())

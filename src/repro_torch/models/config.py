@@ -44,6 +44,14 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma multiplies embeddings by sqrt(d)
+    # granite_hybrid (the port's own): at these defaults nothing is applied
+    layer_types: tuple = ()          # each layer's mixer: mamba | attention
+    embed_mult: float = 1.0          # embeddings times this
+    residual_mult: float = 1.0       # each sublayer's output times this
+    attn_scale: float = 0.0          # softmax scale; 0: 1/sqrt(head_dim)
+    logits_scale: float = 1.0        # logits divided by this
+    d_ff_shared: int = 0             # a shared SwiGLU expert's width
+    conv_bias: bool = False          # Mamba2's conv has a bias
 
     @property
     def is_moe(self) -> bool:

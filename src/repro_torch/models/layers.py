@@ -259,20 +259,21 @@ def act_fn(name: str):
             "relu": F.relu}[name]
 
 
-def attention_scores(q, k, v, mask, dtype=torch.bfloat16):
+def attention_scores(q, k, v, mask, dtype=torch.bfloat16, scale=None):
     """Reference (non-flash) attention. q:(B,Sq,H,D) k/v:(B,Sk,Hkv,D).
 
     GQA handled by reshaping q into (B,Sq,Hkv,G,D).  QK^T is taken in
-    float32 (bf16 products are exact there).  DTensors go through
+    float32 (bf16 products are exact there), then divided by sqrt(D), or
+    times `scale` where one is given.  DTensors go through
     `_sharded_attention`."""
     if isinstance(q, DTensor):
-        return _sharded_attention(q, k, v, mask, dtype)
+        return _sharded_attention(q, k, v, mask, dtype, scale)
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
-    logits = logits / math.sqrt(D)
+    logits = logits / math.sqrt(D) if scale is None else logits * scale
     keep = mask[:, None, None, :, :] if mask.dim() == 3 else mask
     logits = logits.masked_fill(~keep, -1e30)
     probs = torch.softmax(logits, dim=-1).to(dtype)
@@ -281,7 +282,7 @@ def attention_scores(q, k, v, mask, dtype=torch.bfloat16):
     return out.reshape(B, Sq, H, D)
 
 
-def _sharded_attention(q, k, v, mask, dtype):
+def _sharded_attention(q, k, v, mask, dtype, scale=None):
     """`attention_scores` on DTensors through `local_map`: each device
     takes its own batch rows over the dp axes and its own query heads over
     "model".  Where the model axis divides the query heads but not the KV
@@ -306,7 +307,7 @@ def _sharded_attention(q, k, v, mask, dtype):
             pick = slice(h0, h0 + q.shape[2])
             k = k.repeat_interleave(H // Hkv, dim=2)[:, :, pick]
             v = v.repeat_interleave(H // Hkv, dim=2)[:, :, pick]
-        return attention_scores(q, k, v, mask, dtype)
+        return attention_scores(q, k, v, mask, dtype, scale)
 
     # one output: its placements as a list (a tuple reads as several)
     return local_map(local, out_placements=list(qp),

@@ -54,14 +54,32 @@ def capacity(cfg, n_tokens: int) -> int:
 
 
 def moe_ffn(cfg, p, x, rc):
-    """x: (T, d) -> (T, d), aux load-balance loss (scalar)."""
+    """x: (T, d) -> (T, d), aux load-balance loss (scalar).  With
+    `cfg.d_ff_shared`, a shared SwiGLU expert over every token is added
+    to the routed experts' sum."""
     with trace.span("rt:moe"):
-        if rc.shard_moe_tokens:
-            mesh = sh.get_ambient_mesh()
-            if mesh is not None and "model" in mesh.mesh_dim_names \
-                    and cfg.n_experts % sh.axis_size(mesh, "model") == 0:
-                return moe_ffn_sharded(cfg, p, x, rc, mesh)
-        return _moe_ffn_global(cfg, p, x, rc)
+        y, aux = _routed(cfg, p, x, rc)
+        if cfg.d_ff_shared:
+            with trace.span("rt:moe.shared"):
+                y = y + _shared_expert(p, x, getattr(torch, rc.compute_dtype))
+        return y, aux
+
+
+def _routed(cfg, p, x, rc):
+    if rc.shard_moe_tokens:
+        mesh = sh.get_ambient_mesh()
+        if mesh is not None and "model" in mesh.mesh_dim_names \
+                and cfg.n_experts % sh.axis_size(mesh, "model") == 0:
+            return moe_ffn_sharded(cfg, p, x, rc, mesh)
+    return _moe_ffn_global(cfg, p, x, rc)
+
+
+def _shared_expert(p, x, cdt):
+    """The shared expert's SwiGLU over every token of x (T, d)."""
+    x = x.to(cdt)
+    g = x @ p["shared_wg"].to(cdt)
+    u = x @ p["shared_wu"].to(cdt)
+    return (F.silu(g) * u) @ p["shared_wd"].to(cdt)
 
 
 def route(cfg, p, x):

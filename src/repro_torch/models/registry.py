@@ -4,10 +4,11 @@ from __future__ import annotations
 import math
 
 from repro_torch.models import layers as L
-from repro_torch.models import rwkv6, transformer, zamba2
+from repro_torch.models import granite_hybrid, rwkv6, transformer, zamba2
 from repro_torch.models.config import ModelConfig
 
-FAMILY = {"transformer": transformer, "rwkv6": rwkv6, "zamba2": zamba2}
+FAMILY = {"transformer": transformer, "rwkv6": rwkv6, "zamba2": zamba2,
+          "granite_hybrid": granite_hybrid}
 
 
 def module(cfg: ModelConfig):

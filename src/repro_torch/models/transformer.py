@@ -75,13 +75,19 @@ def _mlp_defs(cfg: ModelConfig, n: int):
     D = lambda *s, lg, init="normal": L.ParamDef((n, *s), (None, *lg), init)
     if cfg.is_moe:
         E, f = cfg.n_experts, cfg.d_ff_expert
-        return {
+        defs = {
             "ln": D(d, lg=(None,), init="zeros"),
             "router": D(d, E, lg=(None, None)),
             "wg": D(E, d, f, lg=("model", None, None)),
             "wu": D(E, d, f, lg=("model", None, None)),
             "wd": D(E, f, d, lg=("model", None, None)),
         }
+        if cfg.d_ff_shared:
+            fs = cfg.d_ff_shared
+            defs |= {"shared_wg": D(d, fs, lg=(None, "model")),
+                     "shared_wu": D(d, fs, lg=(None, "model")),
+                     "shared_wd": D(fs, d, lg=("model", None))}
+        return defs
     f = cfg.d_ff
     return {
         "ln": D(d, lg=(None,), init="zeros"),
@@ -149,14 +155,25 @@ def _qkv(cfg, p, x, cdt):
     return q, k, v
 
 
+def _residual(cfg, x, y):
+    """x + y, y times `cfg.residual_mult` first where that is not 1."""
+    if cfg.residual_mult != 1.0:
+        y = y * cfg.residual_mult
+    return constrain(x + y, ("batch", None, None))
+
+
+def _scale(cfg):
+    """The softmax scale: `cfg.attn_scale`, or None (1/sqrt(D)) at 0."""
+    return cfg.attn_scale or None
+
+
 def _attn_out(cfg, p, out, x, cdt):
     out = L.merge_heads(out)
-    return constrain(x + L.matmul(out, p["wo"].to(cdt)),
-                     ("batch", None, None))
+    return _residual(cfg, x, L.matmul(out, p["wo"].to(cdt)))
 
 
 def _chunked_attention(q, k, v, window, prefix_len, chunk, cdt,
-                       q_offset_base=0):
+                       q_offset_base=0, scale=None):
     """Row-chunked softmax attention: bounds logits memory to
     B*H*chunk*Sk."""
     Sq = q.shape[1]
@@ -166,7 +183,8 @@ def _chunked_attention(q, k, v, window, prefix_len, chunk, cdt,
                              q_offset=q_offset_base + i * chunk,
                              device=q.device)
         outs.append(L.attention_scores(q[:, i * chunk:(i + 1) * chunk], k,
-                                       v, mask[None], dtype=cdt))
+                                       v, mask[None], dtype=cdt,
+                                       scale=scale))
     return torch.cat(outs, dim=1)
 
 
@@ -189,13 +207,15 @@ def attn_block(cfg, p, x, window: int, prefix_len, rc, positions=None,
         v = constrain(v, ("batch", None, "model", None))
         with trace.span("rt:attn.kernel"):
             out = _attention(q, k, v, window, prefix_len, rc, cdt,
-                             uniform_window)
+                             uniform_window, _scale(cfg))
         return _attn_out(cfg, p, out, x, cdt), (k, v)
 
 
-def _attention(q, k, v, window: int, prefix_len, rc, cdt, uniform_window):
+def _attention(q, k, v, window: int, prefix_len, rc, cdt, uniform_window,
+               scale=None):
     """Softmax attention of (B,S,H,D) q over k, v: the flash kernel, the
-    row-chunked form or the whole scores, by `rc.attn_impl`."""
+    row-chunked form or the whole scores, by `rc.attn_impl`; `scale`
+    None is 1/sqrt(D)."""
     S = q.shape[1]
     if rc.attn_impl == "flash" and not prefix_len and uniform_window:
         if torch.is_grad_enabled() and q.requires_grad:
@@ -203,16 +223,17 @@ def _attention(q, k, v, window: int, prefix_len, rc, cdt, uniform_window):
                 "the flash-attention kernel is forward only, as the "
                 "reference's is: train with attn_impl 'ref', 'chunked' or "
                 "'auto'")
-        return _flash(q, k, v, window).to(cdt)
+        return _flash(q, k, v, window, scale).to(cdt)
     if rc.attn_impl == "chunked" or (rc.attn_impl == "auto" and S > 2048):
         chunk = next((c for c in (rc.attn_chunk, 512, 256, 128, 64)
                       if c <= S and S % c == 0), S)
-        return _chunked_attention(q, k, v, window, prefix_len, chunk, cdt)
+        return _chunked_attention(q, k, v, window, prefix_len, chunk, cdt,
+                                  scale=scale)
     mask = L.causal_mask(S, S, window, prefix_len, device=q.device)
-    return L.attention_scores(q, k, v, mask[None], dtype=cdt)
+    return L.attention_scores(q, k, v, mask[None], dtype=cdt, scale=scale)
 
 
-def _flash(q, k, v, window: int):
+def _flash(q, k, v, window: int, scale=None):
     """The hand-written kernel (kernels/flash_attention.py) on (B,S,H,D)
     activations: it reads them through their (B,H,S,D) views and writes
     its output in q's order, (B,S,H,D), with no copy on either side.
@@ -225,7 +246,7 @@ def _flash(q, k, v, window: int):
     def run(q, k, v):
         return kops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window).transpose(1, 2)
+            causal=True, window=window, scale=scale).transpose(1, 2)
 
     if not isinstance(q, DTensor):
         return run(q, k, v)
@@ -250,7 +271,7 @@ def cross_attn_block(cfg, p, x, enc_kv, rc):
     q = L.split_heads(L.matmul(h, p["wq"].to(cdt)), H, Dh)
     k, v = enc_kv
     mask = torch.ones((1, S, k.shape[1]), dtype=torch.bool, device=x.device)
-    out = L.attention_scores(q, k, v, mask, dtype=cdt)
+    out = L.attention_scores(q, k, v, mask, dtype=cdt, scale=_scale(cfg))
     return _attn_out(cfg, p, out, x, cdt)
 
 
@@ -268,7 +289,8 @@ def decode_attn_block(cfg, p, x, window, cache_k, cache_v, pos: int, rc):
     cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
     mask = L.decode_mask(cache_k.shape[1], pos, window, device=x.device)
-    out = L.attention_scores(q, cache_k, cache_v, mask[None], dtype=cdt)
+    out = L.attention_scores(q, cache_k, cache_v, mask[None], dtype=cdt,
+                             scale=_scale(cfg))
     return _attn_out(cfg, p, out, x, cdt), (cache_k, cache_v)
 
 
@@ -286,14 +308,14 @@ def mlp_block(cfg, p, x, rc):
         y, aux = moe_lib.moe_ffn(cfg, p, hf, rc)
         if isinstance(y, DTensor):
             y = y.redistribute(hf.device_mesh, hf.placements)
-        return constrain(x + y.reshape(B, S, d), ("batch", None, None)), aux
+        return _residual(cfg, x, y.reshape(B, S, d)), aux
     with trace.span("rt:mlp"):
         g = L.matmul(h, p["wg"].to(cdt))
         u = L.matmul(h, p["wu"].to(cdt))
         hidden = L.act_fn(cfg.act)(g) * u
         hidden = constrain(hidden, ("batch", None, "model"))
         y = L.matmul(hidden, p["wd"].to(cdt))
-        return (constrain(x + y, ("batch", None, None)),
+        return (_residual(cfg, x, y),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -336,6 +358,8 @@ def _embed(cfg, params, tokens, rc):
     x = sh.unshard(params["embed"])[tokens].to(cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
+    if cfg.embed_mult != 1.0:
+        x = x * cfg.embed_mult
     return constrain(x, ("batch", None, None))
 
 
@@ -410,7 +434,10 @@ def unembed(cfg, params, x, rc):
     cdt = _dtype(rc.compute_dtype)
     head = (sh.unshard(params["embed"]).to(cdt).T if cfg.tie_embeddings
             else sh.unshard(params["lm_head"]).to(cdt))
-    return constrain(L.matmul(x, head), ("batch", None, "model"))
+    logits = L.matmul(x, head)
+    if cfg.logits_scale != 1.0:
+        logits = logits / cfg.logits_scale
+    return constrain(logits, ("batch", None, "model"))
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, dtype,
@@ -474,7 +501,8 @@ def decode_attn_block_ring(cfg, p, x, window, cache_k, cache_v, pos: int,
     slots = torch.arange(W, device=x.device)
     abs_pos = pos - torch.remainder(pos - slots, W)
     mask = (abs_pos >= 0)[None, :]
-    out = L.attention_scores(q, cache_k, cache_v, mask[None], dtype=cdt)
+    out = L.attention_scores(q, cache_k, cache_v, mask[None], dtype=cdt,
+                             scale=_scale(cfg))
     return _attn_out(cfg, p, out, x, cdt), (cache_k, cache_v)
 
 

@@ -58,7 +58,7 @@ def _mamba_defs(cfg: ModelConfig, lead: tuple[int, ...]):
     proj_out = 2 * d_in + 2 * N + H
     D = lambda *s, lg=None, init="normal": L.ParamDef(
         (*lead, *s), (None,) * len(lead) + (lg or (None,) * len(s)), init)
-    return {
+    defs = {
         "ln": D(d, init="zeros"),
         "in_proj": D(d, proj_out, lg=(None, "model")),
         "conv_w": D(cfg.conv_width, conv_dim, init="zeros"),
@@ -68,6 +68,9 @@ def _mamba_defs(cfg: ModelConfig, lead: tuple[int, ...]):
         "gn": D(d_in, init="zeros"),
         "out_proj": D(d_in, d, lg=("model", None)),
     }
+    if cfg.conv_bias:
+        defs["conv_b"] = D(conv_dim, init="zeros")
+    return defs
 
 
 def param_defs(cfg: ModelConfig):
@@ -179,7 +182,9 @@ def _ssd(xh, Bm, Cm, da, dt, state, chunk: int, cdt):
 
 
 def _mamba_block(cfg, p, x, rc, conv_prev=None, state=None):
-    """Returns (x_out, new_conv_state, new_ssm_state)."""
+    """Returns (x_out, new_conv_state, new_ssm_state).  The conv adds
+    `conv_b` where the block has one (`cfg.conv_bias`), and the output
+    joins x times `cfg.residual_mult` where that is not 1."""
     with trace.span("rt:mamba"):
         cdt = getattr(torch, rc.compute_dtype)
         d_in, H, P, N, conv_dim = _dims(cfg)
@@ -192,6 +197,8 @@ def _mamba_block(cfg, p, x, rc, conv_prev=None, state=None):
         xbc = zxbcdt[..., d_in: d_in + conv_dim]
         dt_raw = zxbcdt[..., d_in + conv_dim:]
         xbc, conv_state = _conv1d(xbc, p["conv_w"].to(cdt), conv_prev)
+        if "conv_b" in p:
+            xbc = xbc + p["conv_b"].to(cdt)
         xbc = F.silu(xbc)
         xh = L.split_heads(xbc[..., :d_in], H, P)
         Bm = xbc[..., d_in: d_in + N]
@@ -208,7 +215,7 @@ def _mamba_block(cfg, p, x, rc, conv_prev=None, state=None):
         y = y * F.silu(z)
         y = L.rms_norm(y, p["gn"], cfg.norm_eps)
         out = y @ p["out_proj"].to(cdt)
-        return constrain(x + out, ("batch", None, None)), conv_state, state
+        return tfm._residual(cfg, x, out), conv_state, state
 
 
 def _shared(params):

@@ -49,6 +49,7 @@ SPANS = (
     "rt:moe.dispatch",      # the sort-based dispatch and the buffer fill
     "rt:moe.experts",       # the experts' batched products
     "rt:moe.combine",       # the gated sum back in token order
+    "rt:moe.shared",        # the shared expert over every token
     "rt:mamba",             # a Mamba2 block (`zamba2._mamba_block`)
     "rt:mamba.ssd",         # its SSD, chunked or one decode step
     "rt:ckpt.save",         # `CheckpointManager.save`

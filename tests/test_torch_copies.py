@@ -7,8 +7,9 @@ pipeline (`data/`), the model and run configurations
 table (`launch/cells.py`) hold no JAX and no kernel, so
 `repro_torch` keeps its own copy of every such module its paths reach
 instead of importing the reference (importing any `repro` module from
-the port is forbidden).  A copy equals its reference source after
-`port_source`, which
+the port is forbidden).  A copy, less the lines of `PORT_ONLY` (fields
+that only the port's own families read), equals its reference source
+after `port_source`, which
 
   * renames the package (`repro.` -> `repro_torch.`), and
   * drops the change-history tags of the reference comments
@@ -96,6 +97,23 @@ _HISTORY_TAGS = [
 ]
 
 
+# Lines the port adds to a copy, each block whole and once: fields of the
+# port's own model families, at defaults that leave every other model's
+# arithmetic as the reference computes it.
+PORT_ONLY = {
+    "models/config.py": """\
+    # granite_hybrid (the port's own): at these defaults nothing is applied
+    layer_types: tuple = ()          # each layer's mixer: mamba | attention
+    embed_mult: float = 1.0          # embeddings times this
+    residual_mult: float = 1.0       # each sublayer's output times this
+    attn_scale: float = 0.0          # softmax scale; 0: 1/sqrt(head_dim)
+    logits_scale: float = 1.0        # logits divided by this
+    d_ff_shared: int = 0             # a shared SwiGLU expert's width
+    conv_bias: bool = False          # Mamba2's conv has a bias
+""",
+}
+
+
 def port_source(text: str) -> str:
     """Reference module source -> the port's copy of it."""
     text = re.sub(r"\brepro\.", "repro_torch.", text)
@@ -108,6 +126,9 @@ def port_source(text: str) -> str:
 def test_copy_matches_reference(rel):
     ref = (SRC / "repro" / rel).read_text()
     port = (SRC / "repro_torch" / rel).read_text()
+    if rel in PORT_ONLY:
+        assert port.count(PORT_ONLY[rel]) == 1, rel
+        port = port.replace(PORT_ONLY[rel], "")
     assert port == port_source(ref), (
         f"src/repro_torch/{rel} drifted from src/repro/{rel}; "
         "re-copy it through port_source()")

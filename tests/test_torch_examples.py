@@ -262,7 +262,11 @@ def test_serve_batched_matches_reference(ref_mesh):
     with fresh_ids((ref_dlm, ref_llog, ref_rpc)):
         cluster = RefCluster(osts=4, mdses=1, clients=2, commit_interval=64)
         cfg = RefTrainerConfig(
-            model=RefModelConfig(**dataclasses.asdict(port_cfg.model)),
+            # the reference's fields only: the port's own (its granite
+            # family's) are at their defaults in this model
+            model=RefModelConfig(**{
+                f.name: getattr(port_cfg.model, f.name)
+                for f in dataclasses.fields(RefModelConfig)}),
             rc=RefRunConfig(**dataclasses.asdict(port_cfg.rc)),
             **{k: getattr(port_cfg, k) for k in (
                 "n_steps", "ckpt_every", "dataset_seqs", "n_writers",

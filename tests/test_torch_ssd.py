@@ -5,8 +5,9 @@ On the CPU: `route` names each reason a block's SSD takes the plain
 the kernel, and a CPU prefill counts nothing in `ssd.chunked` or
 `ssd.launches`.  On the card (the `card` tests, skipped without one, no
 JAX): the kernel against `_ssd_chunked` on the same card with TF32 off, at
-zamba2-7b's widths (H = 112, P = N = 64), from inputs drawn as the
-benchmark's zamba2 draws its Mamba2 leaves.
+zamba2-7b's widths (H = 112, P = N = 64) and Granite 4.0-H Small's (H =
+128, P = 64, N = 128), from inputs drawn as the benchmark's zamba2 draws
+its Mamba2 leaves.
 """
 import math
 
@@ -35,17 +36,17 @@ FLIP_TOL = 2.0 ** -8
 FLIP_SHARE = 1e-3
 
 
-def inputs(B, S, H, seed, device="cpu", heads=None):
+def inputs(B, S, H, seed, device="cpu", heads=None, n=N):
     """A block's SSD inputs as `_mamba_block` hands them: xh, Bm, Cm views
     of one (B, S, H P + 2 N) bf16 activation, silu of normal draws; dt =
     softplus(raw + dt_bias) with dt_bias = softplus^-1 of dt0, log dt0
     uniform in [log 0.001, log 0.1]; da = -exp(a_log) dt with exp(a_log)
     uniform in [1, 16].  `heads` (a slice) keeps those heads of each, as
-    views, as a head-sharded block sees them."""
+    views, as a head-sharded block sees them; `n` is the state size."""
     g = torch.Generator().manual_seed(seed)
     d_in = H * P
     xbc = torch.nn.functional.silu(
-        torch.randn(B, S, d_in + 2 * N, generator=g)).to(torch.bfloat16)
+        torch.randn(B, S, d_in + 2 * n, generator=g)).to(torch.bfloat16)
     u = torch.rand(H, generator=g)
     dt0 = torch.exp(math.log(1e-3) + (math.log(0.1) - math.log(1e-3)) * u)
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
@@ -55,7 +56,7 @@ def inputs(B, S, H, seed, device="cpu", heads=None):
     xbc, dt, a = xbc.to(device), dt.to(device), a.to(device)
     da = dt * a
     xh = xbc[..., :d_in].unflatten(-1, (H, P))
-    Bm, Cm = xbc[..., d_in:d_in + N], xbc[..., d_in + N:]
+    Bm, Cm = xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
     if heads is not None:
         xh, dt, da = xh[:, :, heads], dt[..., heads], da[..., heads]
     return xh, Bm, Cm, da, dt
@@ -83,6 +84,15 @@ def _reason(case):
                                   "layout", "device"])
 def test_route_names_each_reason(case):
     assert _reason(case) == case
+
+
+@pytest.mark.parametrize("n,why", [(64, "device"), (128, "device"),
+                                   (96, "dims"), (32, "dims")])
+def test_route_takes_the_state_sizes_of_dims(n, why):
+    """N = 64 and N = 128 pass every check a CPU tensor can pass (the
+    kernel's only refusal left is the device); other sizes go to the
+    plain version for their dims."""
+    assert ssd.route(*inputs(1, 64, 4, 3, n=n), 32, torch.bfloat16) == why
 
 
 def test_route_under_no_grad_and_at_chunks_it_does_not_take():
@@ -172,6 +182,13 @@ def test_card_batch_of_two(card):
 
 def test_card_head_slice_as_local_map_hands_it(card):
     _held(inputs(1, 1024, 112, 11, card, heads=slice(56, 112)), 256)
+
+
+@pytest.mark.parametrize("S", [256, 4096, 8192])
+@pytest.mark.parametrize("chunk", [256, 128])
+def test_card_granite_shapes(card, S, chunk):
+    """Granite 4.0-H Small's blocks: H = 128, P = 64, N = 128, B = 2."""
+    _held(inputs(2, S, 128, S + chunk, card, n=128), chunk)
 
 
 def test_card_prefill_takes_the_kernel_in_every_block(card):

@@ -1,8 +1,9 @@
 """The port's tracer (`repro_torch.trace`) on the CPU.
 
-* Off (the default), no path enters a `record_function`: a tiny phi3.5-moe
-  and zamba2 prefill, a Trainer's batch and 2-microbatch train step, and
-  a checkpoint save, stripe loss, parity-rebuild restore and retain.
+* Off (the default), no path enters a `record_function`: a tiny
+  phi3.5-moe, zamba2 and granite-4.0-h-small prefill, a Trainer's batch
+  and 2-microbatch train step, and a checkpoint save, stripe loss,
+  parity-rebuild restore and retain.
 * On, each path opens exactly the spans its layers own, every one named
   in `trace.SPANS`, and gives the same bits as off: outputs, parameters,
   moments and checkpoint files.
@@ -22,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import trace  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import granite4_h_small  # noqa: E402
 from repro_torch.core import LustreCluster  # noqa: E402
 from repro_torch.fsio import LustreClient  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -45,7 +47,8 @@ def _tracer_off():
 # ------------------------------------------------------------- the paths
 
 def _prefill(arch):
-    cfg = get_smoke_config(arch)
+    cfg = (granite4_h_small.SMOKE if arch == "granite-4.0-h-small"
+           else get_smoke_config(arch))
     rc = RunConfig(seq_len=128, global_batch=1, kind="prefill",
                    param_dtype="bfloat16", attn_impl="flash", ssm_chunk=32)
     gen = torch.Generator().manual_seed(0)
@@ -119,6 +122,7 @@ def _ckpt():
 
 PATHS = {"phimoe_prefill": lambda: _prefill("phi3.5-moe"),
          "zamba2_prefill": lambda: _prefill("zamba2-7b"),
+         "granite_prefill": lambda: _prefill("granite-4.0-h-small"),
          "train": _train, "ckpt": _ckpt}
 
 SPANS_OF = {
@@ -129,6 +133,11 @@ SPANS_OF = {
     "zamba2_prefill": {"rt:prefill.forward", "rt:prefill.head", "rt:mamba",
                        "rt:mamba.ssd", "rt:attn", "rt:attn.kernel",
                        "rt:mlp"},
+    "granite_prefill": {"rt:prefill.forward", "rt:prefill.head", "rt:mamba",
+                        "rt:mamba.ssd", "rt:attn", "rt:attn.kernel",
+                        "rt:moe", "rt:moe.route", "rt:moe.dispatch",
+                        "rt:moe.experts", "rt:moe.combine",
+                        "rt:moe.shared"},
     "train": {"rt:data.read", "rt:data.to_device", "rt:train.cast",
               "rt:train.forward", "rt:train.backward",
               "rt:train.accumulate", "rt:optim.adamw", "rt:attn",
