@@ -161,7 +161,22 @@ the last line:
      Granite calls it (H = 32, Hkv = 8, D = 128, softmax scale 1/128, on
      the strided views) at the same S against its plain version; and a
      request of each S on Granite 4.0-H Small whole: 36 SSD and 4 K3
-     launches each, none of `_ssd_chunked`.
+     launches each, none of `_ssd_chunked`;
+ 18. the MoE's row kernels (`kernels.moe_rows`, csrc/moe_rows.cu) at
+     Granite 4.0-H Small's routing (72 experts, top-10, T = 2048 ...
+     8192) and the chat cell's (16, top-2, T = 128 ... 8192), d = 4096,
+     router-made routings at capacity 1.25: the dispatch's buffer equal to
+     `_scatter`'s to the bit, y within one unit in the last place of
+     `_combine`'s (the share that differs printed), both bit for bit
+     against their plain versions and against a repeat, then each timed
+     (graph replays) beside its bound (bytes at 3.35 TB/s) and beside
+     `_scatter` / `_combine`; then a request of each S on Granite whole
+     and of 128 ... 8192 tokens on the chat cell's 16-layer phi3.5-moe
+     stage, tracer on, on the kernels (a `moe.kernel` a layer, no
+     `moe.plain`, two launches a layer) and forced onto the plain
+     functions (a `moe.plain` a layer), with the two routes' logit gap at
+     the last position; and a training forward and backward of
+     phi3.5-moe at 2 layers: no `moe.kernel`, a `moe.plain` a layer.
 
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -196,6 +211,11 @@ and 15; no result line.
     python3 chip_smoke.py --ssd-only
 
 runs phases 1, 2 (the SSD and flash libraries) and 17; no result line.
+
+    python3 chip_smoke.py --moe-only
+
+runs phases 1, 2 (the MoE rows library; the flash and SSD libraries are
+built at their first call) and 18; no result line.
 
     python3 chip_smoke.py --typed-times
 
@@ -3552,6 +3572,302 @@ def ssd_phase(torch, dev) -> dict:
             "granite_requests": granite_requests(torch, fa, dev)}
 
 
+# phase 18: the MoE's row kernels (`kernels.moe_rows`, csrc/moe_rows.cu)
+# at Granite 4.0-H Small's routing (72 experts, top-10) and the chat
+# cell's phi3.5-moe (16, top-2), d = 4096, a layer a call
+MOE_ROWS_SHAPES = {"granite": (72, 10, (2048, 4096, 6144, 8192)),
+                   "chat": (16, 2, (128, 512, 1024, 2048, 4096, 8192))}
+MOE_ROWS_D = 4096
+CHAT_LENGTHS = (128, 1024, 4096, 8192)
+
+
+def moe_rows_inputs(torch, E, k, T, seed, dev):
+    """One layer's dispatch and combine inputs as the router makes them:
+    x (T, d) bf16 of standard normal draws, a router (d, E) of std
+    1 / sqrt(d), `moe.route` and the unchanged `moe.dispatch` at capacity
+    1.25, and a drawn (E, C, d) bf16 expert output.  Returns (cfg, C, x,
+    top_p, order, dest, keep, out)."""
+    import types
+
+    from repro_torch.models import moe
+    cfg = types.SimpleNamespace(n_experts=E, top_k=k, capacity_factor=1.25)
+    C = moe.capacity(cfg, T)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(T, MOE_ROWS_D, generator=g, device=dev)
+    router = torch.randn(MOE_ROWS_D, E, generator=g, device=dev) / \
+        math.sqrt(MOE_ROWS_D)
+    top_p, top_e, _ = moe.route(cfg, {"router": router}, x)
+    order, dest, keep = moe.dispatch(cfg, top_e, C)
+    out = torch.randn(E, C, MOE_ROWS_D, generator=g,
+                      device=dev).to(torch.bfloat16)
+    return cfg, C, x.to(torch.bfloat16), top_p, order, dest, keep, out
+
+
+def ulps16(torch, a, b):
+    """|a - b| in units in the last place of a 16-bit type, elementwise
+    (each bit pattern as an ordered integer)."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def moe_rows_cost(E, k, T, C, kept) -> dict:
+    """The least time of each kernel, bytes at HBM_BYTES_PER_S: the
+    dispatch writes the whole buffer (empty rows too) and slot_row and
+    reads x, order and dest once; the combine reads the kept rows,
+    slot_row and the gates once and writes y."""
+    d2 = MOE_ROWS_D * 2
+    disp = E * C * d2 + T * d2 + T * k * (8 + 8 + 4)
+    comb = kept * d2 + T * k * (4 + 4) + T * d2
+    return {"dispatch_bytes": disp, "combine_bytes": comb,
+            "dispatch_bound_ms": disp / HBM_BYTES_PER_S * 1e3,
+            "combine_bound_ms": comb / HBM_BYTES_PER_S * 1e3}
+
+
+def check_moe_rows(torch, dev) -> dict:
+    """Phase 18a/b: at each shape of MOE_ROWS_SHAPES the kernels against
+    `_scatter` (the buffer equal to the bit, from the same `keep`) and
+    `_combine` (y within one unit in the last place: the kernel sums the
+    slots in order, `_combine`'s reduction in another), against their
+    plain versions (bit for bit: the same products summed in the same
+    order) and against themselves on a repeat; then each timed
+    (time_on_card, graph replays over a pool past the L2) beside its bound
+    and beside `_scatter` / `_combine`."""
+    from repro_torch.kernels import moe_rows
+    from repro_torch.models import moe
+    bf16 = torch.bfloat16
+    out = {}
+    with torch.no_grad():
+        for name, (E, k, lengths) in MOE_ROWS_SHAPES.items():
+            for T in lengths:
+                cfg, C, x, top_p, order, dest, keep, eo = moe_rows_inputs(
+                    torch, E, k, T, SEED + T, dev)
+                launches = moe_rows.LAUNCHES
+                buf, slot_row = moe_rows.dispatch_rows(x, order, dest, E, C,
+                                                       k)
+                y = moe_rows.combine_rows(eo, slot_row, top_p)
+                y2 = moe_rows.combine_rows(eo, slot_row, top_p)
+                torch.cuda.synchronize()
+                ran = moe_rows.LAUNCHES - launches
+                buf_p, slot_p = moe_rows.dispatch_rows_plain(x, order, dest,
+                                                             E, C, k)
+                y_p = moe_rows.combine_rows_plain(eo, slot_row, top_p)
+                want_buf = moe._scatter(x, order, dest, E, C, k, bf16)
+                want = moe._combine(eo, dest, order, top_p, k)
+                off = ulps16(torch, y, want)
+                kept = int(keep.sum())
+                check = {
+                    "buffer_equal": bool(torch.equal(buf, want_buf)),
+                    "slot_row_equal": bool(torch.equal(slot_row, slot_p)),
+                    "plain_buffer_equal": bool(torch.equal(buf, buf_p)),
+                    "y_equal_plain": bool(torch.equal(y, y_p)),
+                    "y_repeat_equal": bool(torch.equal(y, y2)),
+                    "y_max_ulps": int(off.max()),
+                    "y_share_off": float((off > 0).float().mean()),
+                    "launches": ran, "dropped_share": 1 - kept / (T * k)}
+                check["ok"] = (check["buffer_equal"]
+                               and check["slot_row_equal"]
+                               and check["plain_buffer_equal"]
+                               and check["y_equal_plain"]
+                               and check["y_repeat_equal"]
+                               and check["y_max_ulps"] <= 1 and ran == 3)
+                emit("kernel_check", kernel="moe_rows", shape=name, E=E,
+                     k=k, T=T, C=C, **check)
+                if not check["ok"]:
+                    raise AssertionError(f"moe_rows at {name} T={T} differs "
+                                         f"from the plain path: {check}")
+                del buf, buf_p, want_buf, y, y2, y_p, want
+                cost = moe_rows_cost(E, k, T, C, kept)
+                pool = [(x, order, dest, eo, slot_row, top_p)]
+                for i in range(1, max(2, -(-64_000_000 //
+                                           cost["dispatch_bytes"]))):
+                    _, _, *more = moe_rows_inputs(torch, E, k, T,
+                                                  SEED + T + i, dev)
+                    xi, tpi, oi, di, _, eoi = more
+                    _, sri = moe_rows.dispatch_rows(xi, oi, di, E, C, k)
+                    pool.append((xi, oi, di, eoi, sri, tpi))
+                times = {
+                    "dispatch": time_on_card(torch, lambda t: moe_rows
+                                             .dispatch_rows(t[0], t[1], t[2],
+                                                            E, C, k), pool),
+                    "dispatch_plain": time_on_card(torch, lambda t: moe
+                                                   ._scatter(t[0], t[1], t[2],
+                                                             E, C, k, bf16),
+                                                   pool, reps=5),
+                    "combine": time_on_card(torch, lambda t: moe_rows
+                                            .combine_rows(t[3], t[4], t[5]),
+                                            pool),
+                    "combine_plain": time_on_card(torch, lambda t: moe
+                                                  ._combine(t[3], t[2], t[1],
+                                                            t[5], k),
+                                                  pool, reps=5)}
+                row = {"E": E, "k": k, "T": T, "C": C, "check": check,
+                       **cost, **{f"{n}_ms": t["graph_ms"]
+                                  for n, t in times.items()},
+                       **{f"{n}_stream_ms": t["stream_ms"]
+                          for n, t in times.items()}}
+                for n in ("dispatch", "combine"):
+                    row[f"{n}_bound_share"] = row[f"{n}_bound_ms"] / \
+                        row[f"{n}_ms"]
+                out[f"{name}_{T}"] = row
+                del pool
+                free(torch, dev)
+    emit("kernel_time", kernel="moe_rows", times=out)
+    return out
+
+
+def moe_requests(torch, cfg, params, lengths, dev, tag) -> dict:
+    """Phase 18c/d: a request of each of `lengths` through
+    build_prefill_step (bf16, chunk 256, flash), each warmed first, tracer
+    on, with the MoE on the row kernels and then on `_scatter`/`_combine`
+    (`moe_rows.route` forced to refuse): each request's counts of
+    `moe.kernel`, `moe.plain` and the wrappers' launches, its wall time,
+    and the gap between the two routes' logits at the last position
+    (largest difference over the largest logit) and their tokens."""
+    from repro_torch import trace
+    from repro_torch.kernels import moe_rows
+    from repro_torch.models import registry
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train.steps import build_prefill_step
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rcs, steps, toks = {}, {}, {}
+    for S in lengths:
+        rcs[S] = RunConfig(seq_len=S, global_batch=1, kind="prefill",
+                           param_dtype="bfloat16", attn_impl="flash",
+                           ssm_chunk=SSD_CHUNK)
+        steps[S] = build_prefill_step(cfg, rcs[S], device=dev)
+        toks[S] = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                                device=dev, dtype=torch.int32)
+        steps[S](params, {"tokens": toks[S]})
+    torch.cuda.synchronize()
+
+    def serve():
+        per, logits = {}, {}
+        for S in lengths:
+            trace.reset()
+            trace.enable()
+            launches = moe_rows.LAUNCHES
+            try:
+                t = time.perf_counter()
+                tok, _ = steps[S](params, {"tokens": toks[S]})
+                int(tok[0, 0])
+                ms = (time.perf_counter() - t) * 1e3
+                counts = trace.counters()
+                launched = moe_rows.LAUNCHES - launches
+            finally:
+                trace.disable()
+                trace.reset()
+            with torch.no_grad():
+                x, *_ = registry.forward(cfg, params, {"tokens": toks[S]},
+                                         rcs[S])
+                logits[S] = registry.unembed(cfg, params, x[:, -1:],
+                                             rcs[S]).float()
+            per[S] = {"ms": ms, "moe.kernel": counts.get("moe.kernel", 0),
+                      "moe.plain": counts.get("moe.plain", 0),
+                      "launches": launched}
+        return per, logits
+
+    kern, got = serve()
+    route = moe_rows.route
+    try:
+        moe_rows.route = lambda *a: "forced"
+        plain, want = serve()
+    finally:
+        moe_rows.route = route
+    moe_layers = cfg.n_layers
+    gaps = {S: {"gap": float((got[S] - want[S]).abs().max()
+                             / want[S].abs().max()),
+                "same_token": bool(torch.equal(got[S].argmax(-1),
+                                               want[S].argmax(-1)))}
+            for S in lengths}
+    out = {"layers": moe_layers, "kernel": kern, "plain": plain,
+           "logits": gaps,
+           "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    emit("moe_requests", model=tag, **out)
+    bad = [S for S in lengths
+           if (kern[S]["moe.kernel"], kern[S]["moe.plain"],
+               kern[S]["launches"]) != (moe_layers, 0, 2 * moe_layers)
+           or (plain[S]["moe.kernel"], plain[S]["moe.plain"],
+               plain[S]["launches"]) != (0, moe_layers, 0)]
+    if bad:
+        raise AssertionError(f"{tag} requests at {bad}: {kern} on the "
+                             f"kernels, {plain} forced plain; {moe_layers} "
+                             f"MoE layers a request")
+    return out
+
+
+def moe_train_counts(torch, dev) -> dict:
+    """Phase 18e: a training forward and backward of phi3.5-moe at full
+    width, 2 layers (bf16 parameters that need gradients, 1 x 1024
+    tokens), tracer on: every MoE layer takes `_scatter`/`_combine`
+    (`moe.kernel` 0, `moe.plain` 2) and the wrappers launch nothing."""
+    from repro_torch import trace
+    from repro_torch.configs import phi35_moe
+    from repro_torch.kernels import moe_rows
+    from repro_torch.models import layers
+    from repro_torch.models.config import RunConfig
+    from repro_torch.train import steps
+
+    cfg = phi35_moe.CONFIG.scaled(n_layers=2)
+    params = bf16_params(torch, cfg, dev, SEED + 18)
+    leaves = [t.requires_grad_() for _, t in layers.tree_items(params)]
+    rc = RunConfig(seq_len=1024, global_batch=1, kind="train",
+                   param_dtype="bfloat16", compute_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (1, rc.seq_len), generator=gen,
+                         device=dev, dtype=torch.int64)
+    launches = moe_rows.LAUNCHES
+    trace.reset()
+    trace.enable()
+    try:
+        loss = steps.loss_fn(cfg, params, {"tokens": toks, "labels": toks},
+                             rc)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        counts = trace.counters()
+    finally:
+        trace.disable()
+        trace.reset()
+    out = {"layers": cfg.n_layers, "loss": float(loss.detach()),
+           "finite_grads": all(bool(torch.isfinite(g).all()) for g in grads),
+           "moe.kernel": counts.get("moe.kernel", 0),
+           "moe.plain": counts.get("moe.plain", 0),
+           "launches": moe_rows.LAUNCHES - launches}
+    emit("moe_train_counts", **out)
+    del params, leaves, grads, loss
+    free(torch, dev)
+    if (out["moe.kernel"], out["moe.plain"], out["launches"]) != (
+            0, cfg.n_layers, 0) or not out["finite_grads"]:
+        raise AssertionError(f"training step: {out}")
+    return out
+
+
+def moe_rows_phase(torch, dev) -> dict:
+    """Phase 18: check_moe_rows, then the requests of Granite 4.0-H Small
+    whole (SSD_SIZE_LENGTHS) and of the chat cell's phi3.5-moe stage (16
+    layers, CHAT_LENGTHS), then moe_train_counts."""
+    from repro_torch.configs import granite4_h_small, phi35_moe
+    out = {"kernels": check_moe_rows(torch, dev)}
+    cfg = granite4_h_small.CONFIG
+    params = bf16_params(torch, cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["granite"] = moe_requests(torch, cfg, params, SSD_SIZE_LENGTHS, dev,
+                                  "granite4_h_small")
+    del params
+    free(torch, dev)
+    cfg = phi35_moe.CONFIG.scaled(n_layers=16)
+    params = bf16_params(torch, cfg, dev, SEED + 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["chat"] = moe_requests(torch, cfg, params, CHAT_LENGTHS, dev,
+                               "phi3.5-moe x16")
+    del params
+    free(torch, dev)
+    out["train"] = moe_train_counts(torch, dev)
+    return out
+
+
 def first_flash_calls(torch, fa, ref, dev):
     """One short call of each compiled kernel, checked before anything
     heavier runs: a fault of a pipeline shows here in seconds.  The tf32
@@ -3694,8 +4010,9 @@ def run(mode: str = "") -> int:
     names = {"--flash-only": flash, "--parity-only": ["xor_parity"],
              "--train-only": ["xor_parity"], "--entry-only": ["xor_parity"],
              "--parallel-only": flash, "--typed-times": flash,
-             "--ssd-only": ["ssd", *flash]}.get(
-                 mode, ["xor_parity", *flash, "ssd"])
+             "--ssd-only": ["ssd", *flash],
+             "--moe-only": ["moe_rows"]}.get(
+                 mode, ["xor_parity", *flash, "ssd", "moe_rows"])
     if mode == "--typed-times":     # an older tree has no tf32 source
         names = [n for n in names if (_build.CSRC / f"{n}.cu").exists()]
     built = _build.build(names)
@@ -3735,6 +4052,9 @@ def run(mode: str = "") -> int:
     if mode == "--ssd-only":
         ssd_phase(torch, dev)
         return 0
+    if mode == "--moe-only":
+        moe_rows_phase(torch, dev)
+        return 0
     worst = check_kernel(torch, parity, ref, dev)
     ints = check_int_rows(torch, parity, ref, dev)
     large = check_large_rows(torch, parity, ref, dev)
@@ -3773,6 +4093,8 @@ def run(mode: str = "") -> int:
     par = parallel(torch, fa, dev, smi)
     ssd_res = ssd_phase(torch, dev)
     st = ssd_res["times"][max(SSD_LENGTHS)]
+    moe_res = moe_rows_phase(torch, dev)
+    mt = moe_res["kernels"][f"granite_{max(SSD_SIZE_LENGTHS)}"]
 
     k4, fm, fz = times[4], flash_times["main"], flash_times["zamba2_d112"]
     timed_keys = ("B", "H", "Hkv", "S", "D", "variant", "ms", "strided_ms",
@@ -3901,7 +4223,25 @@ def run(mode: str = "") -> int:
         "sizes": {n: {S: {k: t[k] for k in ("H", "N", "ms", "bound_ms",
                                              "bound_by", "bound_share")}
                       for S, t in times.items()}
-                  for n, times in ssd_res["sizes"].items()}}
+                  for n, times in ssd_res["sizes"].items()}}, {
+        "name": "moe_rows", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_rows.cu",
+        "replaces": None,
+        "launches": {m: {S: r["launches"] for S, r in
+                         moe_res[m]["kernel"].items()}
+                     for m in ("granite", "chat")},
+        "train_launches": moe_res["train"]["launches"],
+        "max_ulps": max(t["check"]["y_max_ulps"]
+                        for t in moe_res["kernels"].values()),
+        "ms": mt["dispatch_ms"] + mt["combine_ms"],
+        "plain_ms": mt["dispatch_plain_ms"] + mt["combine_plain_ms"],
+        "bound_ms": mt["dispatch_bound_ms"] + mt["combine_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "timed": {n: {k: t[k] for k in (
+            "dispatch_ms", "combine_ms", "dispatch_plain_ms",
+            "combine_plain_ms", "dispatch_bound_ms", "combine_bound_ms")}
+            for n, t in moe_res["kernels"].items()},
+        "logit_gaps": {m: moe_res[m]["logits"] for m in ("granite", "chat")}}
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3913,7 +4253,7 @@ def run(mode: str = "") -> int:
 if __name__ == "__main__":
     modes = ("--flash-only", "--parity-only", "--train-only", "--entry-only",
              "--families-only", "--parallel-only", "--typed-times",
-             "--ssd-only")
+             "--ssd-only", "--moe-only")
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
         sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:

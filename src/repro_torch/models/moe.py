@@ -19,6 +19,11 @@ Two dispatch strategies, as in the reference:
     all-reduce over "model" sums the partial outputs: no token moves and
     the buffer is (E/mp, C_l, d), C_l from the local token count.
 
+On the card, a bf16 or fp16 forward without gradients (a prefill) moves
+the rows through `kernels.moe_rows` instead of `_scatter` and
+`_combine`: the same buffer, and each token's slots summed in slot order
+(`moe_rows.route` names why a layer takes the plain functions).
+
 What the port does differently, and why:
   * the combine (the reference's `.at[tok].add`) puts each assignment
     back in (token, slot) order through the inverse permutation and sums
@@ -41,6 +46,7 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate,
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import trace
+from repro_torch.kernels import moe_rows
 from repro_torch.parallel import shardings as sh
 from repro_torch.parallel.shardings import constrain
 
@@ -190,12 +196,19 @@ def _moe_ffn_global(cfg, p, x, rc, stats=None):
     with trace.span("rt:moe.route"):
         top_p, top_e, aux = route(cfg, p, x)
 
+    rows = moe_rows.route(x, top_p, cdt) == "kernel"
+
     def scatter(x, top_e):
         order, dest, keep = dispatch(cfg, top_e, C)
         return _scatter(x, order, dest, E, C, k, cdt), order, dest, keep
 
     with trace.span("rt:moe.dispatch"):
-        xe, order, dest, keep = _replicated(scatter, 4, x, top_e)
+        if rows:
+            order, dest, keep = dispatch(cfg, top_e, C)
+            xe, slot_row = moe_rows.dispatch_rows(x.to(cdt), order, dest, E,
+                                                  C, k)
+        else:
+            xe, order, dest, keep = _replicated(scatter, 4, x, top_e)
     _fill(T * k, E * C, keep)
     if stats is not None:
         stats["dropped"] = int((~keep).sum())
@@ -204,9 +217,16 @@ def _moe_ffn_global(cfg, p, x, rc, stats=None):
         out = _experts(p, xe, cdt,
                        lambda t: constrain(t, ("model", None, None)))
     with trace.span("rt:moe.combine"):
-        y = _replicated(lambda out, dest, order, top_p:
-                        _combine(out, dest, order, top_p, k),
-                        1, out, dest, order, top_p)
+        if rows:
+            y = moe_rows.combine_rows(out, slot_row, top_p)
+        else:
+            y = _replicated(lambda out, dest, order, top_p:
+                            _combine(out, dest, order, top_p, k),
+                            1, out, dest, order, top_p)
+    if rows:
+        trace.add("moe.kernel", 1)
+    elif x.device.type == "cuda":
+        trace.add("moe.plain", 1)
     return y, aux
 
 

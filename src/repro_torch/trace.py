@@ -68,6 +68,9 @@ COUNTERS = (
     "moe.assignments",      # (token, slot) assignments routed, T * top_k
     "moe.slots",            # expert buffer rows, E * C
     "moe.kept",             # assignments within capacity (device)
+    "moe.kernel",           # MoE layers dispatched and combined by moe_rows
+    "moe.plain",            # MoE layers that ran `_scatter`/`_combine` on
+                            # the card (global dispatch)
     "ckpt.host_bytes",      # bytes of the leaves brought to the host
     "ckpt.write_bytes",     # bytes written to data and parity files
     "ckpt.read_bytes",      # bytes read of data, surviving stripes, parity
