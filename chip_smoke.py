@@ -1,33 +1,37 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
+"""Kernel times and whole paths of the PyTorch/CUDA port (`src/repro_torch`)
+on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero before
-the last line:
+Each hand-written kernel is held against its plain version by the card
+tests beside its CPU tests (skipped without a card; no JAX needed):
+
+    python -m pytest -q tests/test_torch_kernels.py tests/test_torch_flash.py \
+        tests/test_torch_ssd.py tests/test_torch_moe_rows.py \
+        tests/test_torch_granite.py
+
+and each cell of the benchmark (`chipbench/`) holds its model whole.  This
+script times the kernels alone, each beside its bound and its output held
+once to its plain version's within the card tests' own limit
+(`tests/_card.py`; K1 to the bit), counts each kernel's launches in one
+request of each path that runs it, and runs the whole paths that neither
+holds.  Phases, each printing one JSON line; any
+failure exits non-zero before the last line (phases 3 and 7, the kernels'
+checks, are the card tests now):
 
   1. the card's name and power limit (nvidia-smi);
-  2. the build of every kernel from `src/repro_torch/csrc` (nvcc, sm_90a);
-  3. the XOR parity kernel against its plain PyTorch version on the card,
-     bit-exact, over K in {1..5, 8, 16, 17, 24} rows and N from 1 to
-     4194304 lanes, with every missing row reconstructed from row views
-     (no concatenation), rows strided inside a larger tensor, and rows
-     off a 16-byte boundary; then every other integer row type the
-     Pallas kernel takes (int8, uint8, int16, uint16, uint32, int64,
-     uint64: the XOR stored in int32 lanes as the Pallas kernel stores
-     it) bit for bit, in 16-byte lanes and element by element (rows one
-     element off 16 bytes), each missing row rebuilt from the survivors
-     in the row type and the int32 parity, and K1 on uint8 and int64 rows
-     at K=4, N=262144 timed beside its byte bound; then the largest call
-     of phase 12, K=3 rows of 518,782,976 bytes (N = 129,695,744 lanes),
-     checked and timed, and uint8 and int64 rows of the same bytes;
-  4. kernel times at the shapes of the main path (CUDA events, median;
-     replayed from a CUDA graph for the card's own time, and issued from
-     Python), beside the memory bound, the copy floor (a device-to-device
-     copy of the same bytes), the launch floor (a kernel that writes one
-     lane), the plain version and a chain of torch.bitwise_xor; then one
-     LOV parity call of 4 x 1 MiB from bytes to bytes, whole and split
-     into its pieces;
+  2. the build of every kernel from `src/repro_torch/csrc` (nvcc, sm_90a;
+     ptxas's registers, spills and warnings);
+  4. XOR parity (K1) times at the shapes of the main path, K=4 and 5 rows
+     of 1 MiB (CUDA events, median; replayed from a CUDA graph for the
+     card's own time, and issued from Python), beside the memory bound,
+     the copy floor (a device-to-device copy of the same bytes), the
+     launch floor (a kernel that writes one lane), the plain version and
+     a chain of torch.bitwise_xor; K1 on uint8 and int64 rows at K=4,
+     N=262144, and at phase 12's largest call, K=3 rows of 518,782,976
+     bytes, in int32, uint8 and int64; then one LOV parity call of
+     4 x 1 MiB from bytes to bytes, whole and split into its pieces;
   5. the main path: a raid5 file of 512 MiB at 1 MiB stripes, 4 data +
      1 parity, written, read clean, read degraded with ost1 dead,
      rebuilt onto a spare through lctl and truncated, all through
@@ -37,54 +41,22 @@ the last line:
   6. the raid5 section of BENCH_rpc.json reproduced with parity on the
      card; then phase 5's write once more on a fresh cluster, each parity
      call split into its pieces (`write_split`);
-  7. the flash-attention kernel, every variant (wgmma, mma, simt) in
-     float32, bfloat16 and float16, against its plain version on the card
-     (2e-5 in float32, 2e-2 in bfloat16, 5e-3 in float16), over B,
-     (H, Hkv), S, D (zamba2's 112 among them), window, causal, Sq != Sk,
-     FLASH_EDGES, strided (B,S,H,D) views, NEW_HEAD_DIMS (8 to 1024:
-     wgmma at width 64 and on mostly empty last TMA boxes, mma at
-     D % 8 != 0 at each width, simt for 16-bit types above 256 and in
-     column chunks to 1024), the layouts the TMA cannot take (LAYOUTS: a
-     last dimension of stride 2, rows D + 4 apart, a start one element
-     off, a (B,S,D,H) tensor's view) and B*H = 65,600 (element by element
-     there), after one short call of each compiled kernel; then the
-     other types the Pallas kernel computes (each operand read in its own
-     type, the output in q's), on the tensor cores where the types have a
-     compute type (float8 decoded into bfloat16 or float16 by the wgmma
-     and mma kernels; bfloat16 beside float16 and float16 beside e8m0fnu
-     decoded into tf32 by the wgmma_tf32 kernel) and on the PerTensor
-     simt kernel otherwise: each of the five float8 formats alone and 20
-     mixes (MIXED) at TYPED_SHAPES,
-     windows -1 and -7 (no window, as in Pallas) on every route, float8
-     tensors as (B,S,H,D) views, one byte off an aligned start and with a
-     column stride of 2, each element by element against the plain
-     version (the rounding of its float32 output within the kernel's own
-     error), each launched on the route `fa.route` gives; and at one key
-     a row the simt kernel's float8 and 16-bit rounding of 2^20 float32
-     bit patterns and its decoding of every float8 byte, and the same
-     through the tensor cores: every float8 byte decoded into bfloat16
-     and float16, and every bfloat16 pattern rounded to each float8
-     format, bit for bit; and through the tf32 kernel every float8 byte,
-     every bfloat16 and float16 pattern (subnormals included) and every
-     float16 pattern rounded to each float8 format, bit for bit;
-  8. at the prefill shapes of qwen3-4b (B=2, S=4096, in bfloat16, float16
-     and float32 at D=128 and 64, and one layer of prefill_32k: B=1,
-     S=32768), a gemma3-12b global layer (D=256, B=2, S=4096), zamba2-7b's
-     shared block (D=112, H=Hkv=32, B=2, S=4096) and qwen3-4b's shape at
-     D=96, 80 (wgmma at width 128), 48 (wgmma at width 64), 100 (mma) and
-     320 (simt), and q bf16 with float8 (e4m3fn) k and v and all three
-     e4m3fn at D=128 (wgmma) and all three at D=100 (mma; no library call
-     takes them, and beside the card's float8 bound the design's 16-bit
-     one), q bf16 with f16 k and v and q f16 with e8m0fnu k and e5m2 v
-     (wgmma_tf32, beside the design's tf32 bound), q f32 with bf16 k and
-     v at D=128 and all three e4m3fn at D=320 (PerTensor simt) beside
-     simt<float> at D=128 and 320: the kernel
-     against its plain version, element by element within a limit scaled
-     to each output, then its times beside the bound
-     (the largest of the products at the type's peak, the bytes, and one
-     exp2 a kept pair at 16 a clock an SM at nvidia-smi's clocks.max.sm),
-     the plain version and scaled_dot_product_attention in the same dtype
-     (a yardstick the port never calls);
+  8. flash attention (K3) times at the prefill shapes of qwen3-4b (B=2,
+     S=4096, in bfloat16, float16 and float32 at D=128 and 64, and one
+     layer of prefill_32k: B=1, S=32768), a gemma3-12b global layer
+     (D=256, B=2, S=4096), zamba2-7b's shared block (D=112, H=Hkv=32,
+     B=2, S=4096) and qwen3-4b's shape at D=96, 80 (wgmma at width 128),
+     48 (wgmma at width 64), 100 (mma) and 320 (simt), and q bf16 with
+     float8 (e4m3fn) k and v and all three e4m3fn at D=128 (wgmma) and
+     all three at D=100 (mma; beside the card's float8 bound the design's
+     16-bit one), q bf16 with f16 k and v and q f16 with e8m0fnu k and
+     e5m2 v (wgmma_tf32, beside the design's tf32 bound), q f32 with bf16
+     k and v at D=128 and all three e4m3fn at D=320 (PerTensor simt)
+     beside simt<float> at D=128 and 320: each beside its bound (the
+     largest of the products at the type's peak, the bytes, and one exp2
+     a kept pair at 16 a clock an SM at nvidia-smi's clocks.max.sm), the
+     plain version and scaled_dot_product_attention in the same dtype (a
+     yardstick the port never calls);
   9. the main path, prefill: qwen3-4b at full width and depth (random f32
      parameters from a seed, bf16 compute) through build_prefill_step
      with attn_impl="flash" on 2 prompts of 4096 tokens; the wgmma kernel
@@ -144,60 +116,46 @@ the last line:
      f32 prefill, gemma3's 1,100 f32 decode steps on the ring-buffered
      and the full cache, and each family's f32 card-vs-CPU check;
  16. the multi-device path on a one-rank NCCL mesh (`--parallel-only`);
- 17. the SSD kernel (`kernels.ssd`, csrc/ssd.cu) at the docs cell's shapes
-     (zamba2-7b's H = 112, P = N = 64, chunk 256, S = 512 ... 4096, B = 1)
-     against `_ssd_chunked` on the same inputs with TF32 off (relative
-     Frobenius norm of y and the final state, y element by element),
-     timed (graph replays) beside `_ssd_chunked` and its bound (bytes at
-     3.35 TB/s, products at the bf16 peak, one exp a kept pair at 16 a
-     clock an SM); then 12 docs requests (3 of each length) through
-     build_prefill_step on zamba2-7b whole, tracer on: 81 kernel launches
-     and no `_ssd_chunked` block each, and the same requests with the
-     plain version forced (81 `ssd.chunked` each), each route's median
-     wall time a request; then (17c) the kernel at Granite 4.0-H Small's
-     N = 128 (H = 128, P = 64, chunk 256) and beside it at N = 64
-     (zamba2's H = 112), S = 2048 ... 8192: each held against
-     `_ssd_chunked` and timed beside its bound, a block a call; K3 as
-     Granite calls it (H = 32, Hkv = 8, D = 128, softmax scale 1/128, on
-     the strided views) at the same S against its plain version; and a
-     request of each S on Granite 4.0-H Small whole: 36 SSD and 4 K3
-     launches each, none of `_ssd_chunked`;
- 18. the MoE's row kernels (`kernels.moe_rows`, csrc/moe_rows.cu) at
-     Granite 4.0-H Small's routing (72 experts, top-10, T = 2048 ...
+ 17. the SSD kernel (`kernels.ssd`, csrc/ssd.cu) timed at the docs cell's
+     shapes (zamba2-7b's H = 112, P = N = 64, chunk 256, S = 512 ...
+     4096, B = 1), then at Granite 4.0-H Small's N = 128 (H = 128, P =
+     64) beside N = 64 (H = 112) at S = 2048 ... 8192, a block a call:
+     graph replays beside `_ssd_chunked` and the bound (bytes at 3.35
+     TB/s, products at the bf16 peak, one exp a kept pair at 16 a clock
+     an SM) with TF32 off; 17b: one bf16 request each of zamba2-7b whole
+     (4096 tokens), Granite 4.0-H Small whole (8192) and the chat cell's
+     phi3.5-moe stage (16 layers, 1024), counted: one SSD launch a Mamba2
+     block, `moe.kernel` and two row-kernel launches an MoE layer, none
+     of `ssd.chunked` and `moe.plain`; and a bf16 training step of
+     phi3.5-moe at 2 layers: `moe.plain` once a layer, no row-kernel
+     launch, finite gradients;
+ 18. the MoE's row kernels (`kernels.moe_rows`, csrc/moe_rows.cu) timed
+     at Granite 4.0-H Small's routing (72 experts, top-10, T = 2048 ...
      8192) and the chat cell's (16, top-2, T = 128 ... 8192), d = 4096,
-     router-made routings at capacity 1.25: the dispatch's buffer equal to
-     `_scatter`'s to the bit, y within one unit in the last place of
-     `_combine`'s (the share that differs printed), both bit for bit
-     against their plain versions and against a repeat, then each timed
-     (graph replays) beside its bound (bytes at 3.35 TB/s) and beside
-     `_scatter` / `_combine`; then a request of each S on Granite whole
-     and of 128 ... 8192 tokens on the chat cell's 16-layer phi3.5-moe
-     stage, tracer on, on the kernels (a `moe.kernel` a layer, no
-     `moe.plain`, two launches a layer) and forced onto the plain
-     functions (a `moe.plain` a layer), with the two routes' logit gap at
-     the last position; and a training forward and backward of
-     phi3.5-moe at 2 layers: no `moe.kernel`, a `moe.plain` a layer.
+     router-made routings at capacity 1.25: graph replays beside each
+     kernel's bound (bytes at 3.35 TB/s) and beside `_scatter` /
+     `_combine`.
 
-Then the kernel summary line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Exits non-zero without a result when no
-CUDA card is usable or the port's sources are missing.
+Then the kernel summary line, the nvidia-smi line, and last {"ok": true,
+"device": {...}}.  Exits non-zero without a result when no CUDA card is
+usable or the port's sources are missing.
 
     python3 chip_smoke.py --flash-only
 
-is the quick check of the flash-attention kernel alone (phases 1, 2, 7, 8,
-after one short call of each compiled kernel); it prints no result
-line.  Run it under `timeout` after a change to the kernel: a fault of
-its mbarrier pipeline traps after seconds, and the timeout bounds the
-rest.
+times the flash-attention kernel alone (phases 1, 2, 8); it prints no
+result line.  Run it under `timeout`: a fault of its mbarrier pipeline
+traps after seconds, and the timeout bounds the rest.  A copy of this
+file in another checkout times that checkout's kernels (an older tree's
+beside this one's, in one call on one card).
 
     python3 chip_smoke.py --parity-only
 
-is the same for the XOR parity kernel (phases 1-4 and `write_split`); no
-result line.
+is the same for the XOR parity kernel (phases 1, 2, 4 and `write_split`);
+no result line.
 
     python3 chip_smoke.py --train-only
 
-runs phases 1, 2, phase 3's largest shape and phase 12; no result line.
+runs phases 1, 2 and 12; no result line.
 
     python3 chip_smoke.py --entry-only
 
@@ -205,24 +163,19 @@ runs phases 1, 2 and 13; no result line.
 
     python3 chip_smoke.py --families-only
 
-runs phases 1, 2, one short call of each compiled flash kernel, then 14
-and 15; no result line.
+runs phases 1, 2, 14 and 15; no result line.
+
+    python3 chip_smoke.py --parallel-only
+
+runs phases 1, 2 and 16; no result line.
 
     python3 chip_smoke.py --ssd-only
 
-runs phases 1, 2 (the SSD and flash libraries) and 17; no result line.
+runs phases 1, 2 (every library) and 17; no result line.
 
     python3 chip_smoke.py --moe-only
 
-runs phases 1, 2 (the MoE rows library; the flash and SSD libraries are
-built at their first call) and 18; no result line.
-
-    python3 chip_smoke.py --typed-times
-
-runs phases 1, 2 and phase 8's typed times (FLASH_TYPED_TIMED) alone;
-no result line.  A copy of this file in another checkout times that
-checkout's kernels (an older tree's, beside this one's, in one call on
-one card; it builds only the sources that checkout has).
+runs phases 1, 2 (the MoE rows library) and 18; no result line.
 """
 from __future__ import annotations
 
@@ -238,6 +191,9 @@ import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# tests/_card.py: the one limit each kernel is held to, shared with the
+# card tests (imported where a timing checks its kernel's output)
+sys.path.append(str(ROOT / "tests"))
 
 # the H100 SXM's peak rates, the denominators of every bound below
 from repro_torch.kernels.hardware import (  # noqa: E402
@@ -266,74 +222,9 @@ def sm_clock_mhz() -> float:
     return float(nvidia_smi("clocks.max.sm").split()[0])
 
 
-def rows(torch, k, n, seed, device):
-    """(k, n) random int32 lanes on `device`, made from `seed`."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randint(-2**31, 2**31, (k, n), dtype=torch.int64,
-                      generator=g, device=device)
-    return x.to(torch.int32)
-
-
-def max_abs_err(torch, a, b) -> int:
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-
-
-def check_kernel(torch, parity, ref, dev) -> int:
-    """Phase 3: kernel == plain version, bit for bit; returns the largest
-    absolute difference seen (0).  Every missing row is reconstructed
-    from row views of the input, with no concatenation; survivors that
-    are strided rows of a larger tensor and rows that do not start on a
-    16-byte boundary are checked too."""
-    worst, shapes = 0, 0
-
-    def same(got, want, what):
-        nonlocal worst
-        torch.cuda.synchronize()
-        worst = max(worst, max_abs_err(torch, got, want))
-        if not torch.equal(got, want):
-            raise AssertionError(f"{what} differs from the plain version")
-
-    for k in (1, 2, 3, 4, 5, 8, 16, 17, 24):
-        for n in (1, 37, 1000, 4097, 262144, 262145, 4194304):
-            x = rows(torch, k, n, k * 1000003 + n, dev)
-            p = parity.xor_parity(x)
-            same(p, ref.xor_parity_ref(x), f"xor_parity K={k} N={n}")
-            for miss in range(k):
-                surv = [x[i] for i in range(k) if i != miss]
-                same(parity.reconstruct(surv, p), x[miss],
-                     f"reconstruct K={k} N={n} row {miss}")
-            shapes += 1
-    # survivors that are every other row of a larger tensor, read in place
-    for k, n in ((4, 262144), (5, 262144), (17, 4097), (24, 262144)):
-        x = rows(torch, 2 * k, n, 3 * n + k, dev)[::2]
-        p = parity.xor_parity(x)
-        same(p, ref.xor_parity_ref(x), f"strided rows K={k} N={n}")
-        same(parity.reconstruct(x[1:], p), x[0],
-             f"reconstruct from strided rows K={k} N={n}")
-        shapes += 1
-    # rows that do not start on a 16-byte boundary: the 4-byte lanes
-    for k, n in ((3, 37), (4, 262144), (5, 262145), (17, 4097),
-                 (24, 262144)):
-        x = rows(torch, k, n, 7 * n + k, dev)
-        buf = torch.empty(k * n + 1, dtype=torch.int32, device=dev)
-        buf[1:].copy_(x.reshape(-1))
-        shifted = buf[1:].view(k, n)
-        want = ref.xor_parity_ref(x)
-        same(parity.xor_parity(shifted), want, f"misaligned K={k} N={n}")
-        same(parity.reconstruct(shifted[1:], want), x[0],
-             f"misaligned reconstruct K={k} N={n}")
-        shapes += 1
-    emit("kernel_check", kernel="xor_parity", shapes=shapes,
-         max_abs_err=worst, bit_exact=True)
-    return worst
-
-
-# phase 3's integer rows: every row type the Pallas kernel takes besides
-# int32 (it stores the XOR in int32: int8/int16 sign-extended, uint8/uint16
-# zero-extended, uint32 by its bits, 64-bit types by their low 32 bits)
-INT_ROW_TYPES = ("int8", "uint8", "int16", "uint16", "uint32", "int64",
-                 "uint64")
-INT_TIMED = ("uint8", "int64")          # timed at K=4, N=262144
+# K1's narrow and wide row types, timed beside int32 (phase 4): the XOR
+# stored in int32 lanes, as the Pallas kernel stores it
+INT_TIMED = ("uint8", "int64")
 
 
 def int_rows(torch, k, n, dname, seed, device):
@@ -344,75 +235,6 @@ def int_rows(torch, k, n, dname, seed, device):
     x = torch.randint(0, 256, (k, n * item), dtype=torch.uint8,
                       generator=g, device=device)
     return x.view(getattr(torch, dname))
-
-
-def check_int_rows(torch, parity, ref, dev) -> dict:
-    """Phase 3 on every other integer row type: the kernel against its
-    plain version, bit for bit, in 16-byte lanes (rows on 16 bytes, whole
-    16-byte rows) and element by element (rows one element off a 16-byte
-    boundary, or a row length that is no multiple of 16 bytes), and every
-    missing row rebuilt from the survivors in the row type and the int32
-    parity (one launch for each of the two types and one over their int32
-    results); then K1 on uint8 and int64 rows at K=4, N=262144 timed
-    beside its bound (the rows' bytes in, N int32 out)."""
-    shapes, launches = 0, parity.LAUNCHES
-    by_type = dict(parity.TYPE_LAUNCHES)
-    for dname in INT_ROW_TYPES:
-        td = getattr(torch, dname)
-        for k in (1, 2, 3, 4, 5, 17):
-            for n in (1, 37, 4097, 262144, 262147):
-                x = int_rows(torch, k, n, dname, k * 7919 + n, dev)
-                buf = torch.empty(k * n + 1, dtype=td, device=dev)
-                buf[1:].copy_(x.reshape(-1))
-                for rows_ in (x, buf[1:].view(k, n)):
-                    p = parity.xor_parity(rows_)
-                    want = ref.xor_parity_ref(rows_)
-                    torch.cuda.synchronize()
-                    if not torch.equal(p, want):
-                        raise AssertionError(
-                            f"xor_parity {dname} K={k} N={n} differs from "
-                            "the plain version")
-                    for miss in range(min(k, 4) if k > 1 else 0):
-                        surv = [rows_[i] for i in range(k) if i != miss]
-                        got = parity.reconstruct(surv, p)
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, ref.to_int32(rows_[miss])):
-                            raise AssertionError(
-                                f"reconstruct {dname} K={k} N={n} row "
-                                f"{miss} differs")
-                    shapes += 1
-    checked = parity.LAUNCHES - launches
-    by_type = {t: n - by_type.get(t, 0)
-               for t, n in parity.TYPE_LAUNCHES.items()}
-    if not all(by_type.get(t) for t in INT_ROW_TYPES):
-        raise AssertionError(f"a row type launched no kernel: {by_type}")
-    times = {}
-    n = STRIPE // 4
-    for dname in INT_TIMED:
-        item = getattr(torch, dname).itemsize
-        count = -(-(96 << 20) // (4 * n * item))   # > 96 MiB of inputs
-        pool = [int_rows(torch, 4, n, dname, 31 * i, dev)
-                for i in range(count)]
-        kern = time_on_card(torch, parity.xor_parity, pool)
-        plain = time_on_card(torch, ref.xor_parity_ref, pool)
-        nbytes = 4 * n * item + n * 4
-        b = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = 3 * n / INT32_OPS_PER_S * 1e3
-        times[dname] = {"K": 4, "N": n, "bytes": nbytes,
-                        "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
-                        "plain_ms": plain["graph_ms"],
-                        "bound_ms": max(b, by_ops),
-                        "bound_by": "bytes" if b >= by_ops else "operations",
-                        "bound_share": max(b, by_ops) / kern["graph_ms"],
-                        "library_ms": None}
-        del pool
-    torch.cuda.empty_cache()
-    out = {"types": list(INT_ROW_TYPES), "shapes": shapes,
-           "launches": checked, "type_launches": by_type,
-           "bit_exact": True, "max_abs_err": 0,
-           "timed": times}
-    emit("kernel_check_int_rows", kernel="xor_parity", **out)
-    return out
 
 
 def time_on_card(torch, fn, pool, reps=15) -> dict:
@@ -457,23 +279,56 @@ def time_on_card(torch, fn, pool, reps=15) -> dict:
     return out
 
 
-def bound_ms(k, n) -> tuple[float, str]:
-    by_bytes = (k + 1) * n * 4 / HBM_BYTES_PER_S * 1e3
+def bound_ms(k, n, item=4) -> tuple[float, str]:
+    """K1's least time on k rows of n elements of `item` bytes: the rows
+    read once and n int32 lanes written once at the memory rate, or its
+    k - 1 XORs a lane at the int32 rate."""
+    by_bytes = (k * item + 4) * n / HBM_BYTES_PER_S * 1e3
     by_ops = (k - 1) * n / INT32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
 
+def held_to_the_bit(torch, parity, ref, rows):
+    """K1's parity of `rows` equal to its plain version's, bit for bit."""
+    if not torch.equal(parity.xor_parity(rows), ref.xor_parity_ref(rows)):
+        raise AssertionError(f"xor_parity on {tuple(rows.shape)} "
+                             f"{rows.dtype} rows differs from the plain "
+                             "version")
+
+
+def time_rows(torch, parity, ref, dev, dname, k, n, reps=15) -> dict:
+    """K1 and its plain version on (k, n) rows of the integer type
+    `dname`, a pool past the 50 MB L2 (one call's rows where they alone
+    are larger), K1's output held to the bit, timed beside `bound_ms`."""
+    item = getattr(torch, dname).itemsize
+    count = -(-(96 << 20) // (k * n * item))       # > 96 MiB of inputs
+    pool = [int_rows(torch, k, n, dname, 31 * i + k, dev)
+            for i in range(count)]
+    held_to_the_bit(torch, parity, ref, pool[0])
+    kern = time_on_card(torch, parity.xor_parity, pool, reps)
+    plain = time_on_card(torch, ref.xor_parity_ref, pool, reps)
+    del pool
+    torch.cuda.empty_cache()
+    b, by = bound_ms(k, n, item)
+    return {"K": k, "N": n, "bytes": (k * item + 4) * n,
+            "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
+            "plain_ms": plain["graph_ms"], "bound_ms": b, "bound_by": by,
+            "bound_share": b / kern["graph_ms"], "library_ms": None}
+
+
 def time_kernel(torch, parity, ref, ops, dev) -> dict:
     """Phase 4 at the main path's shapes (K=4 and 5 rows of 1 MiB): the
-    kernel, the plain version, the chain of K-1 torch.bitwise_xor calls,
-    and the copy floor: a device-to-device
+    kernel (its output held to the bit), the plain version, the chain of
+    K-1 torch.bitwise_xor calls, and the copy floor: a device-to-device
     Tensor.copy_ that moves the same (K+1)*N*4 bytes (it reads and writes
     (K+1)*N*2), a yardstick of what the card moves at this size, which
     the port never calls; and the launch floor, the graph-replayed time
     of a PyTorch kernel that zeroes one lane, the least a kernel node
-    costs here.  Then one whole parity call of the LOV and its split
-    (`split_call`)."""
+    costs here.  Then `time_rows` on INT_TIMED's rows at K=4, N=262144,
+    and at phase 12's largest call (the (vocab, d) embedding's leaf: K=3
+    rows of 518,782,976 bytes) in int32 and INT_TIMED; then one whole
+    parity call of the LOV and its split (`split_call`)."""
     def chain(x):
         acc = torch.bitwise_xor(x[0], x[1]) if x.shape[0] > 1 else x[0]
         for i in range(2, x.shape[0]):
@@ -486,8 +341,10 @@ def time_kernel(torch, parity, ref, ops, dev) -> dict:
     n = STRIPE // 4
     for k in (4, 5):
         count = -(-(96 << 20) // (k * n * 4))     # > 96 MiB of inputs
-        pool = [rows(torch, k, n, 31 * i + k, dev) for i in range(count)]
+        pool = [int_rows(torch, k, n, "int32", 31 * i + k, dev)
+                for i in range(count)]
         b, by = bound_ms(k, n)
+        held_to_the_bit(torch, parity, ref, pool[0])
         kern = time_on_card(torch, parity.xor_parity, pool)
         plain = time_on_card(torch, ref.xor_parity_ref, pool)
         chained = time_on_card(torch, chain, pool)
@@ -508,6 +365,14 @@ def time_kernel(torch, parity, ref, ops, dev) -> dict:
                   "bound_ms": b, "bound_by": by,
                   "bound_share": b / kern["graph_ms"],
                   "copy_floor_share": b / floor["graph_ms"]}
+    out["typed"] = {d: time_rows(torch, parity, ref, dev, d, 4, n)
+                    for d in INT_TIMED}
+    cfg = train_config().model
+    row_bytes = 4 * leaf_row_lanes(cfg.vocab * cfg.d_model * 4)
+    out["large"] = {d: time_rows(torch, parity, ref, dev, d, TRAIN_STRIPES,
+                                 row_bytes // getattr(torch, d).itemsize,
+                                 reps=5)
+                    for d in ("int32", *INT_TIMED)}
     # one whole parity call of the LOV: 4 units of 1 MiB from host bytes
     # to parity bytes (marshal, copy in, kernel, copy out, unmarshal)
     g = torch.Generator().manual_seed(SEED)
@@ -652,535 +517,24 @@ def write_split(torch, ops, parity, dev, mib=MAIN_MIB) -> dict:
     return out
 
 
-# tests/test_kernels.py's TOL, and tests/test_torch_flash.py's for float16
-# (one f16 ulp of an output up to 4, plus P rounded to f16: 2^-11 a weight)
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 5e-3}
-# at the prefill shapes, element by element: see check_flash_scaled.  The
-# relative term is 4 units of the type's rounding (2^-9 bf16, 2^-11 f16);
-# in float32 only the order of the sums differs.
-FLASH_REL_TOL = {"float32": 2.0 ** -17, "bfloat16": 2.0 ** -7,
-                 "float16": 2.0 ** -9}
-FLASH_ABS_TOL = {"float32": 2e-5, "bfloat16": 1e-4, "float16": 1e-4}
-# the head dims phase 7 holds beyond the models' 16-256 (every branch of
-# `variant`: wgmma at width 64 (8-56) and on mostly empty last TMA boxes,
-# mma for D % 8 != 0 at each width (20, 100, 250), simt for 16-bit types
-# above 256 and in column chunks beyond 128 (up to 1024)) and the shapes
-# it holds each at, (B, H, Hkv, Sq,
-# Sk, window, causal, strided): GQA, a window, Sq != Sk (Sq > Sk too),
-# a window without causal on strided views, a longer sequence
-NEW_HEAD_DIMS = (8, 20, 24, 40, 48, 56, 80, 96, 100, 120, 136, 160, 192,
-                 200, 250, 320, 512, 520, 768, 1024)
-NEW_HEAD_DIM_SHAPES = ((1, 4, 2, 192, 192, 0, True, False),
-                       (2, 4, 4, 300, 300, 100, True, False),
-                       (1, 8, 2, 100, 257, 0, True, False),
-                       (2, 4, 2, 130, 130, 64, False, True),
-                       (1, 2, 1, 1024, 1024, 0, True, False),
-                       (1, 4, 2, 128, 64, 0, True, False))
-
-
-def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev, strided=False):
+def qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, seed, dev):
     """q (B,H,Sq,D), k, v (B,Hkv,Sk,D) from `seed`, all of `dtype` or each
     of its own where `dtype` is a tuple of three (a float8 tensor rounded
-    from normal samples as the reference rounds, float8_e8m0fnu, which
-    has no sign, from their magnitudes).  `strided`: True gives
-    the (B,H,S,D) views of (B,S,H,D) tensors, as the model passes them;
-    the layouts the TMA cannot take (LAYOUTS): "col2" a last dimension of
-    stride 2, "row_pad4" rows D + 4 elements apart, "off1" a start one
-    element past an aligned one, "perm" the dense (B,H,S,D) view of a
-    (B,S,D,H) tensor (column stride H; the output, empty_like(q), takes
-    the same strides)."""
+    from normal samples as the plain version rounds; float8_e8m0fnu,
+    which has no sign and no zero, from their magnitudes kept at 2^-126
+    or more: a sample of 0 encodes as NaN)."""
+    from repro_torch.kernels import ref
+
     g = torch.Generator(device=dev).manual_seed(seed)
-    layouts = {
-        False: (lambda h, S: (B, h, S, D), lambda x, h, S: x),
-        True: (lambda h, S: (B, S, h, D), lambda x, h, S: x.transpose(1, 2)),
-        "col2": (lambda h, S: (B, h, S, 2 * D), lambda x, h, S: x[..., ::2]),
-        "row_pad4": (lambda h, S: (B, h, S, D + 4),
-                     lambda x, h, S: x[..., :D]),
-        "off1": (lambda h, S: (B * h * S * D + 1,),
-                 lambda x, h, S: x[1:].view(B, h, S, D)),
-        "perm": (lambda h, S: (B, S, D, h),
-                 lambda x, h, S: x.permute(0, 3, 1, 2))}
-    shape, view = layouts[strided]
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,) * 3
 
     def mk(heads, S, dt):
-        x = torch.randn(shape(heads, S), generator=g, device=dev)
+        x = torch.randn((B, heads, S, D), generator=g, device=dev)
         if dt == torch.float8_e8m0fnu:
-            x = x.abs()
-        return view(plain().round_to(x, dt), heads, S)
+            x = x.abs().clamp_min(2.0 ** -126)
+        return ref.round_to(x, dt)
     return (mk(H, Sq, dtypes[0]), mk(Hkv, Sk, dtypes[1]),
             mk(Hkv, Sk, dtypes[2]))
-
-
-def plain():
-    """The kernels' plain versions (`repro_torch.kernels.ref`), imported
-    where first used: the script's first lines import no torch."""
-    from repro_torch.kernels import ref
-    return ref
-
-
-# the layouts the TMA cannot take, which the mma (16-bit) and simt kernels
-# read in place (see qkv)
-LAYOUTS = ("col2", "row_pad4", "off1", "perm")
-
-
-# K3's edges beyond the grid of check_flash, (B, H, Hkv, Sq, Sk, D, window,
-# causal): sequences that are not a multiple of the wgmma kernel's 128-row
-# tiles, Sq < Sk, a window of 1024 at S=4096, gemma3's D=256 at S=4096 and
-# zamba2's D=112 at S=4096
-FLASH_EDGES = [(1, 4, 2, 100, 100, 128, 0, True),
-               (1, 32, 8, 4000, 4000, 128, 0, True),
-               (2, 32, 8, 1000, 4096, 128, 0, True),
-               (1, 8, 2, 128, 4000, 256, 100, True),
-               (1, 32, 8, 4096, 4096, 128, 1024, True),
-               (1, 16, 8, 4096, 4096, 256, 0, True),
-               (1, 8, 8, 4000, 4000, 64, 1024, False),
-               (1, 32, 32, 4096, 4096, 112, 0, True),
-               (1, 4, 4, 4000, 4000, 112, 1024, True)]
-
-
-def check_flash(torch, fa, ref, dev) -> dict:
-    """K3 check: every variant of the kernel against its plain version on
-    the card, over B, (H, Hkv), S, D, window, causal and dtype (float32,
-    bfloat16, float16), plus Sq != Sk (Sq < Sk, and Sq > Sk where leading
-    rows keep no key and must be 0), FLASH_EDGES, strided (B,S,H,D) views
-    in and out, and NEW_HEAD_DIMS.  The 16-bit FLASH_EDGES with
-    Sk >= 1000 are also held to check_flash_scaled's element-wise limit."""
-    worst = dict.fromkeys(FLASH_TOL, 0.0)
-    cases = []
-    for B in (1, 2):
-        for H, Hkv in ((1, 1), (4, 2), (8, 1), (32, 8)):
-            for S in (64, 128, 192, 256, 1024):
-                for D in (16, 32, 64, 128, 256):
-                    cases += [(B, H, Hkv, S, S, D, w, c, False)
-                              for w in (0, 32, 100) for c in (True, False)]
-    # D=112 (zamba2's shared block): the D=128 pipeline on TMA's zero fill
-    for B in (1, 2):
-        for H, Hkv in ((1, 1), (4, 4), (32, 32), (8, 2)):
-            for S in (64, 192, 1024):
-                cases += [(B, H, Hkv, S, S, 112, w, c, False)
-                          for w in (0, 100) for c in (True, False)]
-    for Sq, Sk in ((1, 128), (64, 256), (100, 1024), (192, 1024), (128, 64)):
-        for H, Hkv, D in ((4, 2, 64), (4, 4, 112), (32, 8, 128), (8, 1, 256)):
-            cases += [(2, H, Hkv, Sq, Sk, D, w, c, False)
-                      for w in (0, 100) for c in (True, False)]
-    cases += [(*e, strided) for e in FLASH_EDGES for strided in (False, True)]
-    cases += [(2, 4, 2, S, S, D, 0, True, True)
-              for S in (100, 192) for D in (16, 32, 64, 112, 128, 256)]
-    cases += [(B, H, Hkv, Sq, Sk, D, w, c, strided)
-              for D in NEW_HEAD_DIMS
-              for B, H, Hkv, Sq, Sk, w, c, strided in NEW_HEAD_DIM_SHAPES]
-    # the layouts the TMA cannot take, read in place by mma and simt
-    cases += [(2, 4, 2, Sq, Sk, D, w, c, layout)
-              for layout in LAYOUTS for D in (20, 32, 64, 100, 128, 320)
-              for Sq, Sk, w, c in ((300, 300, 0, True), (192, 257, 100,
-                                                         False))]
-    # B*H above 65535 (grid x): wgmma/simt at D=64, mma/simt at D=100
-    cases += [(2, 32800, 8200, 16, 16, D, 0, True, False) for D in (64, 100)]
-    n, scaled, held = 0, [], {}
-    by_variant = dict.fromkeys(fa.VARIANTS, 0.0)
-    before = dict(fa.VARIANT_LAUNCHES)
-    for dname in FLASH_TOL:
-        dtype = getattr(torch, dname)
-        for i, (B, H, Hkv, Sq, Sk, D, w, c, strided) in enumerate(cases):
-            q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dtype, i, dev, strided)
-            name = fa.route(q, k, v)
-            got = fa.flash_attention(q, k, v, causal=c, window=w)
-            want = ref.flash_attention_ref(q, k, v, causal=c, window=w)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            many = B * H > 65535
-            if many or dname != "float32" and Sk >= 1000 and (
-                    B, H, Hkv, Sq, Sk, D, w, c) in FLASH_EDGES:
-                # at long S a fixed limit is loose, and over B*H = 65,600
-                # rows of 16 keys outputs reach past 4, where one bf16
-                # rounding exceeds it: hold these element by element
-                check = check_flash_scaled(torch, ref, got, want, q, k, v,
-                                           causal=c, window=w)
-                scaled.append({"dtype": dname, "B": B, "H": H, "Hkv": Hkv,
-                               "Sq": Sq, "Sk": Sk, "D": D, "window": w,
-                               "causal": c, "strided": strided,
-                               "worst_over_limit": check["worst_over_limit"]})
-                if not check["worst_over_limit"] <= 1.0:
-                    raise AssertionError(
-                        f"flash_attention {dname} B={B} H={H} Hkv={Hkv} "
-                        f"Sq={Sq} Sk={Sk} D={D} window={w} causal={c} "
-                        f"strided={strided} differs from its plain version:"
-                        f" {check}")
-            if not many and not err <= FLASH_TOL[dname]:
-                raise AssertionError(
-                    f"flash_attention {dname} B={B} H={H} Hkv={Hkv} Sq={Sq} "
-                    f"Sk={Sk} D={D} window={w} causal={c} strided={strided}"
-                    f" ({name}): max abs err {err} > "
-                    f"{FLASH_TOL[dname]}")
-            if Sq > Sk and c:            # rows before the first key are 0
-                if got[:, :, :Sq - Sk].abs().max() != 0:
-                    raise AssertionError("a row that keeps no key is not 0")
-            if not many:
-                worst[dname] = max(worst[dname], err)
-                by_variant[name] = max(by_variant[name], err)
-            held.setdefault(name, set()).add((dname, D))
-            n += 1
-            del q, k, v, got, want
-    ran = {k: v - before[k] for k, v in fa.VARIANT_LAUNCHES.items()}
-    head_dims = {name: {dn: sorted(D for d, D in pairs if d == dn)
-                        for dn in FLASH_TOL}
-                 for name, pairs in sorted(held.items())}
-    emit("kernel_check", kernel="flash_attention", shapes=n,
-         max_abs_err=worst, max_abs_err_by_variant=by_variant,
-         tolerance=FLASH_TOL, variant_launches=ran,
-         head_dims=head_dims, edges_over_scaled_limit=scaled)
-    # every kernel of one type (wgmma_tf32 takes mixes only: phase 7's
-    # check_flash_types holds it)
-    if not all(ran[name] for name in ("simt", "mma", "wgmma")):
-        raise AssertionError(f"a flash variant was never checked: {ran}")
-    return {"max_abs_err": worst, "by_variant": by_variant, "shapes": n,
-            "head_dims": sorted({D for pairs in held.values()
-                                 for _, D in pairs})}
-
-
-# phase 7's other types: each float8 format alone and the mixes below
-# (each operand read in its own type, the output in q's), on the route
-# `fa.route` gives (the tensor cores where the types have a compute type
-# C, `fa.compute_type`: wgmma at D=64 and 128, mma at D=40, wgmma_tf32 at
-# D=64 and 128 (and at 40 where no operand is float8) for the tf32 sets;
-# the PerTensor simt kernel at D=320, for the tf32 sets off the TMA's
-# layouts and for the sets with float32), at TYPED_SHAPES (B, H,
-# Hkv, Sq, Sk, D, window, causal: GQA, a window, Sq < Sk without causal,
-# column chunks over D = 320, a longer sequence); negative windows (-1,
-# -7: no window, as in the Pallas kernel) on each route; the float8
-# layouts a model or a view gives (TYPED_LAYOUTS); and, at one key a row,
-# the encoder of every narrow output and the decoder of every float8
-# byte, through simt and through the tensor cores (`typed_sweeps`)
-FLOAT8 = ("float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
-          "float8_e5m2fnuz", "float8_e8m0fnu")
-MIXED = (("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
-         ("float32", "bfloat16", "bfloat16"),
-         ("float16", "bfloat16", "float32"),
-         ("float8_e5m2", "float16", "float32"),
-         ("float32", "float8_e4m3fnuz", "float8_e5m2fnuz"),
-         ("bfloat16", "float32", "float32"),
-         ("float8_e4m3fn", "bfloat16", "bfloat16"),
-         ("float16", "float8_e8m0fnu", "float8_e5m2"),
-         ("float8_e8m0fnu", "float32", "float8_e8m0fnu"),
-         ("float8_e4m3fnuz", "float8_e4m3fnuz", "bfloat16"),
-         ("bfloat16", "bfloat16", "float8_e5m2fnuz"),
-         ("float16", "float8_e5m2", "float8_e5m2"),
-         ("float8_e4m3fn", "float16", "float16"),
-         # the tf32 sets: bfloat16 beside float16, float16 beside e8m0fnu
-         # (with or without other float8 formats), no float32
-         ("bfloat16", "float16", "float16"),
-         ("float16", "bfloat16", "bfloat16"),
-         ("float16", "float16", "bfloat16"),
-         ("bfloat16", "float16", "float8_e4m3fn"),
-         ("float8_e5m2fnuz", "bfloat16", "float16"),
-         ("float16", "float8_e8m0fnu", "float8_e8m0fnu"),
-         ("float8_e8m0fnu", "float16", "float16"))
-TYPED_SHAPES = ((1, 4, 2, 192, 192, 64, 100, True),
-                (2, 8, 2, 300, 300, 128, 0, True),
-                (1, 4, 4, 100, 257, 40, 0, False),
-                (2, 4, 1, 130, 130, 320, 64, True),
-                (1, 32, 8, 1024, 1024, 128, 0, True))
-NEGATIVE_WINDOWS = (-1, -7)
-NEGATIVE_WINDOW_TYPES = (("bfloat16",) * 3, ("float16",) * 3,
-                         ("float32",) * 3, ("float8_e4m3fn",) * 3,
-                         ("bfloat16", "float8_e4m3fn", "float8_e4m3fn"))
-# float8 q, k, v as (B,H,S,D) views of (B,S,H,D) tensors (16-byte copies),
-# one byte past an aligned start and with a column stride of 2 (element
-# by element)
-TYPED_LAYOUTS = (True, "off1", "col2")
-
-
-# float32 sums taken in another order: the simt kernels' unrounded output
-# lies within this share of |v|_P (the P-weighted mean of |v| along the
-# row) of the plain version's; measured below 2^-20 at phase 7's shapes on
-# an H100 (max abs err 1.0e-6 at |v|_P about 0.8)
-F32_ORDER_TOL = 2.0 ** -16
-# the tensor-core kernels round P to their compute type C before P V (the
-# row sums take it unrounded): each weight moves by at most C's unit
-# roundoff (2^-8 bfloat16, 2^-11 float16 and tf32, whose 10-bit mantissa
-# is float16's; the tf32 kernel rounds to nearest, ties away), so the
-# unrounded output by at most that share of |v|_P; u_C covers it, with
-# the slack that check_flash_scaled documents for float16 and tf32 (and
-# the float32 sums' order)
-P_ROUND_TOL = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -10,
-               "tf32": 2.0 ** -10}
-
-
-def check_typed(torch, fa, ref, got, q, k, v, causal=True,
-                window=0) -> dict:
-    """The kernel's output `got` on q, k, v against the plain version's,
-    element by element: `got` must be the rounding to its type of some x
-    within tol |v|_P of the plain version's float32 output x0, where tol
-    is F32_ORDER_TOL on the simt kernels (they round nothing before the
-    output and sum in float32 as the plain version does) and u_C =
-    P_ROUND_TOL[C] on the wgmma, wgmma_tf32 and mma kernels (they round P
-    to their compute type C before P V).  As rounding is monotone, that is a value
-    between the roundings of x0 -/+ that margin, or NaN where one of them
-    is NaN (float8_e8m0fnu at x <= 0): exactly the plain version's output
-    but within the kernel's own error of a rounding boundary, for every
-    output type (float32 too, where it is |got - x0| <= the margin)."""
-    name = fa.route(q, k, v)
-    tol = F32_ORDER_TOL if name == "simt" else P_ROUND_TOL[str(
-        fa.compute_type(q.dtype, k.dtype, v.dtype)).removeprefix("torch.")]
-    dq = ref.decode(q)            # exact: the plain version in float32
-    x0 = ref.flash_attention_ref(dq, k, v, causal=causal, window=window)
-    margin = tol * ref.flash_attention_ref(
-        dq, k, ref.decode(v).abs(), causal=causal, window=window)
-    lo = ref.decode(ref.round_to(x0 - margin, got.dtype))
-    hi = ref.decode(ref.round_to(x0 + margin, got.dtype))
-    g = ref.decode(got)
-    inside = ((g >= torch.where(torch.isnan(lo), -math.inf, lo))
-              & (g <= torch.where(torch.isnan(hi), math.inf, hi)))
-    ok = torch.where(torch.isnan(g), torch.isnan(lo) | torch.isnan(hi),
-                     inside & ~torch.isnan(x0))
-    want = ref.decode(ref.round_to(x0, got.dtype))
-    both = ~(torch.isnan(g) | torch.isnan(want))
-    out = {"variant": name, "tol": tol, "outside": int((~ok).sum()),
-           "max_abs_err": float((g - want).abs().masked_fill(~both, 0)
-                                .max())}
-    if got.dtype == torch.float32:    # the margin's use, unrounded
-        out["max_err_over_margin"] = float(
-            ((g - x0).abs() / margin.clamp_min(1e-30)).max())
-    out["ok"] = out["outside"] == 0
-    return out
-
-
-def typed_sweeps(torch, fa, ref, dev) -> dict:
-    """One key a row, q and k zero, so every weight is exactly 1 and the
-    output is v rounded to q's type: the simt kernel's encoder for each
-    narrow output type against `ref.round_to` over 2^20 random float32 bit
-    patterns and float32's edges (bit for bit for float8 but the sign of
-    a NaN, value for value for 16-bit), and its decoder of every float8
-    byte against the table (v each of the 256 bytes, a float32 output);
-    then the same through the tensor cores (`tc_sweeps`)."""
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randint(-2 ** 31, 2 ** 31, (4096 * 256,), dtype=torch.int64,
-                      generator=g, device=dev).to(torch.int32).view(
-                          torch.float32)
-    x[:10] = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1e-45,
-                           -1e-45, 1e-39, 3.4e38, 464.0], device=dev)
-    v = x.view(1, 4096, 1, 256)
-    z = torch.zeros_like(v)
-    out = {}
-    for dname in FLOAT8 + ("bfloat16", "float16"):
-        td = getattr(torch, dname)
-        # q of byte 0 (0, or 2^-127 in e8m0fnu): with k zero every score is 0
-        qz = torch.zeros(v.shape, dtype=torch.uint8 if td.itemsize == 1
-                         else td, device=dev).view(td)
-        got = fa.flash_attention(qz, z, v)
-        # the sum of products starts at +0, so -0 comes out +0
-        want = ref.round_to(x + 0.0, td).view(got.shape)
-        torch.cuda.synchronize()
-        steps = ref.rounding_steps(got, want)
-        # bit for bit but NaN, whose sign the products need not keep
-        nan = torch.isnan(ref.decode(want))
-        exact = bool(torch.equal(ref.bits(got).masked_fill(nan, 0),
-                                 ref.bits(want).masked_fill(nan, 0)))
-        if steps or (td.itemsize == 1 and not exact):
-            raise AssertionError(f"the kernel rounds to {dname} unlike the "
-                                 f"plain version: {steps} steps apart")
-        out[dname] = {"values": x.numel(), "bit_exact": exact}
-    for dname in FLOAT8:
-        codes = torch.arange(256, dtype=torch.uint8, device=dev).view(
-            getattr(torch, dname))
-        zz = torch.zeros((1, 8, 1, 32), device=dev)
-        got = fa.flash_attention(zz, zz, codes.view(1, 8, 1, 32)).reshape(-1)
-        want = ref.decode_table(codes.dtype, dev)
-        torch.cuda.synchronize()
-        if not torch.equal(got.nan_to_num(0.5), want.nan_to_num(0.5)):
-            raise AssertionError(f"the kernel decodes {dname} unlike the "
-                                 "table")
-        out[dname]["decoded"] = 256
-    out["tensor_cores"] = tc_sweeps(torch, fa, ref, dev)
-    return out
-
-
-def tc_sweeps(torch, fa, ref, dev) -> dict:
-    """`typed_sweeps` through the wgmma kernel (D=32, one key a row, every
-    weight exactly 1).  Decoder: q bfloat16 zeros, k zeros and v the 256
-    bytes of each float8 format F: the bfloat16 output must be the
-    table's value of each byte, bit for bit (NaN as NaN; -0 comes out +0,
-    the sum of products starting at +0); the same with q float16 for the
-    four formats float16 holds.  Encoder: q and k zeros in F, v all 65,536
-    bfloat16 bit patterns: the output in F must be `ref.round_to(v, F)`
-    bit for bit but the sign of a NaN.  A value the tensor cores flushed
-    (a subnormal of bfloat16 or float16, as e8m0fnu's byte 0 and e5m2's
-    smallest are) breaks the sweep."""
-    out, before = {}, dict(fa.DTYPE_LAUNCHES)
-
-    def zeros(shape, td):
-        return torch.zeros(shape, dtype=torch.uint8, device=dev).view(td) \
-            if td.itemsize == 1 else torch.zeros(shape, dtype=td, device=dev)
-
-    def same_bits(got, want):
-        nan = torch.isnan(ref.decode(want))
-        return bool(torch.equal(torch.isnan(ref.decode(got)), nan)
-                    and torch.equal(ref.bits(got).masked_fill(nan, 0),
-                                    ref.bits(want).masked_fill(nan, 0)))
-
-    for dname in FLOAT8:
-        td = getattr(torch, dname)
-        codes = torch.arange(256, dtype=torch.uint8, device=dev).view(td)
-        table = ref.decode_table(td, dev) + 0.0          # -0 as +0
-        for cname in ("bfloat16", "float16"):
-            cd = getattr(torch, cname)
-            if fa.compute_type(cd, td, td) is None:
-                continue                   # float16 cannot hold e8m0fnu
-            q, k = zeros((1, 8, 1, 32), cd), zeros((1, 8, 1, 32), td)
-            v = codes.view(1, 8, 1, 32)
-            got = fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            if not same_bits(got.reshape(-1), table.to(cd)):
-                raise AssertionError(f"the {fa.route(q, k, v)} kernel "
-                                     f"decodes {dname} into {cname} unlike "
-                                     "the table")
-            out[f"{dname}->{cname}"] = 256
-        v = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(
-            torch.int16).view(torch.bfloat16).view(1, 2048, 1, 32)
-        qz = zeros((1, 2048, 1, 32), td)
-        got = fa.flash_attention(qz, qz, v)
-        want = ref.round_to(v.float() + 0.0, td)
-        torch.cuda.synchronize()
-        if not same_bits(got, want):
-            bad = int((ref.bits(got) != ref.bits(want)).sum())
-            raise AssertionError(f"the tensor cores' output rounds to "
-                                 f"{dname} unlike the plain version: {bad} "
-                                 "of 65,536 bfloat16 patterns")
-        out[f"bfloat16->{dname}"] = 65536
-    out.update(tf32_sweeps(torch, fa, ref, dev, zeros, same_bits))
-    out["dtype_launches"] = {k: n - before.get(k, 0)
-                             for k, n in fa.DTYPE_LAUNCHES.items()
-                             if n != before.get(k, 0)}
-    if any(not k.startswith(("wgmma/", "wgmma_tf32/"))
-           for k in out["dtype_launches"]):
-        raise AssertionError(f"a sweep left the tensor cores: "
-                             f"{out['dtype_launches']}")
-    return out
-
-
-def tf32_sweeps(torch, fa, ref, dev, zeros, same_bits) -> dict:
-    """`tc_sweeps` through the tf32 kernel (D=32, one key a row, every
-    weight exactly 1: q zeros, so every score is 0 whatever k holds).
-    Decoder: v each of the 256 bytes of each float8 format, q bfloat16
-    and k float16 (tf32: bfloat16 beside float16): the bfloat16 output
-    must be the table's value bit for bit (every float8 value is one of
-    bfloat16's; -0 comes out +0, the sum starting at +0); q float16 and k
-    e8m0fnu: the float16 output must be the plain version's rounding of
-    the table.  Then v every bfloat16 pattern (q bfloat16, k float16) and
-    every float16 pattern (q float16, k bfloat16): the output must be v
-    bit for bit, subnormals included, bfloat16's being float32
-    subnormals in tf32: a tensor core that flushed them, or e8m0fnu's
-    2^-127, breaks the sweep.  Encoder: q zeros in each float8 format F, k
-    bfloat16, v every float16 pattern: the output in F must be
-    `ref.round_to(v, F)` bit for bit but the sign of a NaN.  Every launch
-    must be the tf32 kernel's."""
-    out, before = {}, dict(fa.DTYPE_LAUNCHES)
-    bf, hf, e8 = torch.bfloat16, torch.float16, torch.float8_e8m0fnu
-    shape = (1, 8, 1, 32)
-    for dname in FLOAT8:
-        td = getattr(torch, dname)
-        codes = torch.arange(256, dtype=torch.uint8, device=dev).view(td)
-        table = ref.decode_table(td, dev) + 0.0          # -0 as +0
-        v = codes.view(shape)
-        for q, k in ((zeros(shape, bf), zeros(shape, hf)),
-                     (zeros(shape, hf), zeros(shape, e8))):
-            got = fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            if not same_bits(got.reshape(-1), ref.round_to(table, q.dtype)):
-                raise AssertionError(
-                    f"the {fa.route(q, k, v)} kernel decodes {dname} with "
-                    f"q {q.dtype}, k {k.dtype} unlike the table")
-        out[f"{dname}->tf32"] = 256
-    big = (1, 2048, 1, 32)
-    pats = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(
-        torch.int16)
-    for vd, qd, kd in ((bf, bf, hf), (hf, hf, bf)):
-        v = pats.view(vd).view(big)
-        got = fa.flash_attention(zeros(big, qd), zeros(big, kd), v)
-        torch.cuda.synchronize()
-        if not same_bits(got, ref.round_to(v.float() + 0.0, qd)):
-            bad = int((ref.bits(got) != ref.bits(v)).sum())
-            raise AssertionError(f"the tf32 kernel passes {vd} values "
-                                 f"unlike the plain version: {bad} of "
-                                 f"65,536 patterns")
-        out[f"{str(vd).removeprefix('torch.')}->tf32"] = 65536
-    v = pats.view(hf).view(big)
-    for dname in FLOAT8:
-        td = getattr(torch, dname)
-        got = fa.flash_attention(zeros(big, td), zeros(big, bf), v)
-        want = ref.round_to(v.float() + 0.0, td)
-        torch.cuda.synchronize()
-        if not same_bits(got, want):
-            bad = int((ref.bits(got) != ref.bits(want)).sum())
-            raise AssertionError(f"the tf32 kernel's output rounds to "
-                                 f"{dname} unlike the plain version: {bad} "
-                                 "of 65,536 float16 patterns")
-        out[f"float16->{dname} (tf32)"] = 65536
-    ran = {k: n - before.get(k, 0) for k, n in fa.DTYPE_LAUNCHES.items()
-           if n != before.get(k, 0)}
-    if any(not k.startswith("wgmma_tf32/") for k in ran):
-        raise AssertionError(f"a tf32 sweep left the tf32 kernel: {ran}")
-    return out
-
-
-def check_flash_types(torch, fa, ref, dev) -> dict:
-    """Phase 7, the other types: every float8 format and each MIXED
-    combination at TYPED_SHAPES, both negative windows on every route
-    (against the plain version at window 0), the float8 TYPED_LAYOUTS,
-    and `typed_sweeps`; each held element by element (`check_typed`)
-    against the plain version on the card, each launch counted by its
-    four types.  `max_err` is the largest absolute difference from the
-    plain version's output for each combination, `margin_use` the largest
-    unrounded float32 error over its margin (simt, float32 output)."""
-    before = dict(fa.DTYPE_LAUNCHES)
-    combos = [(d,) * 3 for d in FLOAT8] + list(MIXED)
-    cases = [(combo, shape, False, None) for combo in combos
-             for shape in TYPED_SHAPES]
-    cases += [(combo, (2, 8, 2, 300, 300, D, w, True), False, w)
-              for combo in NEGATIVE_WINDOW_TYPES for D in (64, 100)
-              for w in NEGATIVE_WINDOWS]
-    cases += [((d, d, "bfloat16"), (2, 4, 2, 192, 257, 64, 100, True),
-               layout, None)
-              for d in ("float8_e4m3fn", "float8_e5m2") for layout in
-              TYPED_LAYOUTS]
-    worst, margin_use, expected = {}, 0.0, {}
-    for i, (combo, shape, layout, neg) in enumerate(cases):
-        B, H, Hkv, Sq, Sk, D, w, c = shape
-        dts = tuple(getattr(torch, d) for d in combo)
-        q, k, v = qkv(torch, B, H, Hkv, Sq, Sk, D, dts, 1000 + i, dev,
-                      layout)
-        key = fa.dtype_key(fa.route(q, k, v), *dts, dts[0])
-        expected[key] = expected.get(key, 0) + 1
-        got = fa.flash_attention(q, k, v, causal=c, window=w)
-        check = check_typed(torch, fa, ref, got, q, k, v, causal=c,
-                            window=0 if neg else w)
-        if not check["ok"]:
-            raise AssertionError(
-                f"flash_attention {combo} {shape} layout={layout}: {check}"
-                f" against the plain version")
-        key = ",".join(combo) if neg is None else f"{','.join(combo)} " \
-            f"window<0"
-        worst[key] = max(worst.get(key, 0.0), check["max_abs_err"])
-        margin_use = max(margin_use, check.get("max_err_over_margin", 0.0))
-        del q, k, v, got
-    # each case launched on the route `fa.route` gives it, counted by its
-    # four types (before the sweeps, which count their own)
-    ran = {k: v - before.get(k, 0) for k, v in fa.DTYPE_LAUNCHES.items()
-           if v != before.get(k, 0)}
-    missing = {k: n for k, n in expected.items() if ran.get(k, 0) < n}
-    for name in fa.VARIANTS:           # each route took some typed set
-        if not any(k.split("/")[0] == name for k in ran):
-            missing[name] = "no typed launch"
-    sweeps = typed_sweeps(torch, fa, ref, dev)
-    out = {"cases": len(cases), "combos": len(combos),
-           "max_err": worst, "margin_use": margin_use,
-           "dtype_launches": ran, "sweeps": sweeps}
-    emit("kernel_check_types", kernel="flash_attention", **out)
-    if missing:
-        raise AssertionError(f"cases that did not launch on their route: "
-                             f"{missing} (ran {ran})")
-    return out
 
 
 def flash_cost(B, H, Hkv, S, D, dtype, clock_mhz, peak=None) -> dict:
@@ -1212,36 +566,6 @@ def flash_cost(B, H, Hkv, S, D, dtype, clock_mhz, peak=None) -> dict:
             "bound_by": "bytes" if term == "bytes" else "operations"}
 
 
-def check_flash_scaled(torch, ref, got, want, q, k, v, causal=True,
-                       window=0, scale=None) -> dict:
-    """The kernel's output `got` vs the plain version's `want` on q, k, v
-    at a prefill shape, held element by element to
-    r (|want| + |v|_P / 2) + a, where |v|_P is the plain version run on
-    |v| (the P-weighted mean of |v| along the row) and r, a are q's type's
-    FLASH_REL_TOL and FLASH_ABS_TOL.  In bf16 (r = 2^-7) r |want| covers
-    the rounding of both outputs and r/2 |v|_P bounds the kernel's
-    rounding of P to bf16 before PV (2^-9 a weight, with slack); float16
-    is the same at 2^-9, its rounding being 4 times finer.  At S=4096 a
-    typical bf16 output is 0.03-0.04 and this limit about 3.5e-3, where a
-    fixed 2e-2 would pass a dropped or repeated KV tile.  `scale` is the
-    softmax scale both were run with (None: 1/sqrt(D))."""
-    dname = str(q.dtype).removeprefix("torch.")
-    want = want.float()
-    weighted = ref.flash_attention_ref(q, k, ref.decode(v).abs(),
-                                       causal=causal, window=window,
-                                       scale=scale).float()
-    err = (got.float() - want).abs()
-    mag = want.abs()
-    limit = (FLASH_REL_TOL[dname] * (mag + weighted / 2)
-             + FLASH_ABS_TOL[dname])
-    ratio = float((err / limit).max())
-    return {"max_abs_err": float(err.max()),
-            "mean_abs_want": float(mag.mean()),
-            "mean_limit": float(limit.mean()),
-            "max_err_over_mean_want": float(err.max() / mag.mean()),
-            "worst_over_limit": ratio}
-
-
 # K3's timed shapes, causal: the qwen3-4b prefill of the main path in bf16
 # and float16 (phase 9b) and float32 (D=128 and 64), one layer of
 # qwen3-4b's prefill_32k, a global layer of gemma3-12b (D=256), zamba2-7b's
@@ -1265,25 +589,23 @@ FLASH_TIMED = (("main", "bfloat16", 2, 32, 8, 4096, 128, 9),
 
 
 def time_flash(torch, fa, ref, dev) -> dict:
-    """K3 at FLASH_TIMED's shapes.  At each shape the kernel's output is
-    held against the plain version's on the same inputs
-    (check_flash_scaled), then the kernel (on contiguous inputs, and on
-    the strided (B,S,H,D) views the model passes), the plain version and
-    the library call (scaled_dot_product_attention in the same dtype, a
-    yardstick only) are timed."""
+    """K3 at FLASH_TIMED's shapes: the kernel (on contiguous inputs, and
+    on the strided (B,S,H,D) views the model passes), the plain version
+    and the library call (scaled_dot_product_attention in the same dtype,
+    a yardstick only), each timed; the kernel's output on contiguous
+    inputs held to the plain version's element by element
+    (`_card.scaled_ok`, the card tests' limit at long sequences)."""
+    import _card
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     clock = sm_clock_mhz()
     out = {}
     for name, dname, B, H, Hkv, S, D, reps in FLASH_TIMED:
         q, k, v = qkv(torch, B, H, Hkv, S, S, D, getattr(torch, dname), 7,
                       dev)
-        check = check_flash_scaled(torch, ref, fa.flash_attention(q, k, v),
-                                   ref.flash_attention_ref(q, k, v), q, k, v)
-        emit("kernel_check", kernel="flash_attention", shape=name,
-             dtype=dname, B=B, S=S, D=D, **check)
-        if not check["worst_over_limit"] <= 1.0:
-            raise AssertionError(f"flash_attention at {name} (B={B}, S={S})"
-                                 f" differs from its plain version: {check}")
+        if not _card.scaled_ok(fa.flash_attention(q, k, v), q, k, v):
+            raise AssertionError(f"flash_attention at {name} differs from "
+                                 "the plain version")
         pool = [(q, k, v)]
         views = [tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
                        for t in (q, k, v))]
@@ -1301,7 +623,7 @@ def time_flash(torch, fa, ref, dev) -> dict:
                      "dtype": dname, "variant": variant,
                      "strided_variant": fa.route(*views[0]),
                      "width": fa.width(variant, D),
-                     "check": check, "flops": cost["flops"],
+                     "flops": cost["flops"],
                      "bytes": cost["bytes"], "exp2": cost["exp2"],
                      "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
                      "strided_ms": strided["graph_ms"],
@@ -1352,27 +674,22 @@ DESIGN_RATE = {"wgmma": BF16_FLOPS_PER_S, "mma": BF16_FLOPS_PER_S,
 
 
 def time_flash_types(torch, fa, ref, dev) -> dict:
-    """K3 at FLASH_TYPED_TIMED: the kernel held against its plain version
-    element by element (`check_typed`), then both timed beside the card's
-    bound (the products at the rate of the widest input type: float8's
-    where all are float8) and the design's (`design_bound_ms`: the
-    products at the rate of the route that runs them, DESIGN_RATE), and
-    SDPA in float32 where all three are float32.  Run on an older tree
-    (the same file copied there), it times that tree's kernels."""
+    """K3 at FLASH_TYPED_TIMED, its output held to the plain version's on
+    the route it takes (`_card.close_on_route`), then it and its plain
+    version timed beside the card's bound (the products at the rate of
+    the widest input type: float8's where all are float8) and the
+    design's (`design_bound_ms`: the products at the rate of the route
+    that runs them, DESIGN_RATE), and SDPA in float32 where all three are
+    float32."""
+    import _card
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     clock = sm_clock_mhz()
     out = {}
     for name, names, B, H, Hkv, S, D, reps in FLASH_TYPED_TIMED:
         dts = tuple(getattr(torch, n) for n in names)
         q, k, v = qkv(torch, B, H, Hkv, S, S, D, dts, 7, dev)
-        got = fa.flash_attention(q, k, v)
-        check = check_typed(torch, fa, ref, got, q, k, v)
-        emit("kernel_check", kernel="flash_attention", shape=name,
-             dtypes=names, B=B, S=S, D=D, **check)
-        if not check["ok"]:
-            raise AssertionError(f"flash_attention at {name} differs from "
-                                 f"its plain version: {check}")
-        del got
+        _card.close_on_route(fa.flash_attention(q, k, v), q, k, v)
         variant = fa.route(q, k, v)
         cost = flash_cost(B, H, Hkv, S, D, names, clock)
         design = flash_cost(B, H, Hkv, S, D, names, clock,
@@ -1386,7 +703,7 @@ def time_flash_types(torch, fa, ref, dev) -> dict:
                 "graph_ms"] if set(names) == {"float32"} else None
         out[name] = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
                      "dtypes": names, "variant": variant,
-                     "width": fa.width(variant, D), "check": check,
+                     "width": fa.width(variant, D),
                      "flops": cost["flops"], "bytes": cost["bytes"],
                      "ms": kern["graph_ms"], "stream_ms": kern["stream_ms"],
                      "plain_ms": plain_t["graph_ms"], "library_ms": lib,
@@ -1715,74 +1032,6 @@ def leaf_row_lanes(nbytes: int) -> int:
     row = sum(min(TRAIN_STRIPE_SIZE, nbytes - c * TRAIN_STRIPE_SIZE)
               for c in range(0, cols, TRAIN_STRIPES))
     return -(-row // 16) * 4
-
-
-def check_large_rows(torch, parity, ref, dev) -> dict:
-    """Phase 3's largest shape, the parity call of the biggest leaf of the
-    phase-12 checkpoint (the (vocab, d) embedding and its moments): K=3
-    rows of 518,782,976 bytes.  The kernel against its plain version bit
-    for bit, every row reconstructed from the other two and the parity;
-    then both timed, beside the bound."""
-    cfg = train_config().model
-    n = leaf_row_lanes(cfg.vocab * cfg.d_model * 4)
-    x = rows(torch, TRAIN_STRIPES, n, 99, dev)
-    p = parity.xor_parity(x)
-    want = ref.xor_parity_ref(x)
-    torch.cuda.synchronize()
-    worst = max_abs_err(torch, p, want)
-    if not torch.equal(p, want):
-        raise AssertionError(f"xor_parity K=3 N={n} differs from the plain "
-                             "version")
-    for miss in range(TRAIN_STRIPES):
-        got = parity.reconstruct([x[i] for i in range(TRAIN_STRIPES)
-                                  if i != miss], p)
-        torch.cuda.synchronize()
-        if not torch.equal(got, x[miss]):
-            raise AssertionError(f"reconstruct K=3 N={n} row {miss} differs")
-    del want, got
-    kern = time_on_card(torch, parity.xor_parity, [x], reps=5)
-    plain = time_on_card(torch, ref.xor_parity_ref, [x], reps=5)
-    b, by = bound_ms(TRAIN_STRIPES, n)
-    out = {"K": TRAIN_STRIPES, "N": n, "max_abs_err": worst,
-           "bit_exact": True, "ms": kern["graph_ms"],
-           "plain_ms": plain["graph_ms"], "bound_ms": b, "bound_by": by,
-           "bound_share": b / kern["graph_ms"],
-           "typed": large_typed_rows(torch, parity, ref, dev, 4 * n)}
-    emit("kernel_check_large", kernel="xor_parity", **out)
-    del x, p
-    torch.cuda.empty_cache()
-    return out
-
-
-def large_typed_rows(torch, parity, ref, dev, row_bytes) -> dict:
-    """K1 on INT_TIMED's narrow and wide rows (uint8, int64) at the bytes
-    of phase 12's largest call, K=3 rows of `row_bytes`, where no launch
-    cost hides the kernel: bit for bit against the plain version, then
-    both timed beside the byte bound (the rows read once, N int32 lanes
-    written once)."""
-    out = {}
-    for dname in INT_TIMED:
-        n = row_bytes // getattr(torch, dname).itemsize
-        x = int_rows(torch, TRAIN_STRIPES, n, dname, 101, dev)
-        got = parity.xor_parity(x)
-        same = torch.equal(got, ref.xor_parity_ref(x))
-        torch.cuda.synchronize()
-        if not same:
-            raise AssertionError(f"xor_parity {dname} K={TRAIN_STRIPES} "
-                                 f"N={n} differs from the plain version")
-        del got
-        kern = time_on_card(torch, parity.xor_parity, [x], reps=5)
-        plain = time_on_card(torch, ref.xor_parity_ref, [x], reps=5)
-        nbytes = TRAIN_STRIPES * row_bytes + 4 * n
-        b = nbytes / HBM_BYTES_PER_S * 1e3
-        out[dname] = {"K": TRAIN_STRIPES, "N": n, "bytes": nbytes,
-                      "bit_exact": True, "ms": kern["graph_ms"],
-                      "plain_ms": plain["graph_ms"], "bound_ms": b,
-                      "bound_by": "bytes", "bound_share": b / kern["graph_ms"],
-                      "library_ms": None}
-        del x
-        torch.cuda.empty_cache()
-    return out
 
 
 class ParityCalls:
@@ -3214,44 +2463,10 @@ def parallel(torch, fa, dev, smi) -> dict:
     return out
 
 
-# one head dim per wgmma kernel: width 64 at 1-4 k16 steps of Q K^T; width
-# 128 at 5-8; width 256 at 12 and 16
-WGMMA_FIRST_DIMS = [8, 24, 40, 56, 72, 96, 112, 128, 136, 256]
-# the same kernels where they decode float8: one D % 16 == 0 per width and
-# step count (a float8 row of D bytes the TMA takes), and the type sets
-# they take in turn, for each compute type: k and v decoded beside a
-# 16-bit q, all three (a float8 output), q alone, each format
-DEC_WGMMA_FIRST_DIMS = [16, 32, 48, 64, 80, 96, 112, 128, 144, 256]
-DEC_FIRST_TYPES = {
-    "bfloat16": (("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
-                 ("float8_e4m3fn",) * 3,
-                 ("float8_e8m0fnu", "bfloat16", "float8_e4m3fnuz"),
-                 ("float8_e5m2fnuz", "float8_e5m2", "bfloat16")),
-    "float16": (("float16", "float8_e5m2", "float8_e5m2"),
-                ("float8_e4m3fn", "float16", "float16"),
-                ("float8_e4m3fnuz", "float8_e5m2fnuz", "float16"))}
-
-
-# the tf32 kernel at each width (D 8-64 at 64, 72-128 at 128), q of each
-# kind of type it takes, float8 beside float16 and bfloat16, e8m0fnu
-# beside float16
-TF32_FIRST = ((("bfloat16", "float16", "float16"), 64),
-              (("float16", "bfloat16", "bfloat16"), 128),
-              (("float16", "float8_e8m0fnu", "float8_e5m2"), 32),
-              (("float8_e4m3fn", "float16", "bfloat16"), 96),
-              (("float8_e8m0fnu", "float16", "float8_e4m3fnuz"), 112))
-
-
 # phase 17: the SSD kernel at the docs cell's shapes (zamba2-7b: H = 112,
-# P = N = 64, chunk 256, one prompt a call) and its requests
+# P = N = 64, chunk 256, one prompt a call)
 SSD_LENGTHS = (512, 1024, 2048, 4096)
 SSD_HEADS, SSD_CHUNK = 112, 256
-# against `_ssd_chunked` on the card (tests/test_torch_ssd.py's limits):
-# y and the final state within SSD_REL_TOL in relative Frobenius norm; y
-# element by element within SSD_FLIP_TOL of max|y| (one bf16 step of an
-# att_ij that the two sums of C_i . B_j round to neighbours), at most
-# SSD_FLIP_SHARE of the elements past SSD_REL_TOL of max|y|
-SSD_REL_TOL, SSD_FLIP_TOL, SSD_FLIP_SHARE = 1e-4, 2.0 ** -8, 1e-3
 
 
 def ssd_inputs(torch, B, S, H, seed, dev, N=64):
@@ -3303,31 +2518,15 @@ def ssd_cost(B, S, H, Q, clock_mhz, N=64) -> dict:
                                    design / BF16_FLOPS_PER_S * 1e3)}
 
 
-def ssd_check(torch, got, want) -> dict:
-    """The kernel's (y, state) against the plain version's."""
-    (y, st), (y_r, st_r) = got, want
-    off = (y - y_r).abs()
-    top = float(y_r.abs().max())
-    out = {"y_rel": float((y - y_r).norm() / y_r.norm()),
-           "state_rel": float((st - st_r).norm() / st_r.norm()),
-           "y_max_off": float(off.max()) / top,
-           "y_share_off": float((off > SSD_REL_TOL * top).float().mean()),
-           "finite": bool(torch.isfinite(y).all() and
-                          torch.isfinite(st).all())}
-    out["ok"] = (out["finite"] and out["y_rel"] <= SSD_REL_TOL
-                 and out["state_rel"] <= SSD_REL_TOL
-                 and out["y_max_off"] <= SSD_FLIP_TOL
-                 and out["y_share_off"] <= SSD_FLIP_SHARE)
-    return out
-
-
 def time_ssd(torch, dev, lengths=SSD_LENGTHS, H=SSD_HEADS, N=64,
              label="ssd") -> dict:
-    """Phase 17a: at each docs length the kernel held against
-    `_ssd_chunked` on the same inputs (TF32 off), then both timed
-    (time_on_card: graph replays over a pool of inputs past the L2),
+    """Phase 17: at each docs length the kernel, its output held to
+    `_ssd_chunked`'s on the same inputs (TF32 off; `_card.ssd_close`),
+    both timed
+    (time_on_card: graph replays over a pool of inputs past the L2)
     beside the bound; at other `lengths`, heads `H` and state size `N`
-    for phase 17c."""
+    for `time_ssd_sizes`."""
+    import _card
     from repro_torch.kernels import ssd
     from repro_torch.models import zamba2
 
@@ -3339,18 +2538,14 @@ def time_ssd(torch, dev, lengths=SSD_LENGTHS, H=SSD_HEADS, N=64,
             cost = ssd_cost(1, S, H, SSD_CHUNK, clock, N)
             pool = [ssd_inputs(torch, 1, S, H, SEED + i, dev, N)
                     for i in range(max(2, -(-64_000_000 // cost["bytes"])))]
-            check = ssd_check(torch, ssd.ssd_chunked(*pool[0], SSD_CHUNK),
-                              zamba2._ssd_chunked(*pool[0], SSD_CHUNK))
-            emit("kernel_check", kernel=label, S=S, **check)
-            if not check["ok"]:
-                raise AssertionError(f"ssd kernel at S={S} differs from "
-                                     f"_ssd_chunked: {check}")
+            _card.ssd_close(ssd.ssd_chunked(*pool[0], SSD_CHUNK),
+                            zamba2._ssd_chunked(*pool[0], SSD_CHUNK))
             kern = time_on_card(torch, lambda t: ssd.ssd_chunked(
                 *t, SSD_CHUNK), pool)
             plain = time_on_card(torch, lambda t: zamba2._ssd_chunked(
                 *t, SSD_CHUNK), pool[:2], reps=5)
             out[S] = {"B": 1, "H": H, "N": N, "chunk": SSD_CHUNK,
-                      "check": check, "ms": kern["graph_ms"],
+                      "ms": kern["graph_ms"],
                       "stream_ms": kern["stream_ms"],
                       "plain_ms": plain["graph_ms"],
                       "plain_stream_ms": plain["stream_ms"], **cost,
@@ -3362,125 +2557,19 @@ def time_ssd(torch, dev, lengths=SSD_LENGTHS, H=SSD_HEADS, N=64,
     return out
 
 
-# phase 17c: the SSD kernel at Granite 4.0-H Small's state size (N = 128,
+# phase 17 at Granite 4.0-H Small's state size (N = 128,
 # H = 128) beside zamba2's (N = 64, H = 112), a block a call
 SSD_SIZE_LENGTHS = (2048, 4096, 6144, 8192)
 GRANITE_SSD_HEADS = 128
 
 
 def time_ssd_sizes(torch, dev) -> dict:
-    """Phase 17c: time_ssd at N = 128 and at N = 64 over
-    SSD_SIZE_LENGTHS."""
+    """Phase 17 at Granite's state size: time_ssd at N = 128 and at
+    N = 64 over SSD_SIZE_LENGTHS."""
     return {"n128": time_ssd(torch, dev, SSD_SIZE_LENGTHS, GRANITE_SSD_HEADS,
                              128, "ssd_n128"),
             "n64": time_ssd(torch, dev, SSD_SIZE_LENGTHS, SSD_HEADS, 64,
                             "ssd_n64")}
-
-
-def ssd_requests(torch, dev, rounds=3) -> dict:
-    """Phase 17b: `rounds` x SSD_LENGTHS docs requests (12) through
-    build_prefill_step on zamba2-7b whole (bf16 parameters from SEED,
-    chunk 256, flash), tracer on: each launches the SSD kernel once a
-    Mamba2 block (81) and runs `_ssd_chunked` in none; then the same
-    requests with the plain version forced (a route that refuses all),
-    which count 81 each in `ssd.chunked`.  Per length, the median wall
-    time of a request (the call to the next token on the host) on each
-    route, and whether the two routes serve the same token."""
-    from repro_torch import trace
-    from repro_torch.configs import zamba2_7b
-    from repro_torch.kernels import ssd
-    from repro_torch.models import layers, registry
-    from repro_torch.models.config import RunConfig
-    from repro_torch.train.steps import build_prefill_step
-
-    cfg = zamba2_7b.CONFIG
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = layers.tree_init(registry.param_defs(cfg), gen, torch.bfloat16)
-    steps = {S: build_prefill_step(cfg, RunConfig(
-        seq_len=S, global_batch=1, kind="prefill", param_dtype="bfloat16",
-        attn_impl="flash", ssm_chunk=SSD_CHUNK), device=dev)
-        for S in SSD_LENGTHS}
-    toks = {S: torch.randint(0, cfg.vocab, (1, S), generator=gen,
-                             device=dev, dtype=torch.int32)
-            for S in SSD_LENGTHS}
-    order = [S for _ in range(rounds) for S in SSD_LENGTHS]
-    route = ssd.route
-
-    def serve():
-        for S in SSD_LENGTHS:                      # warm each length
-            steps[S](params, {"tokens": toks[S]})
-        torch.cuda.synchronize()
-        trace.reset()
-        trace.enable()
-        walls, kept = {S: [] for S in SSD_LENGTHS}, {}
-        try:
-            for S in order:
-                t = time.perf_counter()
-                tok, _ = steps[S](params, {"tokens": toks[S]})
-                int(tok[0, 0])
-                walls[S].append(time.perf_counter() - t)
-                kept[S] = tok
-            counts = trace.counters()
-        finally:
-            trace.disable()
-            trace.reset()
-        return {"ms": {S: statistics.median(w) * 1e3
-                       for S, w in walls.items()},
-                "launches": counts.get("ssd.launches", 0),
-                "chunked": counts.get("ssd.chunked", 0)}, kept
-
-    kern, got = serve()
-    try:
-        ssd.route = lambda *a: "forced"
-        plain, want = serve()
-    finally:
-        ssd.route = route
-    blocks = cfg.n_layers * len(order)
-    same = {S: bool(torch.equal(got[S], want[S])) for S in SSD_LENGTHS}
-    out = {"requests": len(order), "blocks": blocks, "kernel": kern,
-           "plain": plain, "same_token": same}
-    emit("ssd_requests", **out)
-    if (kern["launches"], kern["chunked"]) != (blocks, 0) or \
-            (plain["launches"], plain["chunked"]) != (0, blocks):
-        raise AssertionError(f"ssd launches {kern['launches']}, chunked "
-                             f"{kern['chunked']} for {blocks} blocks; forced "
-                             f"plain: {plain['launches']}, "
-                             f"{plain['chunked']}")
-    del params
-    free(torch, dev)
-    return out
-
-
-# K3 as Granite 4.0-H Small's attention layers call it: H, Hkv, D and the
-# softmax scale (attention_multiplier, 1/128 where 1/sqrt(D) would be
-# 1/11.3)
-GRANITE_ATTN = (32, 8, 128, 0.0078125)
-
-
-def check_granite_attention(torch, fa, ref, dev) -> dict:
-    """Phase 17c: K3 as `transformer._flash` calls it in Granite 4.0-H
-    Small (bf16, causal, GRANITE_ATTN, on the strided (B,S,H,D) views)
-    at S in SSD_SIZE_LENGTHS, held element by element against the plain
-    version with the same scale (check_flash_scaled)."""
-    H, Hkv, D, scale = GRANITE_ATTN
-    out = {}
-    for S in SSD_SIZE_LENGTHS:
-        q, k, v = qkv(torch, 1, H, Hkv, S, S, D, torch.bfloat16, S, dev,
-                      strided=True)
-        name = fa.route(q, k, v)
-        check = check_flash_scaled(
-            torch, ref, fa.flash_attention(q, k, v, scale=scale),
-            ref.flash_attention_ref(q, k, v, scale=scale), q, k, v,
-            scale=scale)
-        emit("kernel_check", kernel="flash_attention", shape="granite",
-             S=S, scale=scale, variant=name, **check)
-        if not check["worst_over_limit"] <= 1.0:
-            raise AssertionError(f"flash_attention at Granite's shape, "
-                                 f"S={S}, scale {scale}, differs from its "
-                                 f"plain version: {check}")
-        out[S] = {"variant": name, **check}
-        del q, k, v
-    return out
 
 
 def bf16_params(torch, cfg, dev, seed=SEED) -> dict:
@@ -3504,72 +2593,72 @@ def bf16_params(torch, cfg, dev, seed=SEED) -> dict:
     return out
 
 
-def granite_requests(torch, fa, dev) -> dict:
-    """Phase 17c: a request of each length in SSD_SIZE_LENGTHS through
-    build_prefill_step on Granite 4.0-H Small whole (bf16_params, chunk
-    256, flash), each length warmed first; the kernels' launch counts set
-    to 0 just before the requests, then each request launches the SSD
-    kernel once a Mamba2 layer (36), K3 once an attention layer (4), and
-    runs `_ssd_chunked` in none (`ssd.chunked`, tracer on)."""
-    from repro_torch import trace
-    from repro_torch.configs import granite4_h_small
-    from repro_torch.kernels import ssd
+# phase 17b: one request of each path that runs the SSD or the MoE row
+# kernels, at a prompt length of its cell (config module, layers kept or
+# 0 for all, tokens): zamba2-7b whole (docs), Granite 4.0-H Small whole
+# (rag), the chat cell's phi3.5-moe stage of 16 layers (chat's median)
+REQUESTS = (("zamba2_7b", 0, 4096), ("granite4_h_small", 0, 8192),
+            ("phi35_moe", 16, 1024))
+
+
+def kernel_requests(torch, dev) -> dict:
+    """Phase 17b: each of REQUESTS through build_prefill_step (bf16_params,
+    chunk 256, flash), warmed once, then counted (`_card.counted`): one
+    SSD launch a Mamba2 block, `moe.kernel` and two row-kernel launches
+    an MoE layer, and neither `ssd.chunked` nor `moe.plain`; then a bf16
+    training forward and backward of phi3.5-moe at 2 layers on 1024
+    tokens: `moe.plain` once a layer, no row-kernel launch, every
+    gradient finite."""
+    import importlib
+
+    import _card
+    from repro_torch.configs import phi35_moe
     from repro_torch.models.config import RunConfig
     from repro_torch.train.steps import build_prefill_step
 
-    cfg = granite4_h_small.CONFIG
-    params = bf16_params(torch, cfg, dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    steps, toks = {}, {}
-    for S in SSD_SIZE_LENGTHS:
-        steps[S] = build_prefill_step(cfg, RunConfig(
+    out = {}
+    for module, layers, S in REQUESTS:
+        cfg = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+        cfg = cfg.scaled(n_layers=layers) if layers else cfg
+        params = bf16_params(torch, cfg, dev)
+        step = build_prefill_step(cfg, RunConfig(
             seq_len=S, global_batch=1, kind="prefill",
             param_dtype="bfloat16", attn_impl="flash",
             ssm_chunk=SSD_CHUNK), device=dev)
-        toks[S] = torch.randint(0, cfg.vocab, (1, S), generator=gen,
-                                device=dev, dtype=torch.int32)
-        steps[S](params, {"tokens": toks[S]})
-    torch.cuda.synchronize()
-    mamba = cfg.layer_types.count("mamba")
-    want = {"ssd": mamba, "flash": cfg.n_layers - mamba}
-    trace.reset()
-    trace.enable()
-    ssd.LAUNCHES = fa.LAUNCHES = 0
-    per = {}
-    try:
-        for S in SSD_SIZE_LENGTHS:
-            s0, f0 = ssd.LAUNCHES, fa.LAUNCHES
-            t = time.perf_counter()
-            tok, _ = steps[S](params, {"tokens": toks[S]})
-            int(tok[0, 0])
-            per[S] = {"ms": (time.perf_counter() - t) * 1e3,
-                      "ssd": ssd.LAUNCHES - s0, "flash": fa.LAUNCHES - f0}
-        chunked = trace.counters().get("ssd.chunked", 0)
-    finally:
-        trace.disable()
-        trace.reset()
-    out = {"requests": per, "chunked": chunked, "want": want,
-           "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)}
-    emit("granite_requests", **out)
-    del params, steps
+        toks = torch.randint(0, cfg.vocab, (1, S), device=dev,
+                             generator=torch.Generator(dev).manual_seed(SEED),
+                             dtype=torch.int32)
+        step(params, {"tokens": toks})
+        _, got = _card.counted(lambda: step(params, {"tokens": toks}))
+        moe = cfg.n_layers if cfg.n_experts else 0
+        want = {"ssd": cfg.n_layers if cfg.family == "zamba2" else
+                cfg.layer_types.count("mamba"), "ssd.chunked": 0,
+                "moe.kernel": moe, "moe.plain": 0, "moe_rows": 2 * moe}
+        out[cfg.name] = {"S": S, **{n: got.get(n, 0)
+                                    for n in (*want, "flash")}}
+        del params, step
+        free(torch, dev)
+        if any(out[cfg.name][n] != w for n, w in want.items()):
+            raise AssertionError(f"{cfg.name}, {S} tokens: "
+                                 f"{out[cfg.name]}; {want} wanted")
+    cfg = phi35_moe.CONFIG.scaled(n_layers=2)
+    rc = RunConfig(seq_len=1024, global_batch=1, kind="train",
+                   param_dtype="bfloat16", compute_dtype="bfloat16")
+    toks = torch.randint(0, cfg.vocab, (1, 1024), device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED))
+    grads, got = _card.train_step(cfg, rc, bf16_params(torch, cfg, dev,
+                                                       SEED + 18), toks)
+    out["train"] = {"layers": cfg.n_layers, "finite_grads": all(
+        bool(torch.isfinite(g).all()) for g in grads),
+        **{n: got.get(n, 0) for n in ("moe.kernel", "moe.plain",
+                                      "moe_rows")}}
+    del grads
     free(torch, dev)
-    if chunked or any({k: r[k] for k in want} != want for r in per.values()):
-        raise AssertionError(f"granite launches {per}, chunked {chunked}; "
-                             f"{want} a request wanted")
+    emit("kernel_requests", **out)
+    if out["train"] != {"layers": 2, "finite_grads": True, "moe.kernel": 0,
+                        "moe.plain": 2, "moe_rows": 0}:
+        raise AssertionError(f"training step: {out['train']}")
     return out
-
-
-def ssd_phase(torch, dev) -> dict:
-    """Phase 17: time_ssd, ssd_requests, then time_ssd_sizes,
-    check_granite_attention and granite_requests (17c)."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
-    return {"times": time_ssd(torch, dev),
-            "requests": ssd_requests(torch, dev),
-            "sizes": time_ssd_sizes(torch, dev),
-            "granite_attention": check_granite_attention(torch, fa, ref,
-                                                         dev),
-            "granite_requests": granite_requests(torch, fa, dev)}
 
 
 # phase 18: the MoE's row kernels (`kernels.moe_rows`, csrc/moe_rows.cu)
@@ -3578,7 +2667,6 @@ def ssd_phase(torch, dev) -> dict:
 MOE_ROWS_SHAPES = {"granite": (72, 10, (2048, 4096, 6144, 8192)),
                    "chat": (16, 2, (128, 512, 1024, 2048, 4096, 8192))}
 MOE_ROWS_D = 4096
-CHAT_LENGTHS = (128, 1024, 4096, 8192)
 
 
 def moe_rows_inputs(torch, E, k, T, seed, dev):
@@ -3603,15 +2691,6 @@ def moe_rows_inputs(torch, E, k, T, seed, dev):
     return cfg, C, x.to(torch.bfloat16), top_p, order, dest, keep, out
 
 
-def ulps16(torch, a, b):
-    """|a - b| in units in the last place of a 16-bit type, elementwise
-    (each bit pattern as an ordered integer)."""
-    def ordered(t):
-        i = t.view(torch.int16).int()
-        return torch.where(i < 0, -32768 - i, i)
-    return (ordered(a) - ordered(b)).abs()
-
-
 def moe_rows_cost(E, k, T, C, kept) -> dict:
     """The least time of each kernel, bytes at HBM_BYTES_PER_S: the
     dispatch writes the whole buffer (empty rows too) and slot_row and
@@ -3625,15 +2704,12 @@ def moe_rows_cost(E, k, T, C, kept) -> dict:
             "combine_bound_ms": comb / HBM_BYTES_PER_S * 1e3}
 
 
-def check_moe_rows(torch, dev) -> dict:
-    """Phase 18a/b: at each shape of MOE_ROWS_SHAPES the kernels against
-    `_scatter` (the buffer equal to the bit, from the same `keep`) and
-    `_combine` (y within one unit in the last place: the kernel sums the
-    slots in order, `_combine`'s reduction in another), against their
-    plain versions (bit for bit: the same products summed in the same
-    order) and against themselves on a repeat; then each timed
-    (time_on_card, graph replays over a pool past the L2) beside its bound
-    and beside `_scatter` / `_combine`."""
+def time_moe_rows(torch, dev) -> dict:
+    """Phase 18: at each shape of MOE_ROWS_SHAPES the two kernels, held to
+    `_scatter` and `_combine` (`_card.moe_rows_close`), timed
+    (time_on_card, graph replays over a pool past the L2) beside their
+    bounds and beside `_scatter` / `_combine`."""
+    import _card
     from repro_torch.kernels import moe_rows
     from repro_torch.models import moe
     bf16 = torch.bfloat16
@@ -3641,43 +2717,16 @@ def check_moe_rows(torch, dev) -> dict:
     with torch.no_grad():
         for name, (E, k, lengths) in MOE_ROWS_SHAPES.items():
             for T in lengths:
-                cfg, C, x, top_p, order, dest, keep, eo = moe_rows_inputs(
+                _, C, x, top_p, order, dest, keep, eo = moe_rows_inputs(
                     torch, E, k, T, SEED + T, dev)
-                launches = moe_rows.LAUNCHES
                 buf, slot_row = moe_rows.dispatch_rows(x, order, dest, E, C,
                                                        k)
-                y = moe_rows.combine_rows(eo, slot_row, top_p)
-                y2 = moe_rows.combine_rows(eo, slot_row, top_p)
-                torch.cuda.synchronize()
-                ran = moe_rows.LAUNCHES - launches
-                buf_p, slot_p = moe_rows.dispatch_rows_plain(x, order, dest,
-                                                             E, C, k)
-                y_p = moe_rows.combine_rows_plain(eo, slot_row, top_p)
-                want_buf = moe._scatter(x, order, dest, E, C, k, bf16)
-                want = moe._combine(eo, dest, order, top_p, k)
-                off = ulps16(torch, y, want)
+                _card.moe_rows_close(
+                    buf, moe._scatter(x, order, dest, E, C, k, bf16),
+                    moe_rows.combine_rows(eo, slot_row, top_p),
+                    moe._combine(eo, dest, order, top_p, k))
+                del buf
                 kept = int(keep.sum())
-                check = {
-                    "buffer_equal": bool(torch.equal(buf, want_buf)),
-                    "slot_row_equal": bool(torch.equal(slot_row, slot_p)),
-                    "plain_buffer_equal": bool(torch.equal(buf, buf_p)),
-                    "y_equal_plain": bool(torch.equal(y, y_p)),
-                    "y_repeat_equal": bool(torch.equal(y, y2)),
-                    "y_max_ulps": int(off.max()),
-                    "y_share_off": float((off > 0).float().mean()),
-                    "launches": ran, "dropped_share": 1 - kept / (T * k)}
-                check["ok"] = (check["buffer_equal"]
-                               and check["slot_row_equal"]
-                               and check["plain_buffer_equal"]
-                               and check["y_equal_plain"]
-                               and check["y_repeat_equal"]
-                               and check["y_max_ulps"] <= 1 and ran == 3)
-                emit("kernel_check", kernel="moe_rows", shape=name, E=E,
-                     k=k, T=T, C=C, **check)
-                if not check["ok"]:
-                    raise AssertionError(f"moe_rows at {name} T={T} differs "
-                                         f"from the plain path: {check}")
-                del buf, buf_p, want_buf, y, y2, y_p, want
                 cost = moe_rows_cost(E, k, T, C, kept)
                 pool = [(x, order, dest, eo, slot_row, top_p)]
                 for i in range(1, max(2, -(-64_000_000 //
@@ -3702,7 +2751,8 @@ def check_moe_rows(torch, dev) -> dict:
                                                   ._combine(t[3], t[2], t[1],
                                                             t[5], k),
                                                   pool, reps=5)}
-                row = {"E": E, "k": k, "T": T, "C": C, "check": check,
+                row = {"E": E, "k": k, "T": T, "C": C,
+                       "dropped_share": 1 - kept / (T * k),
                        **cost, **{f"{n}_ms": t["graph_ms"]
                                   for n, t in times.items()},
                        **{f"{n}_stream_ms": t["stream_ms"]
@@ -3715,229 +2765,6 @@ def check_moe_rows(torch, dev) -> dict:
                 free(torch, dev)
     emit("kernel_time", kernel="moe_rows", times=out)
     return out
-
-
-def moe_requests(torch, cfg, params, lengths, dev, tag) -> dict:
-    """Phase 18c/d: a request of each of `lengths` through
-    build_prefill_step (bf16, chunk 256, flash), each warmed first, tracer
-    on, with the MoE on the row kernels and then on `_scatter`/`_combine`
-    (`moe_rows.route` forced to refuse): each request's counts of
-    `moe.kernel`, `moe.plain` and the wrappers' launches, its wall time,
-    and the gap between the two routes' logits at the last position
-    (largest difference over the largest logit) and their tokens."""
-    from repro_torch import trace
-    from repro_torch.kernels import moe_rows
-    from repro_torch.models import registry
-    from repro_torch.models.config import RunConfig
-    from repro_torch.train.steps import build_prefill_step
-
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rcs, steps, toks = {}, {}, {}
-    for S in lengths:
-        rcs[S] = RunConfig(seq_len=S, global_batch=1, kind="prefill",
-                           param_dtype="bfloat16", attn_impl="flash",
-                           ssm_chunk=SSD_CHUNK)
-        steps[S] = build_prefill_step(cfg, rcs[S], device=dev)
-        toks[S] = torch.randint(0, cfg.vocab, (1, S), generator=gen,
-                                device=dev, dtype=torch.int32)
-        steps[S](params, {"tokens": toks[S]})
-    torch.cuda.synchronize()
-
-    def serve():
-        per, logits = {}, {}
-        for S in lengths:
-            trace.reset()
-            trace.enable()
-            launches = moe_rows.LAUNCHES
-            try:
-                t = time.perf_counter()
-                tok, _ = steps[S](params, {"tokens": toks[S]})
-                int(tok[0, 0])
-                ms = (time.perf_counter() - t) * 1e3
-                counts = trace.counters()
-                launched = moe_rows.LAUNCHES - launches
-            finally:
-                trace.disable()
-                trace.reset()
-            with torch.no_grad():
-                x, *_ = registry.forward(cfg, params, {"tokens": toks[S]},
-                                         rcs[S])
-                logits[S] = registry.unembed(cfg, params, x[:, -1:],
-                                             rcs[S]).float()
-            per[S] = {"ms": ms, "moe.kernel": counts.get("moe.kernel", 0),
-                      "moe.plain": counts.get("moe.plain", 0),
-                      "launches": launched}
-        return per, logits
-
-    kern, got = serve()
-    route = moe_rows.route
-    try:
-        moe_rows.route = lambda *a: "forced"
-        plain, want = serve()
-    finally:
-        moe_rows.route = route
-    moe_layers = cfg.n_layers
-    gaps = {S: {"gap": float((got[S] - want[S]).abs().max()
-                             / want[S].abs().max()),
-                "same_token": bool(torch.equal(got[S].argmax(-1),
-                                               want[S].argmax(-1)))}
-            for S in lengths}
-    out = {"layers": moe_layers, "kernel": kern, "plain": plain,
-           "logits": gaps,
-           "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)}
-    emit("moe_requests", model=tag, **out)
-    bad = [S for S in lengths
-           if (kern[S]["moe.kernel"], kern[S]["moe.plain"],
-               kern[S]["launches"]) != (moe_layers, 0, 2 * moe_layers)
-           or (plain[S]["moe.kernel"], plain[S]["moe.plain"],
-               plain[S]["launches"]) != (0, moe_layers, 0)]
-    if bad:
-        raise AssertionError(f"{tag} requests at {bad}: {kern} on the "
-                             f"kernels, {plain} forced plain; {moe_layers} "
-                             f"MoE layers a request")
-    return out
-
-
-def moe_train_counts(torch, dev) -> dict:
-    """Phase 18e: a training forward and backward of phi3.5-moe at full
-    width, 2 layers (bf16 parameters that need gradients, 1 x 1024
-    tokens), tracer on: every MoE layer takes `_scatter`/`_combine`
-    (`moe.kernel` 0, `moe.plain` 2) and the wrappers launch nothing."""
-    from repro_torch import trace
-    from repro_torch.configs import phi35_moe
-    from repro_torch.kernels import moe_rows
-    from repro_torch.models import layers
-    from repro_torch.models.config import RunConfig
-    from repro_torch.train import steps
-
-    cfg = phi35_moe.CONFIG.scaled(n_layers=2)
-    params = bf16_params(torch, cfg, dev, SEED + 18)
-    leaves = [t.requires_grad_() for _, t in layers.tree_items(params)]
-    rc = RunConfig(seq_len=1024, global_batch=1, kind="train",
-                   param_dtype="bfloat16", compute_dtype="bfloat16")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    toks = torch.randint(0, cfg.vocab, (1, rc.seq_len), generator=gen,
-                         device=dev, dtype=torch.int64)
-    launches = moe_rows.LAUNCHES
-    trace.reset()
-    trace.enable()
-    try:
-        loss = steps.loss_fn(cfg, params, {"tokens": toks, "labels": toks},
-                             rc)
-        grads = torch.autograd.grad(loss, leaves)
-        torch.cuda.synchronize()
-        counts = trace.counters()
-    finally:
-        trace.disable()
-        trace.reset()
-    out = {"layers": cfg.n_layers, "loss": float(loss.detach()),
-           "finite_grads": all(bool(torch.isfinite(g).all()) for g in grads),
-           "moe.kernel": counts.get("moe.kernel", 0),
-           "moe.plain": counts.get("moe.plain", 0),
-           "launches": moe_rows.LAUNCHES - launches}
-    emit("moe_train_counts", **out)
-    del params, leaves, grads, loss
-    free(torch, dev)
-    if (out["moe.kernel"], out["moe.plain"], out["launches"]) != (
-            0, cfg.n_layers, 0) or not out["finite_grads"]:
-        raise AssertionError(f"training step: {out}")
-    return out
-
-
-def moe_rows_phase(torch, dev) -> dict:
-    """Phase 18: check_moe_rows, then the requests of Granite 4.0-H Small
-    whole (SSD_SIZE_LENGTHS) and of the chat cell's phi3.5-moe stage (16
-    layers, CHAT_LENGTHS), then moe_train_counts."""
-    from repro_torch.configs import granite4_h_small, phi35_moe
-    out = {"kernels": check_moe_rows(torch, dev)}
-    cfg = granite4_h_small.CONFIG
-    params = bf16_params(torch, cfg, dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    out["granite"] = moe_requests(torch, cfg, params, SSD_SIZE_LENGTHS, dev,
-                                  "granite4_h_small")
-    del params
-    free(torch, dev)
-    cfg = phi35_moe.CONFIG.scaled(n_layers=16)
-    params = bf16_params(torch, cfg, dev, SEED + 1)
-    torch.cuda.reset_peak_memory_stats(dev)
-    out["chat"] = moe_requests(torch, cfg, params, CHAT_LENGTHS, dev,
-                               "phi3.5-moe x16")
-    del params
-    free(torch, dev)
-    out["train"] = moe_train_counts(torch, dev)
-    return out
-
-
-def first_flash_calls(torch, fa, ref, dev):
-    """One short call of each compiled kernel, checked before anything
-    heavier runs: a fault of a pipeline shows here in seconds.  The tf32
-    kernel first (TF32_FIRST, each on the wgmma_tf32 route); wgmma has a
-    kernel per width and Q K^T step count (WGMMA_FIRST_DIMS holds one D
-    of each; most leave a last TMA box mostly empty), mma one per width
-    (at width - 4, which is no multiple of 8), simt one per column chunk
-    in float32 (at width - 4) and one for 16-bit types (D = 300); the
-    PerTensor simt kernel at each column chunk (a mix without a compute
-    type at width - 4) and on each float8 format (beside float32, D = 60);
-    then each wgmma and mma kernel that decodes float8, for each compute
-    type (DEC_WGMMA_FIRST_DIMS, mma at width - 4, DEC_FIRST_TYPES in
-    turn), each held by check_typed and on the route it should take."""
-    for combo, D in TF32_FIRST:
-        q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
-                      tuple(getattr(torch, d) for d in combo), D, dev)
-        name = fa.route(q, k, v)
-        check = check_typed(torch, fa, ref, fa.flash_attention(q, k, v),
-                            q, k, v)
-        emit("kernel_first_call", kernel="flash_attention", dtypes=combo,
-             D=D, width=fa.width(name, D), **check)
-        if name != "wgmma_tf32" or not check["ok"]:
-            raise AssertionError(f"{name} kernel (wgmma_tf32 wanted), "
-                                 f"{combo}, D={D}: {check}")
-    for combo, D in [(MIXED[1], w - 4) for w in fa.WIDTHS["simt"]] + [
-            ((d, d, "float32"), 60) for d in FLOAT8]:
-        q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
-                      tuple(getattr(torch, d) for d in combo), D, dev)
-        name = fa.route(q, k, v)
-        check = check_typed(torch, fa, ref, fa.flash_attention(q, k, v),
-                            q, k, v)
-        emit("kernel_first_call", kernel="flash_attention", dtypes=combo,
-             D=D, width=fa.width(name, D), **check)
-        if not check["ok"]:
-            raise AssertionError(f"{name} kernel, {combo}, D={D}: {check}")
-    for dname in FLASH_TOL:
-        dtype = getattr(torch, dname)
-        if dname == "float32":
-            dims = [w - 4 for w in fa.WIDTHS["simt"]]
-        else:
-            dims = WGMMA_FIRST_DIMS + [w - 4 for w in fa.WIDTHS["mma"]]
-            dims += [300]
-        for D in dims:
-            q, k, v = qkv(torch, 1, 2, 1, 300, 300, D, dtype, D, dev)
-            name = fa.route(q, k, v)
-            got = fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            err = float((got.float() - ref.flash_attention_ref(q, k, v)
-                         .float()).abs().max())
-            emit("kernel_first_call", kernel="flash_attention", dtype=dname,
-                 D=D, variant=name, width=fa.width(name, D),
-                 max_abs_err=err)
-            if not err <= FLASH_TOL[dname]:
-                raise AssertionError(f"{name} kernel, {dname}, D={D}: max "
-                                     f"abs err {err}")
-    for cname, combos in DEC_FIRST_TYPES.items():
-        dims = [(D, "wgmma") for D in DEC_WGMMA_FIRST_DIMS]
-        dims += [(w - 4, "mma") for w in fa.WIDTHS["mma"]]
-        for i, (D, want) in enumerate(dims):
-            combo = combos[i % len(combos)]
-            q, k, v = qkv(torch, 1, 2, 1, 300, 300, D,
-                          tuple(getattr(torch, d) for d in combo), D, dev)
-            name = fa.route(q, k, v)
-            check = check_typed(torch, fa, ref, fa.flash_attention(q, k, v),
-                                q, k, v)
-            emit("kernel_first_call", kernel="flash_attention", dtypes=combo,
-                 D=D, width=fa.width(name, D), **check)
-            if name != want or not check["ok"]:
-                raise AssertionError(f"{name} kernel ({want} wanted), "
-                                     f"{combo}, D={D}: {check}")
 
 
 def spills(log: str) -> dict:
@@ -4009,12 +2836,8 @@ def run(mode: str = "") -> int:
     flash = ["flash_attention", "flash_tf32"]
     names = {"--flash-only": flash, "--parity-only": ["xor_parity"],
              "--train-only": ["xor_parity"], "--entry-only": ["xor_parity"],
-             "--parallel-only": flash, "--typed-times": flash,
-             "--ssd-only": ["ssd", *flash],
-             "--moe-only": ["moe_rows"]}.get(
+             "--parallel-only": flash, "--moe-only": ["moe_rows"]}.get(
                  mode, ["xor_parity", *flash, "ssd", "moe_rows"])
-    if mode == "--typed-times":     # an older tree has no tf32 source
-        names = [n for n in names if (_build.CSRC / f"{n}.cu").exists()]
     built = _build.build(names)
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"cached": v["cached"], "seconds": v["seconds"],
@@ -4024,40 +2847,30 @@ def run(mode: str = "") -> int:
                                   or "arning" in ln or "(C7" in ln]}
                     for k, v in built.items()})
 
-    if mode == "--typed-times":
-        time_flash_types(torch, fa, ref, dev)
-        return 0
     if mode == "--flash-only":
-        first_flash_calls(torch, fa, ref, dev)
-        check_flash_types(torch, fa, ref, dev)
-        check_flash(torch, fa, ref, dev)
         time_flash_types(torch, fa, ref, dev)
         time_flash(torch, fa, ref, dev)
         return 0
     if mode == "--train-only":
-        check_large_rows(torch, parity, ref, dev)
         train(torch, fa, parity, ops, dev)
         return 0
     if mode == "--entry-only":
         entry_points(torch, parity, ops, dev)
         return 0
     if mode == "--families-only":
-        first_flash_calls(torch, fa, ref, dev)
         families(torch, fa, parity, ops, dev)
         return 0
     if mode == "--parallel-only":
-        first_flash_calls(torch, fa, ref, dev)
         parallel(torch, fa, dev, smi)
         return 0
     if mode == "--ssd-only":
-        ssd_phase(torch, dev)
+        time_ssd(torch, dev)
+        time_ssd_sizes(torch, dev)
+        kernel_requests(torch, dev)
         return 0
     if mode == "--moe-only":
-        moe_rows_phase(torch, dev)
+        time_moe_rows(torch, dev)
         return 0
-    worst = check_kernel(torch, parity, ref, dev)
-    ints = check_int_rows(torch, parity, ref, dev)
-    large = check_large_rows(torch, parity, ref, dev)
     times = time_kernel(torch, parity, ref, ops, dev)
     if mode == "--parity-only":
         write_split(torch, ops, parity, dev)
@@ -4075,8 +2888,6 @@ def run(mode: str = "") -> int:
     bench_raid5("cuda", parity)
     write_split(torch, ops, parity, dev)
 
-    flash_err = check_flash(torch, fa, ref, dev)
-    flash_types = check_flash_types(torch, fa, ref, dev)
     flash_times = time_flash(torch, fa, ref, dev)
     typed_times = time_flash_types(torch, fa, ref, dev)
     cfg, params = model_params(torch, dev)
@@ -4091,12 +2902,14 @@ def run(mode: str = "") -> int:
     entry = entry_points(torch, parity, ops, dev)
     fams = families(torch, fa, parity, ops, dev)
     par = parallel(torch, fa, dev, smi)
-    ssd_res = ssd_phase(torch, dev)
-    st = ssd_res["times"][max(SSD_LENGTHS)]
-    moe_res = moe_rows_phase(torch, dev)
-    mt = moe_res["kernels"][f"granite_{max(SSD_SIZE_LENGTHS)}"]
+    ssd_times = time_ssd(torch, dev)
+    ssd_sizes = time_ssd_sizes(torch, dev)
+    requests = kernel_requests(torch, dev)
+    moe_times = time_moe_rows(torch, dev)
 
     k4, fm, fz = times[4], flash_times["main"], flash_times["zamba2_d112"]
+    st = ssd_times[max(SSD_LENGTHS)]
+    mt = moe_times[f"granite_{max(SSD_SIZE_LENGTHS)}"]
     timed_keys = ("B", "H", "Hkv", "S", "D", "variant", "ms", "strided_ms",
                   "plain_ms", "bound_ms", "bound_by", "bound_term",
                   "library_ms")
@@ -4104,7 +2917,6 @@ def run(mode: str = "") -> int:
     # D=100, simt at f32 D=128
     variants = [{"name": name, "shape": shape,
                  "launches": prefill["variant_launches"].get(name, 0),
-                 "max_abs_err": flash_err["by_variant"][name],
                  **{k: flash_times[shape][k] for k in timed_keys}}
                 for name, shape in (("wgmma", "main"), ("mma", "d100_mma"),
                                     ("simt", "main_f32"))]
@@ -4112,12 +2924,11 @@ def run(mode: str = "") -> int:
     def typed_launches(name):
         # the main path's launches of route `name` on float8 or mixed types
         return sum(n for key, n in prefill["dtype_launches"].items()
-                   if key.split("/")[0] == name
-                   and key.split("/")[1] not in FLASH_TOL)
+                   if key.split("/")[0] == name and key.split("/")[1]
+                   not in ("float32", "bfloat16", "float16"))
     # the tensor-core routes that decode float8, each at its timed shape
     variants += [{"name": f"{name}/float8", "shape": shape,
                   "launches": typed_launches(name),
-                  "max_abs_err": typed_times[shape]["check"]["max_abs_err"],
                   **{k: typed_times[shape].get(k) for k in (
                       "B", "H", "Hkv", "S", "D", "variant", "ms", "plain_ms",
                       "bound_ms", "bound_by", "bound_term", "library_ms",
@@ -4128,7 +2939,6 @@ def run(mode: str = "") -> int:
     # shapes (the main path launches neither)
     variants += [{"name": name, "source": source, "shape": shape,
                   "launches": typed_launches(name.split("/")[0]),
-                  "max_abs_err": typed_times[shape]["check"]["max_abs_err"],
                   **{k: typed_times[shape].get(k) for k in (
                       "B", "H", "Hkv", "S", "D", "dtypes", "variant", "ms",
                       "plain_ms", "bound_ms", "bound_by", "bound_term",
@@ -4148,32 +2958,27 @@ def run(mode: str = "") -> int:
         "name": "xor_parity", "route": "cuda",
         "source": "src/repro_torch/csrc/xor_parity.cu",
         "replaces": "src/repro/kernels/parity.py:23",
-        "launches": launches, "max_abs_err": max(worst,
-                                                 large["max_abs_err"]),
+        "launches": launches,
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": None,
         "train_launches": trained["launches"] + trained["resume"][
             "launches"],
         "train_largest_call": trained["save"]["largest_call"],
-        "train_shape": {k: large[k] for k in (
+        "train_shape": {k: times["large"]["int32"][k] for k in (
             "K", "N", "ms", "plain_ms", "bound_ms", "bound_by")},
         "entry_launches": entry["launches"],
         "moe_train_launches": fams["moe"]["trainer_launches"],
-        "row_types": {"types": ints["types"], "shapes": ints["shapes"],
-                      "launches": sum(main_types.get(t, 0)
-                                      for t in ints["types"]),
-                      "checked_launches": ints["launches"],
-                      "checked_type_launches": ints["type_launches"],
-                      "max_abs_err": ints["max_abs_err"],
-                      "timed": ints["timed"],
-                      "large_timed": large["typed"]}}, {
+        "row_types": {"launches": sum(n for t, n in main_types.items()
+                                      if t != "int32"),
+                      "timed": times["typed"],
+                      "large_timed": {d: times["large"][d]
+                                      for d in INT_TIMED}}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": prefill["launches"],
         "variant_launches": prefill["variant_launches"],
-        "max_abs_err": max(flash_err["max_abs_err"].values()),
         "ms": fm["ms"], "strided_ms": fm["strided_ms"],
         "plain_ms": fm["plain_ms"],
         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
@@ -4188,60 +2993,43 @@ def run(mode: str = "") -> int:
         "timed": {name: {k: t[k] for k in ("dtype", "width", *timed_keys)}
                   for name, t in flash_times.items()
                   if name not in ("main", "zamba2_d112", "main_f16")},
-        "max_abs_err_by_dtype": flash_err["max_abs_err"],
-        "head_dims_held": flash_err["head_dims"],
         "other_types": {
             "launches": {name: typed_launches(name) for name in fa.VARIANTS},
-            "dtypes": [",".join(c) for c in
-                       [(d,) * 3 for d in FLOAT8] + list(MIXED)],
-            "checked_launches": flash_types["dtype_launches"],
-            "sweep_launches": flash_types["sweeps"]["tensor_cores"][
-                "dtype_launches"],
-            "max_err": flash_types["max_err"],
-            "margin_use": flash_types["margin_use"],
-            "negative_windows": list(NEGATIVE_WINDOWS),
             "timed": {name: {k: t[k] for k in (
                 "dtypes", "variant", "width", "ms", "plain_ms", "bound_ms",
-                "bound_by", "bound_term", "design_bound_ms", "library_ms",
-                "check")}
+                "bound_by", "bound_term", "design_bound_ms", "library_ms")}
                 for name, t in typed_times.items()}}}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": None,
-        "launches": ssd_res["requests"]["kernel"]["launches"],
-        "chunked": ssd_res["requests"]["kernel"]["chunked"],
-        "max_rel_err": max(max(t["check"]["y_rel"], t["check"]["state_rel"])
-                           for t in ssd_res["times"].values()),
+        "launches": {m: r["ssd"] for m, r in requests.items()
+                     if m != "train"},
+        "chunked": {m: r["ssd.chunked"] for m, r in requests.items()
+                    if m != "train"},
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "design_bound_ms": st["design_bound_ms"], "library_ms": None,
         "timed": {S: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "bound_share")}
-                  for S, t in ssd_res["times"].items()},
-        "request_ms": {"kernel": ssd_res["requests"]["kernel"]["ms"],
-                       "plain": ssd_res["requests"]["plain"]["ms"]},
+                  for S, t in ssd_times.items()},
         "sizes": {n: {S: {k: t[k] for k in ("H", "N", "ms", "bound_ms",
                                              "bound_by", "bound_share")}
-                      for S, t in times.items()}
-                  for n, times in ssd_res["sizes"].items()}}, {
+                      for S, t in sizes.items()}
+                  for n, sizes in ssd_sizes.items()}}, {
         "name": "moe_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_rows.cu",
         "replaces": None,
-        "launches": {m: {S: r["launches"] for S, r in
-                         moe_res[m]["kernel"].items()}
-                     for m in ("granite", "chat")},
-        "train_launches": moe_res["train"]["launches"],
-        "max_ulps": max(t["check"]["y_max_ulps"]
-                        for t in moe_res["kernels"].values()),
         "ms": mt["dispatch_ms"] + mt["combine_ms"],
         "plain_ms": mt["dispatch_plain_ms"] + mt["combine_plain_ms"],
         "bound_ms": mt["dispatch_bound_ms"] + mt["combine_bound_ms"],
         "bound_by": "bytes", "library_ms": None,
+        "launches": {m: r["moe_rows"] for m, r in requests.items()
+                     if m != "train"},
+        "train_launches": requests["train"]["moe_rows"],
         "timed": {n: {k: t[k] for k in (
             "dispatch_ms", "combine_ms", "dispatch_plain_ms",
             "combine_plain_ms", "dispatch_bound_ms", "combine_bound_ms")}
-            for n, t in moe_res["kernels"].items()},
-        "logit_gaps": {m: moe_res[m]["logits"] for m in ("granite", "chat")}}
+            for n, t in moe_times.items()}}
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4252,8 +3040,8 @@ def run(mode: str = "") -> int:
 
 if __name__ == "__main__":
     modes = ("--flash-only", "--parity-only", "--train-only", "--entry-only",
-             "--families-only", "--parallel-only", "--typed-times",
-             "--ssd-only", "--moe-only")
+             "--families-only", "--parallel-only", "--ssd-only",
+             "--moe-only")
     if sys.argv[1:] and (len(sys.argv) > 2 or sys.argv[1] not in modes):
         sys.exit(f"usage: chip_smoke.py [{' | '.join(modes)}]")
     try:

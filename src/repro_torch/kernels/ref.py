@@ -2,8 +2,9 @@
 attention).
 
 The kernel wrappers fall back to these only for tensors on the CPU; the
-tests hold them against the JAX reference and `chip_smoke.py` holds each
-CUDA kernel against them on the card."""
+tests hold them against the JAX reference, and each CUDA kernel against
+them on the card (the `card` tests of `tests/test_torch_kernels.py` and
+`tests/test_torch_flash.py`)."""
 from __future__ import annotations
 
 import math

@@ -13,7 +13,11 @@ up to 4), and the card's kernel adds its rounding of P to float16 (2^-11
 a weight, times |v| of about 4 at most), so 5e-3 holds the kernel too
 with room for neither a dropped tile nor a bf16/f16 mix-up.  The CUDA
 kernel itself is held against the plain version on the card by the
-`card` tests at the end and by `chip_smoke.py`.
+`card` tests at the end: every variant over a grid of shapes, windows,
+layouts and head dims, each float8 format and mix of types, and its
+rounding and decoding of every pattern a type has.  Its limits (TOL and
+the card's brackets) live in `_card.py`, which `chip_smoke.py`'s
+timings hold the kernel to as well.
 """
 import itertools
 
@@ -24,14 +28,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from _card import (TOL, U_C, card, close,  # noqa: E402,F401
+                   close_on_route, scaled_ok)
 
 try:                                     # the card test needs no JAX
     import jax.numpy as jnp
     from repro.kernels import flash_attention as jfa
 except ImportError:                      # pragma: no cover
     jnp = jfa = None
-
-TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 5e-3}
 
 
 @pytest.fixture
@@ -294,10 +298,10 @@ def test_flash_attention_head_dim_112_matches_pallas(pallas, dtype, window):
     assert np.abs(out.float().numpy() - want).max() < TOL[dtype]
 
 
-# the head dims chip_smoke.py's phase 7 holds beyond the models' 16-256
-# (every branch of `variant`: wgmma at width 64 and on mostly empty last
-# TMA boxes, mma, simt for 16-bit types), each with its
-# (B, H, Hkv, S, window) here: GQA everywhere, a window on some (S a
+# the head dims the card tests hold beyond the models' 16-256
+# (NEW_HEAD_DIMS below: every branch of `variant`, wgmma at width 64 and
+# on mostly empty last TMA boxes, mma, simt for 16-bit types), each with
+# its (B, H, Hkv, S, window) here: GQA everywhere, a window on some (S a
 # multiple of 64, as Pallas's blocks must divide it)
 _NEW_D_SHAPES = {8: (2, 4, 2, 128, 0), 40: (1, 4, 2, 128, 32),
                  48: (1, 4, 1, 128, 0), 80: (1, 4, 2, 128, 0),
@@ -574,50 +578,6 @@ def _from_jax(x):
     return torch.from_numpy(raw).view(getattr(torch, name))
 
 
-def _close(got, want):
-    """TOL for a float32 or 16-bit output, one rounding for float8."""
-    name = str(want.dtype).removeprefix("torch.")
-    if name in TOL:
-        err = (got.float() - want.float()).abs().max()
-        assert err < TOL[name], (name, float(err))
-    else:
-        assert ref.rounding_steps(got, want) <= 1
-
-
-# The tensor-core kernels round P to their compute type C before P V (the
-# row sums keep it unrounded): each weight moves by at most half a unit
-# of C, so the unrounded output by at most that share of |v|_P, the
-# P-weighted mean of |v| along the row.  Near zero that is many steps of
-# a fine float8 format (e5m2's subnormals are 2^-16 apart), so one
-# rounding of the output does not hold it; u_C, twice the half unit, is
-# chip_smoke.py's bracket for these routes.
-U_C = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -10,
-       fa.TF32: 2.0 ** -10}
-
-
-def _close_on_route(got, q, k, v, **kw):
-    """The kernel's output against the plain version on the route it took:
-    on simt (float32 throughout) `_close`; on the tensor cores, the
-    rounding to got's type of some x within U_C[C] |v|_P of the plain
-    version's float32 output, element by element (between the roundings
-    of its two ends; NaN only where an end is NaN)."""
-    if fa.route(q, k, v) == "simt":
-        _close(got.cpu(), ref.flash_attention_ref(q, k, v, **kw).cpu())
-        return
-    dq = ref.decode(q)
-    x0 = ref.flash_attention_ref(dq, k, v, **kw)
-    margin = U_C[fa.compute_type(q.dtype, k.dtype, v.dtype)] * \
-        ref.flash_attention_ref(dq, k, ref.decode(v).abs(), **kw)
-    lo = ref.decode(ref.round_to(x0 - margin, got.dtype))
-    hi = ref.decode(ref.round_to(x0 + margin, got.dtype))
-    g = ref.decode(got)
-    inside = ((g >= torch.where(torch.isnan(lo), -np.inf, lo))
-              & (g <= torch.where(torch.isnan(hi), np.inf, hi)))
-    ok = torch.where(torch.isnan(g), torch.isnan(lo) | torch.isnan(hi),
-                     inside & ~torch.isnan(x0))
-    assert bool(ok.all()), int((~ok).sum())
-
-
 def _typed_inputs(shape_q, shape_kv, seed, dtypes):
     return [_typed(a, d) for a, d in zip(_inputs(shape_q, shape_kv, seed),
                                          dtypes)]
@@ -733,8 +693,8 @@ def test_flash_attention_mixed_types_match_pallas(pallas, dtypes):
         dtypes, 40, not any(d.startswith("float8") for d in dtypes))
     got = ops.flash_attention(q, k, v, window=48, block_q=64, block_k=64)
     assert got.dtype == q.dtype
-    _close(got, want)
-    _close(ref.flash_attention_ref(q, k, v, window=48), want)
+    close(got, want)
+    close(ref.flash_attention_ref(q, k, v, window=48), want)
 
 
 @pytest.mark.parametrize("window", [-1, -7])
@@ -752,7 +712,7 @@ def test_negative_window_matches_pallas(pallas, dtypes, window):
                          block_k=64)
     got = ops.flash_attention(q, k, v, window=window, block_q=64,
                               block_k=64)
-    _close(got, want)
+    close(got, want)
     assert torch.equal(ref.bits(got), ref.bits(ops.flash_attention(q, k, v)))
 
 
@@ -968,12 +928,63 @@ def test_integer_and_float64_inputs_still_raise(dtypes):
         fa.flash_attention(q, k, v)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
+def _card_qkv(B, H, Hkv, Sq, Sk, D, dtypes, seed, dev, layout="dense"):
+    """q (B,H,Sq,D), k, v (B,Hkv,Sk,D) drawn on the card from `seed`, q, k
+    and v of the types named in `dtypes` (a float8 tensor rounded from
+    normal draws as the plain version rounds; float8_e8m0fnu, which has
+    no sign and no zero, from their magnitudes kept at 2^-126 or more: a
+    draw of 0 encodes as NaN), laid out as `layout`: "dense"; "bshd", the
+    (B,H,S,D) views of (B,S,H,D) tensors, as the model passes them; or
+    one the TMA cannot take: "col2" a last dimension of stride 2,
+    "row_pad4" rows D + 4 elements apart, "off1" a start one element past
+    an aligned one, "perm" the dense (B,H,S,D) view of a (B,S,D,H) tensor
+    (whose output, empty_like(q), takes the same strides)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape, view = {
+        "dense": (lambda h, S: (B, h, S, D), lambda x, h, S: x),
+        "bshd": (lambda h, S: (B, S, h, D), lambda x, h, S: x.transpose(1, 2)),
+        "col2": (lambda h, S: (B, h, S, 2 * D), lambda x, h, S: x[..., ::2]),
+        "row_pad4": (lambda h, S: (B, h, S, D + 4),
+                     lambda x, h, S: x[..., :D]),
+        "off1": (lambda h, S: (B * h * S * D + 1,),
+                 lambda x, h, S: x[1:].view(B, h, S, D)),
+        "perm": (lambda h, S: (B, S, D, h),
+                 lambda x, h, S: x.permute(0, 3, 1, 2))}[layout]
 
+    def make(heads, S, name):
+        x = torch.randn(shape(heads, S), generator=g, device=dev)
+        if name == "float8_e8m0fnu":
+            x = x.abs().clamp_min(2.0 ** -126)
+        return view(ref.round_to(x, getattr(torch, name)), heads, S)
+    return (make(H, Sq, dtypes[0]), make(Hkv, Sk, dtypes[1]),
+            make(Hkv, Sk, dtypes[2]))
+
+
+# K3's edges, (B, H, Hkv, Sq, Sk, D, window, causal): S not a multiple of
+# the wgmma kernel's 128-row tiles, Sq < Sk, a window of 1024 at S=4096,
+# gemma3's D=256 and zamba2's D=112 at S=4096; in 16-bit types those with
+# Sk >= 1000 are also held to SCALED
+EDGES = [(1, 4, 2, 100, 100, 128, 0, True),
+         (1, 32, 8, 4000, 4000, 128, 0, True),
+         (2, 32, 8, 1000, 4096, 128, 0, True),
+         (1, 8, 2, 128, 4000, 256, 100, True),
+         (1, 32, 8, 4096, 4096, 128, 1024, True),
+         (1, 16, 8, 4096, 4096, 256, 0, True),
+         (1, 8, 8, 4000, 4000, 64, 1024, False),
+         (1, 32, 32, 4096, 4096, 112, 0, True),
+         (1, 4, 4, 4000, 4000, 112, 1024, True)]
+# head dims beyond the models' 16-256, every branch of `variant`: wgmma at
+# width 64 (8-56) and on mostly empty last TMA boxes, mma at D % 8 != 0 at
+# each width (20, 100, 250), simt for 16-bit types above 256 and in
+# column chunks (up to 1024)
+NEW_HEAD_DIMS = (8, 20, 24, 40, 48, 56, 80, 96, 100, 120, 136, 160, 192,
+                 200, 250, 320, 512, 520, 768, 1024)
+# a head dim of each compiled kernel: wgmma's widths and Q K^T step counts
+# (most leave a last TMA box mostly empty), mma and simt at each width - 4
+# (no multiple of 8), 16-bit types on simt (300)
+KERNEL_DIMS = sorted({8, 24, 40, 56, 72, 96, 112, 128, 136, 256, 300,
+                      *(w - 4 for w in fa.WIDTHS["mma"] + fa.WIDTHS["simt"])})
+DTYPES = ["float32", "bfloat16", "float16"]
 
 CARD_CASES = [
     (1, 1, 1, 64, 64, 16, 0, True),
@@ -1012,35 +1023,90 @@ CARD_CASES = [
     (1, 2, 1, 130, 130, 520, 0, True),
     (1, 4, 2, 100, 300, 1024, 64, True),
 ]
+# the grid: B, (H, Hkv), S, D, window and causal; zamba2's D=112 on its
+# own grid; Sq != Sk (Sq > Sk too, where leading rows keep no key)
+CARD_CASES += [(B, H, Hkv, S, S, D, w, c) for B in (1, 2)
+               for H, Hkv in ((1, 1), (4, 2), (8, 1), (32, 8))
+               for S in (64, 128, 192, 256, 1024)
+               for D in (16, 32, 64, 128, 256)
+               for w in (0, 32, 100) for c in (True, False)]
+CARD_CASES += [(B, H, Hkv, S, S, 112, w, c) for B in (1, 2)
+               for H, Hkv in ((1, 1), (4, 4), (32, 32), (8, 2))
+               for S in (64, 192, 1024) for w in (0, 100)
+               for c in (True, False)]
+CARD_CASES += [(2, H, Hkv, Sq, Sk, D, w, c)
+               for Sq, Sk in ((1, 128), (64, 256), (100, 1024), (192, 1024),
+                              (128, 64))
+               for H, Hkv, D in ((4, 2, 64), (4, 4, 112), (32, 8, 128),
+                                 (8, 1, 256))
+               for w in (0, 100) for c in (True, False)]
+CARD_CASES += EDGES
+CARD_CASES += [(B, H, Hkv, Sq, Sk, D, w, c) for D in NEW_HEAD_DIMS
+               for B, H, Hkv, Sq, Sk, w, c in (
+                   (1, 4, 2, 192, 192, 0, True),
+                   (2, 4, 4, 300, 300, 100, True),
+                   (1, 8, 2, 100, 257, 0, True),
+                   (1, 2, 1, 1024, 1024, 0, True),
+                   (1, 4, 2, 128, 64, 0, True))]
+CARD_CASES += [(1, 2, 1, 300, 300, D, 0, True) for D in KERNEL_DIMS]
+CARD_CASES = list(dict.fromkeys(CARD_CASES))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,window,causal", CARD_CASES)
-def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, B, H, Hkv,
-                                            Sq, Sk, D, window, causal):
-    td = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(a).to(cuda_device, td) for a in
-               _inputs((B, H, Sq, D), (B, Hkv, Sk, D), Sq * D))
+@pytest.mark.parametrize(
+    "dtype,B,H,Hkv,Sq,Sk,D,window,causal,held",
+    [(d, *c, "scaled" if d != "float32" and c in EDGES and c[4] >= 1000
+      else "tol") for c in CARD_CASES for d in DTYPES])
+def test_flash_kernel_matches_plain_on_card(card, dtype, B, H, Hkv,
+                                            Sq, Sk, D, window, causal, held):
+    """Each variant against the plain version on dense inputs: within TOL,
+    and SCALED too (`held`) at long sequences; rows that keep no key
+    (Sq > Sk, causal) are 0."""
+    q, k, v = _card_qkv(B, H, Hkv, Sq, Sk, D, (dtype,) * 3, Sq * D,
+                        card)
     launches = dict(fa.VARIANT_LAUNCHES)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    name = fa.variant(td, D)
+    name = fa.variant(q.dtype, D)
     assert fa.VARIANT_LAUNCHES[name] == launches[name] + 1
     assert fa.DTYPE_LAUNCHES[f"{name}/{dtype}"] >= 1
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert (got.float() - want.float()).abs().max() < TOL[dtype]
+    if held == "scaled":
+        assert scaled_ok(got, q, k, v, causal=causal, window=window)
+    if causal and Sq > Sk:
+        assert got[:, :, :Sq - Sk].abs().max() == 0
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-@pytest.mark.parametrize("D", [32, 112, 128, 256, 48, 100, 136, 320])
-def test_flash_kernel_strided_views_on_card(cuda_device, dtype, D):
-    arrays = _inputs((2, 8, 300, D), (2, 2, 300, D), D)
-    q, k, v = (t.to(cuda_device) for t in _bshd_views(arrays, dtype))
-    got = fa.flash_attention(q, k, v, window=100)
-    want = ref.flash_attention_ref(q, k, v, window=100)
+@pytest.mark.parametrize(
+    "dtype,B,H,Hkv,Sq,Sk,D,window,causal,scale,held",
+    [(d, 2, 8, 2, 300, 300, D, 100, True, None, "tol") for d in DTYPES
+     for D in (32, 112, 128, 256, 48, 100, 136, 320)]
+    + [(d, *c, None, "scaled" if d != "float32" and c[4] >= 1000
+        else "tol") for c in EDGES for d in DTYPES]
+    + [(d, 2, 4, 2, S, S, D, 0, True, None, "tol") for d in DTYPES
+       for S in (100, 192) for D in (16, 32, 64, 112, 128, 256)]
+    + [(d, 2, 4, 2, 130, 130, D, 64, False, None, "tol") for d in DTYPES
+       for D in NEW_HEAD_DIMS]
+    # K3 as Granite 4.0-H Small's attention calls it: H = 32, Hkv = 8,
+    # D = 128, softmax scale 1/128 (attention_multiplier)
+    + [("bfloat16", 1, 32, 8, S, S, 128, 0, True, 0.0078125, "scaled_only")
+       for S in (2048, 4096, 6144, 8192)])
+def test_flash_kernel_strided_views_on_card(card, dtype, B, H, Hkv,
+                                            Sq, Sk, D, window, causal, scale,
+                                            held):
+    """The (B,H,S,D) views of (B,S,H,D) tensors in and out, as the model
+    passes them, held as on dense inputs."""
+    q, k, v = _card_qkv(B, H, Hkv, Sq, Sk, D, (dtype,) * 3, D + Sk,
+                        card, "bshd")
+    kw = dict(causal=causal, window=window, scale=scale)
+    got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.transpose(1, 2).is_contiguous()
-    assert (got.float() - want.float()).abs().max() < TOL[dtype]
+    if held != "scaled_only":
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        assert (got.float() - want.float()).abs().max() < TOL[dtype]
+    if held != "tol":
+        assert scaled_ok(got, q, k, v, **kw)
 
 
 # one unit of the type's rounding of an output, relative: where outputs
@@ -1049,125 +1115,211 @@ def test_flash_kernel_strided_views_on_card(cuda_device, dtype, D):
 REL = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D", [64, 100])
-def test_flash_kernel_many_heads_on_card(cuda_device, dtype, D):
+def test_flash_kernel_many_heads_on_card(card, dtype, D):
     """B*H = 65,600, above the 65,535 of a grid's y dimension: every
     kernel puts b*H + h in x."""
-    td = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(a).to(cuda_device, td) for a in
-               _inputs((2, 32800, 16, D), (2, 8200, 16, D), D))
+    q, k, v = _card_qkv(2, 32800, 8200, 16, 16, D, (dtype,) * 3, D,
+                        card)
     got = fa.flash_attention(q, k, v)
     want = ref.flash_attention_ref(q, k, v).float()
     torch.cuda.synchronize()
     assert ((got.float() - want).abs()
             <= TOL[dtype] + REL[dtype] * want.abs()).all()
+    assert scaled_ok(got, q, k, v)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kind", ["col2", "row_pad4", "off1", "perm"])
-@pytest.mark.parametrize("D", [20, 32, 100, 128])
-def test_flash_kernel_layouts_the_tma_cannot_take_on_card(cuda_device, dtype,
-                                                          kind, D):
-    """The layouts the TMA cannot take, read in place by mma (16-bit) and
-    simt (float32): a last dimension of stride 2, rows D + 4 elements
-    apart, a start one element past an aligned one, and the dense view of
-    a (B,S,D,H) tensor, whose output (empty_like(q)) has a column stride
-    of H."""
-    td = getattr(torch, dtype)
-    B, H, Hkv, S = 2, 4, 2, 300
-    shape = {"col2": lambda h: (B, h, S, 2 * D),
-             "row_pad4": lambda h: (B, h, S, D + 4),
-             "off1": lambda h: (B * h * S * D + 1,),
-             "perm": lambda h: (B, S, D, h)}[kind]
-    view = {"col2": lambda x, h: x[..., ::2],
-            "row_pad4": lambda x, h: x[..., :D],
-            "off1": lambda x, h: x[1:].view(B, h, S, D),
-            "perm": lambda x, h: x.permute(0, 3, 1, 2)}[kind]
-    rng = np.random.default_rng(D)
-    q, k, v = (view(torch.from_numpy(rng.standard_normal(
-        shape(h), dtype=np.float32)).to(cuda_device, td), h)
-        for h in (H, Hkv, Hkv))
-    assert fa.route(q, k, v) == ("simt" if dtype == "float32" else "mma")
-    got = fa.flash_attention(q, k, v, window=100)
-    want = ref.flash_attention_ref(q, k, v, window=100)
+@pytest.mark.parametrize("D", [20, 32, 100, 128, 64, 320])
+@pytest.mark.parametrize("Sq,Sk,window,causal", [
+    (300, 300, 100, True), (300, 300, 0, True), (192, 257, 100, False)])
+def test_flash_kernel_layouts_the_tma_cannot_take_on_card(
+        card, dtype, kind, D, Sq, Sk, window, causal):
+    """The layouts the TMA cannot take, read in place by mma (16-bit up
+    to D = 256) and simt (float32, and above 256)."""
+    q, k, v = _card_qkv(2, 4, 2, Sq, Sk, D, (dtype,) * 3, D, card,
+                        kind)
+    assert fa.route(q, k, v) == ("simt" if dtype == "float32" or D > 256
+                                 else "mma")
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max() < TOL[dtype]
 
 
-# each float8 format alone, and the mixes of the cross tests above, on
-# the route each takes (the tensor cores where the types have a compute
-# type and D <= 256, the PerTensor simt kernel otherwise)
-CARD_TYPES = [(d,) * 3 for d in FLOAT8] + _MIXED
+# each float8 format alone and each mix, at shapes where the types take
+# each route: the tensor cores where they have a compute type (wgmma at
+# D=64 and 128, mma at D=40 and 136, wgmma_tf32 for the tf32 sets) and the
+# PerTensor simt kernel otherwise (float32 in the set, D=320, the tf32
+# sets past D=128); GQA, windows, Sq != Sk, a longer sequence
+CARD_TYPES = [(d,) * 3 for d in FLOAT8] + _MIXED + [
+    ("float8_e4m3fnuz", "float8_e4m3fnuz", "bfloat16"),
+    ("bfloat16", "bfloat16", "float8_e5m2fnuz"),
+    ("float16", "float8_e5m2", "float8_e5m2"),
+    ("float8_e4m3fn", "float16", "float16"),
+    ("float16", "bfloat16", "bfloat16"),
+    ("float8_e5m2fnuz", "bfloat16", "float16")]
+TYPE_SHAPES = [(2, 4, 2, 192, 192, 64, 100, True),
+               (1, 8, 2, 100, 300, 136, 0, True),
+               (2, 4, 4, 130, 130, 320, 0, False),
+               (1, 4, 2, 192, 192, 64, 100, True),
+               (2, 8, 2, 300, 300, 128, 0, True),
+               (1, 4, 4, 100, 257, 40, 0, False),
+               (2, 4, 1, 130, 130, 320, 64, True),
+               (1, 32, 8, 1024, 1024, 128, 0, True)]
+# one short call of each kernel that takes these types: the tf32 kernel at
+# both widths on q of each kind; PerTensor simt at each column chunk and
+# on each float8 format beside float32; and each wgmma and mma kernel
+# that decodes float8, for each compute type, the sets taken in turn
+FIRST_CALLS = [
+    (("bfloat16", "float16", "float16"), 64),
+    (("float16", "bfloat16", "bfloat16"), 128),
+    (("float16", "float8_e8m0fnu", "float8_e5m2"), 32),
+    (("float8_e4m3fn", "float16", "bfloat16"), 96),
+    (("float8_e8m0fnu", "float16", "float8_e4m3fnuz"), 112)]
+FIRST_CALLS += [(("float32", "bfloat16", "bfloat16"), w - 4)
+                for w in fa.WIDTHS["simt"]]
+FIRST_CALLS += [((d, d, "float32"), 60) for d in FLOAT8]
+for _sets in ((("bfloat16", "float8_e4m3fn", "float8_e4m3fn"),
+               ("float8_e4m3fn",) * 3,
+               ("float8_e8m0fnu", "bfloat16", "float8_e4m3fnuz"),
+               ("float8_e5m2fnuz", "float8_e5m2", "bfloat16")),
+              (("float16", "float8_e5m2", "float8_e5m2"),
+               ("float8_e4m3fn", "float16", "float16"),
+               ("float8_e4m3fnuz", "float8_e5m2fnuz", "float16"))):
+    FIRST_CALLS += [(_sets[i % len(_sets)], D) for i, D in enumerate(
+        [16, 32, 48, 64, 80, 96, 112, 128, 144, 256]
+        + [w - 4 for w in fa.WIDTHS["mma"]])]
 
 
-@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,window,causal", [
-    (2, 4, 2, 192, 192, 64, 100, True), (1, 8, 2, 100, 300, 136, 0, True),
-    (2, 4, 4, 130, 130, 320, 0, False)])
-@pytest.mark.parametrize("dtypes", CARD_TYPES, ids="-".join)
-def test_flash_kernel_types_on_card(cuda_device, dtypes, B, H, Hkv, Sq, Sk,
-                                    D, window, causal):
+@pytest.mark.parametrize(
+    "dtypes,B,H,Hkv,Sq,Sk,D,window,causal,layout",
+    [(t, *s, "dense") for t in CARD_TYPES for s in TYPE_SHAPES]
+    # float8 as the model's (B,S,H,D) view, one byte past an aligned
+    # start, and with a column stride of 2
+    + [((d, d, "bfloat16"), 2, 4, 2, 192, 257, 64, 100, True, lay)
+       for d in ("float8_e4m3fn", "float8_e5m2")
+       for lay in ("bshd", "off1", "col2")]
+    + [(t, 1, 2, 1, 300, 300, D, 0, True, "dense") for t, D in FIRST_CALLS],
+    ids=lambda p: "-".join(p) if isinstance(p, tuple) else None)
+def test_flash_kernel_types_on_card(card, dtypes, B, H, Hkv, Sq, Sk,
+                                    D, window, causal, layout):
     """Each float8 format and each mix against the plain version on the
-    card, on the route it takes: wgmma at D=64, mma at D=136 (rows of 136
-    bytes) or simt, and the PerTensor simt kernel at D=320
-    (`_close_on_route`)."""
-    q, k, v = (t.to(cuda_device) for t in _typed_inputs(
-        (B, H, Sq, D), (B, Hkv, Sk, D), Sq + D, dtypes))
-    key = fa.dtype_key(fa.route(q, k, v), q.dtype, k.dtype, v.dtype, q.dtype)
+    card (`close_on_route`), launched once on the route `_rule` names."""
+    q, k, v = _card_qkv(B, H, Hkv, Sq, Sk, D, dtypes, Sq + D, card,
+                        layout)
+    tma = layout in ("dense", "bshd") and all(
+        D * t.element_size() % 16 == 0 for t in (q, k, v))
+    route = fa.route(q, k, v)
+    assert route == _rule(dtypes, D, tma)
+    key = fa.dtype_key(route, q.dtype, k.dtype, v.dtype, q.dtype)
     before = fa.DTYPE_LAUNCHES.get(key, 0)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.DTYPE_LAUNCHES[key] == before + 1
-    _close_on_route(got, q, k, v, causal=causal, window=window)
+    close_on_route(got, q, k, v, causal=causal, window=window)
 
 
-@pytest.mark.parametrize("dtype", FLOAT8 + ["bfloat16", "float16"])
-def test_kernel_rounds_outputs_as_the_plain_version_on_card(cuda_device,
-                                                            dtype):
+def _zeros(shape, name, dev):
+    """Zeros of type `name`: byte 0 for a 1-byte type (2^-127 in
+    float8_e8m0fnu, which has no zero)."""
+    td = getattr(torch, name)
+    if td.itemsize == 1:
+        return torch.zeros(shape, dtype=torch.uint8, device=dev).view(td)
+    return torch.zeros(shape, dtype=td, device=dev)
+
+
+def _same_bits(got, want):
+    """Bit for bit, but the sign of a NaN, which the products need not
+    keep."""
+    nan = torch.isnan(ref.decode(want))
+    return bool(torch.equal(torch.isnan(ref.decode(got)), nan)
+                and torch.equal(ref.bits(got).masked_fill(nan, 0),
+                                ref.bits(want).masked_fill(nan, 0)))
+
+
+@pytest.mark.parametrize(
+    "dtype,k_type,v_type",
+    [(d, "float32", "float32") for d in FLOAT8 + ["bfloat16", "float16"]]
+    # through the tensor cores: every bfloat16 pattern rounded to each
+    # float8 format by wgmma, every float16 pattern by the tf32 kernel,
+    # and every bfloat16 and float16 pattern passed through it
+    + [(d, d, "bfloat16") for d in FLOAT8]
+    + [(d, "bfloat16", "float16") for d in FLOAT8]
+    + [("bfloat16", "float16", "bfloat16"), ("float16", "bfloat16",
+                                             "float16")])
+def test_kernel_rounds_outputs_as_the_plain_version_on_card(
+        card, dtype, k_type, v_type):
     """One key a row (Sk = 1, q and k zero: every weight exactly 1), so
     the output is v itself rounded to q's type: the kernel's encoder
-    against `ref.round_to` over random float32 bit patterns and float32's
-    edges, bit for bit for float8 but the sign of a NaN (NaN as NaN for
-    16-bit)."""
-    rng = np.random.default_rng(3)
-    x = rng.integers(0, 2 ** 32, 4096 * 256, dtype=np.uint64).astype(
-        np.uint32).view(np.float32)
-    x[:10] = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1e-39,
-              3.4e38, 464.0]
-    v = torch.from_numpy(x).view(1, 4096, 1, 256).to(cuda_device)
-    q = torch.zeros((1, 4096, 1, 256), device=cuda_device).to(
-        getattr(torch, dtype))
-    k = torch.zeros((1, 4096, 1, 256), device=cuda_device)
+    against `ref.round_to`, over random float32 bit patterns and
+    float32's edges (simt), or every pattern of a 16-bit v (the tensor
+    cores; subnormals included, which a flushing tensor core would
+    break), value for value, and bit for bit but the sign of a NaN for
+    float8 and on the tensor cores."""
+    if v_type == "float32":
+        rng = np.random.default_rng(3)
+        x = rng.integers(0, 2 ** 32, 4096 * 256, dtype=np.uint64).astype(
+            np.uint32).view(np.float32)
+        x[:10] = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1e-39,
+                  3.4e38, 464.0]
+        v = torch.from_numpy(x).view(1, 4096, 1, 256).to(card)
+    else:
+        v = torch.arange(-32768, 32768, dtype=torch.int32).to(
+            torch.int16).view(getattr(torch, v_type)).view(
+                1, 2048, 1, 32).to(card)
+    q = _zeros(v.shape, dtype, card)
+    k = _zeros(v.shape, k_type, card)
+    assert fa.route(q, k, v) == _rule([dtype, k_type, v_type], v.shape[-1],
+                                      True)
     got = fa.flash_attention(q, k, v).cpu()
     # the sum of products starts at +0, so -0 comes out +0
-    want = ref.round_to(torch.from_numpy(x) + 0.0, q.dtype).view(got.shape)
+    want = ref.round_to(v.float().cpu() + 0.0, q.dtype).view(got.shape)
     assert ref.rounding_steps(got, want) == 0
-    if q.dtype.itemsize == 1:     # the products need not keep a NaN's sign
-        nan = torch.isnan(ref.decode(want))
-        assert torch.equal(ref.bits(got).masked_fill(nan, 0),
-                           ref.bits(want).masked_fill(nan, 0))
+    if q.dtype.itemsize == 1 or fa.route(q, k, v) != "simt":
+        assert _same_bits(got, want)
 
 
+@pytest.mark.parametrize("q_type,k_type", [
+    ("float32", "float32"), ("bfloat16", "same"), ("float16", "same"),
+    ("bfloat16", "float16"), ("float16", "float8_e8m0fnu")])
 @pytest.mark.parametrize("dtype", FLOAT8)
-def test_kernel_decodes_every_float8_byte_on_card(cuda_device, dtype):
-    """v holds each of the 256 bytes once, Sk = 1 and q, k float32 zeros:
-    the float32 output is the table's value of each byte."""
+def test_kernel_decodes_every_float8_byte_on_card(card, dtype,
+                                                  q_type, k_type):
+    """v holds each of the 256 bytes once, Sk = 1 and q, k zeros: the
+    output is the table's value of each byte in q's type, through simt
+    (q, k float32), the wgmma kernel (q bfloat16 or float16 beside k of
+    the format) and the tf32 kernel (q bfloat16 beside k float16, q
+    float16 beside k e8m0fnu); on the tensor cores bit for bit."""
     codes = torch.arange(256, dtype=torch.uint8).view(getattr(torch, dtype))
-    v = codes.view(1, 8, 1, 32).to(cuda_device)
-    z = torch.zeros((1, 8, 1, 32), device=cuda_device)
-    got = fa.flash_attention(z, z, v).cpu().reshape(-1)
-    want = codes.float()
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    assert torch.equal(got.nan_to_num(0.5), want.nan_to_num(0.5))
+    v = codes.view(1, 8, 1, 32).to(card)
+    q = _zeros(v.shape, q_type, card)
+    k = _zeros(v.shape, dtype if k_type == "same" else k_type, card)
+    route = fa.route(q, k, v)
+    assert route == _rule([q_type, str(k.dtype).removeprefix("torch."),
+                           dtype], 32, True)
+    got = fa.flash_attention(q, k, v).cpu().reshape(-1)
+    want = ref.round_to(codes.float() + 0.0, q.dtype)      # -0 as +0
+    assert torch.equal(torch.isnan(ref.decode(got)),
+                       torch.isnan(ref.decode(want)))
+    assert torch.equal(ref.decode(got).nan_to_num(0.5),
+                       ref.decode(want).nan_to_num(0.5))
+    if route != "simt":
+        assert _same_bits(got, want)
 
 
 @pytest.mark.parametrize("window", [-1, -7])
 @pytest.mark.parametrize("dtypes", [("bfloat16",) * 3, ("float32",) * 3,
-                                    ("float8_e4m3fn",) * 3],
+                                    ("float8_e4m3fn",) * 3,
+                                    ("float16",) * 3,
+                                    ("bfloat16", "float8_e4m3fn",
+                                     "float8_e4m3fn")],
                          ids="-".join)
-def test_negative_window_on_card(cuda_device, dtypes, window):
-    q, k, v = (t.to(cuda_device) for t in _typed_inputs(
-        (2, 8, 300, 64), (2, 2, 300, 64), 1, dtypes))
+@pytest.mark.parametrize("D", [64, 100])
+def test_negative_window_on_card(card, dtypes, window, D):
+    q, k, v = _card_qkv(2, 8, 2, 300, 300, D, dtypes, 1, card)
     got = fa.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
-    _close_on_route(got, q, k, v, window=0)
+    close_on_route(got, q, k, v, window=0)

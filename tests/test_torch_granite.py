@@ -10,6 +10,12 @@ position-by-position recurrence, batched experts against one at a
 time), which moves results by a few float32 ulps a layer; a dropped
 multiplier, a missing shared expert or conv bias moves them by far more
 (`test_each_multiplier_changes_the_result`).
+
+On the card (the `card` tests, skipped without one, no JAX): SMOKE at
+the SSD kernel's state size and head dim runs each hand-written kernel
+once a layer in a bf16 prefill, the MoE on the plain functions with the
+row kernels refused for the same next token, and in training (where
+its gradients are not finite yet: an open fault of `_ssd_chunked`).
 """
 import math
 
@@ -21,12 +27,14 @@ from reference import granite_hybrid as ref  # noqa: E402
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs import granite4_h_small  # noqa: E402
+from repro_torch.kernels import moe_rows  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.config import RunConfig  # noqa: E402
 from repro_torch.parallel.shardings import constrain  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
+from _card import card, prefill, same_answer, train_step  # noqa: E402,F401
 
 SMOKE = granite4_h_small.SMOKE
 TOL = 1e-4
@@ -201,3 +209,71 @@ def test_published_widths_and_parameter_counts():
     total = sum(math.prod(d.shape) for _, d in L.tree_items(defs))
     assert total == 32_207_337_984
     assert registry.count_params(cfg, active_only=True) == 8_392_079_872
+
+
+# ------------------------------------------------------------- on the card
+
+# SMOKE at the SSD kernel's state size and head dim (N = 128, P = 64, the
+# published model's): 9 Mamba2 layers, attention at layer 5, an MoE after
+# each
+CARD = SMOKE.scaled(ssm_state=128, ssm_head_dim=64, d_inner=256)
+
+
+def _card_params(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    return L.tree_init(registry.param_defs(CARD), gen, torch.bfloat16)
+
+
+def _request(params, S, card):
+    """A bf16 request of S tokens through the prefill step (`prefill`)."""
+    rc = RunConfig(seq_len=S, global_batch=1, kind="prefill",
+                   param_dtype="bfloat16", attn_impl="flash", ssm_chunk=256)
+    toks = torch.randint(0, CARD.vocab, (1, S), device=card,
+                         generator=torch.Generator(card).manual_seed(S),
+                         dtype=torch.int32)
+    return prefill(CARD, rc, params, toks, card)
+
+
+@pytest.mark.parametrize("forced", [False, True], ids=["kernels", "plain"])
+def test_card_prefill_runs_each_kernel_once_a_layer(card, forced,
+                                                    monkeypatch):
+    """Requests of 256 and 512 tokens: an SSD launch a Mamba2 layer, a K3
+    launch an attention layer, `moe.kernel` once a layer, and neither
+    `moe.plain` nor `ssd.chunked`; with the MoE rows' `route` forced to
+    refuse, `moe.plain` once a layer, for the same next token
+    (`same_answer`)."""
+    params = _card_params(card)
+    mamba = CARD.layer_types.count("mamba")
+    for S in (256, 512):
+        kernels = _request(params, S, card)
+        got = kernels[2]
+        assert (got["ssd"], got["flash"]) == (mamba, CARD.n_layers - mamba)
+        assert got["moe.kernel"] == CARD.n_layers
+        assert "moe.plain" not in got and "ssd.chunked" not in got
+        if forced:
+            with monkeypatch.context() as m:
+                m.setattr(moe_rows, "route", lambda *a: "forced")
+                plain = _request(params, S, card)
+            assert plain[2]["moe.plain"] == CARD.n_layers
+            assert "moe.kernel" not in plain[2]
+            same_answer(kernels, plain)
+
+
+def test_card_training_step_keeps_the_plain_moe(card):
+    """A bf16 training forward and backward (no recompute): every MoE
+    layer on `_scatter` and `_combine` (`moe.plain` once a layer, no
+    `moe.kernel`, no launch of the row kernels), and every gradient
+    finite.  The last fails: Granite's gradients are NaN, on the CPU as
+    well, from `_ssd_chunked`'s `where(mask, exp(li), 0)` (an open fault
+    of the port and of the reference alike, ROADMAP.md Queue 2 item 3)."""
+    rc = RunConfig(seq_len=256, global_batch=1, kind="train",
+                   param_dtype="bfloat16", compute_dtype="bfloat16",
+                   remat="none", ssm_chunk=256)
+    toks = torch.randint(0, CARD.vocab, (1, 256), device=card,
+                         generator=torch.Generator(card).manual_seed(1))
+    grads, got = train_step(CARD, rc, _card_params(card), toks)
+    assert got["moe.plain"] == CARD.n_layers and "moe.kernel" not in got
+    assert got["moe_rows"] == 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads), \
+        "NaN gradients through _ssd_chunked's masked exp (ROADMAP.md " \
+        "Queue 2 item 3)"

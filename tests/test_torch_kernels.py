@@ -6,8 +6,10 @@ CPU tensors: its plain version).  XOR is exact, so outputs must be
 bit-identical.  The byte entry points `ops.parity_bytes` and
 `ops.reconstruct_bytes` are held against the reference's, call after
 call through the port's reused staging buffers.  The CUDA kernel itself
-is held against the plain version on the card by `chip_smoke.py` and by
-the `card` tests at the end, which need no JAX.
+is held against the plain version on the card by the `card` tests at
+the end, which need no JAX: bit for bit, at every K and N of the grid
+below, at the checkpoint's largest call (K=3 rows of 518,782,976 bytes)
+and on every integer row type.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import LustreCluster  # noqa: E402
 from repro_torch.core import sanitize as port_sanitize  # noqa: E402
 from repro_torch.kernels import ops, parity, ref  # noqa: E402
+from _card import card  # noqa: E402,F401
 
 try:                                     # the card tests need no JAX
     import jax.numpy as jnp
@@ -328,24 +331,30 @@ def test_parity_refuses_bool_and_float_rows(dtype):
         parity.reconstruct(x[:1], torch.zeros(8, dtype=torch.int32))
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
+# the rows of the checkpoint's largest parity call: the (vocab, d)
+# embedding leaf of qwen3-4b's training state (and its moments), striped
+# over 3 OSTs in 256 KiB units, one row an OST of 518,782,976 bytes
+LARGE_ROW_BYTES = 518_782_976
+# K by N, from one lane to 16 MiB rows, and the largest call in int32
+CARD_GRID = [(K, N) for K in (1, 2, 3, 4, 5, 8, 16, 17, 24)
+             for N in (1, 37, 1000, 4097, 262144, 262145, 4194304)]
 
 
-@pytest.mark.parametrize("K,N", [(1, 1), (3, 37), (4, 262144),
-                                 (5, 262145), (16, 4097)])
-def test_kernel_matches_plain_on_card(cuda_device, K, N):
-    blocks = torch.from_numpy(_rows(K, N, K + N)).to(cuda_device)
+@pytest.mark.parametrize("K,N", CARD_GRID + [(3, LARGE_ROW_BYTES // 4)])
+def test_kernel_matches_plain_on_card(card, K, N):
+    """K1 bit for bit against the plain version, and K2 rebuilding every
+    row from the others and the parity."""
+    blocks = torch.from_numpy(_rows(K, N, K + N)).to(card)
     launches = parity.LAUNCHES
     got = parity.xor_parity(blocks)
     torch.cuda.synchronize()
     assert parity.LAUNCHES == launches + 1
     assert torch.equal(got, ref.xor_parity_ref(blocks))
+    for miss in range(K):
+        surv = [blocks[i] for i in range(K) if i != miss]
+        assert torch.equal(parity.reconstruct(surv, got), blocks[miss]), miss
     # rows that do not start on a 16-byte boundary take the 4-byte path
-    buf = torch.empty(K * N + 1, dtype=torch.int32, device=cuda_device)
+    buf = torch.empty(K * N + 1, dtype=torch.int32, device=card)
     buf[1:].copy_(blocks.reshape(-1))
     shifted = buf[1:].view(K, N)
     assert torch.equal(parity.xor_parity(shifted), ref.xor_parity_ref(blocks))
@@ -353,9 +362,9 @@ def test_kernel_matches_plain_on_card(cuda_device, K, N):
 
 @pytest.mark.parametrize("K,N", [(17, 1), (17, 4096), (17, 262147),
                                  (24, 37), (24, 262144)])
-def test_kernel_many_rows_on_card(cuda_device, K, N):
+def test_kernel_many_rows_on_card(card, K, N):
     """More rows than the kernel takes by value: one launch all the same."""
-    blocks = torch.from_numpy(_rows(K, N, 3 * K + N)).to(cuda_device)
+    blocks = torch.from_numpy(_rows(K, N, 3 * K + N)).to(card)
     launches = parity.LAUNCHES
     got = parity.xor_parity(blocks)
     torch.cuda.synchronize()
@@ -366,11 +375,12 @@ def test_kernel_many_rows_on_card(cuda_device, K, N):
 
 
 @pytest.mark.parametrize("K,N", [(4, 262144), (5, 4096), (16, 1024),
-                                 (17, 4096), (24, 65536)])
-def test_reconstruct_from_row_views_on_card(cuda_device, K, N):
+                                 (17, 4096), (24, 65536), (5, 262144),
+                                 (17, 4097), (24, 262144)])
+def test_reconstruct_from_row_views_on_card(card, K, N):
     """Survivors that are every other row of a larger tensor, or a list
     of rows of it, are read in place by one launch."""
-    big = torch.from_numpy(_rows(2 * K, N, K + 7 * N)).to(cuda_device)
+    big = torch.from_numpy(_rows(2 * K, N, K + 7 * N)).to(card)
     x = big[::2]
     p = parity.xor_parity(x)
     assert torch.equal(p, ref.xor_parity_ref(x))
@@ -384,11 +394,12 @@ def test_reconstruct_from_row_views_on_card(cuda_device, K, N):
     assert torch.equal(parity.reconstruct(x[1:], p), x[0])
 
 
-@pytest.mark.parametrize("K,N", [(4, 262144), (17, 4097), (24, 1000)])
-def test_misaligned_rows_on_card(cuda_device, K, N):
+@pytest.mark.parametrize("K,N", [(4, 262144), (17, 4097), (24, 1000),
+                                 (3, 37), (5, 262145), (24, 262144)])
+def test_misaligned_rows_on_card(card, K, N):
     """Rows off a 16-byte boundary take 4-byte lanes."""
-    blocks = torch.from_numpy(_rows(K, N, 11 * K + N)).to(cuda_device)
-    buf = torch.empty(K * N + 1, dtype=torch.int32, device=cuda_device)
+    blocks = torch.from_numpy(_rows(K, N, 11 * K + N)).to(card)
+    buf = torch.empty(K * N + 1, dtype=torch.int32, device=card)
     buf[1:].copy_(blocks.reshape(-1))
     shifted = buf[1:].view(K, N)
     want = ref.xor_parity_ref(blocks)
@@ -396,7 +407,7 @@ def test_misaligned_rows_on_card(cuda_device, K, N):
     assert torch.equal(parity.reconstruct(shifted[1:], want), blocks[0])
 
 
-def test_parity_bytes_on_card_matches_cpu(cuda_device):
+def test_parity_bytes_on_card_matches_cpu(card):
     """The card's byte path (pinned staging reused call after call) gives
     the CPU path's bytes: long chunks, shorter ones, a single one, an
     empty one, and more rows than the kernel takes by value."""
@@ -409,35 +420,41 @@ def test_parity_bytes_on_card_matches_cpu(cuda_device):
              [rng.bytes(1 << 20) for _ in range(5)]]
     for chunks in calls:
         launches = parity.LAUNCHES
-        got = ops.parity_bytes(chunks, device=cuda_device)
+        got = ops.parity_bytes(chunks, device=card)
         assert parity.LAUNCHES == launches + 1
         assert got == ops.parity_bytes(chunks, device="cpu")
         n = max(len(c) for c in chunks)
         pad = [c.ljust(n, b"\0") for c in chunks]
         assert ops.reconstruct_bytes(pad[1:], got, len(chunks[0]),
-                                     device=cuda_device) == chunks[0]
+                                     device=card) == chunks[0]
 
 
-@pytest.mark.parametrize("K,N", [(1, 1), (3, 37), (4, 262144), (5, 262147),
-                                 (17, 4097)])
-@pytest.mark.parametrize("dtype", INT_TYPES)
-def test_integer_rows_on_card(cuda_device, dtype, K, N):
+@pytest.mark.parametrize("dtype,K,N", [
+    (d, K, N) for K in (1, 2, 3, 4, 5, 17)
+    for N in (1, 37, 4097, 262144, 262147) for d in INT_TYPES] + [
+    (d, 3, LARGE_ROW_BYTES // np.dtype(d).itemsize)
+    for d in ("uint8", "int64")])
+def test_integer_rows_on_card(card, dtype, K, N):
     """K1 on rows of each integer type against the plain version, bit for
     bit, in 16-byte lanes where a row allows and element by element where
-    not (rows one element past a 16-byte boundary); K2 from survivors of
-    the row type and the int32 parity (two type groups: three launches)."""
+    not (rows one element past a 16-byte boundary), and at the bytes of
+    the checkpoint's largest call in a narrow and a wide type; K2 from
+    survivors of the row type and the int32 parity (two type groups:
+    three launches), for up to four missing rows of each layout."""
     td = getattr(torch, dtype)
     x = torch.from_numpy(_int_rows(K, N, np.dtype(dtype), K + N)).to(
-        cuda_device)
+        card)
     before = parity.LAUNCHES
     p = parity.xor_parity(x)
     torch.cuda.synchronize()
     assert parity.LAUNCHES == before + 1
     assert torch.equal(p, ref.xor_parity_ref(x))
-    buf = torch.empty(K * N + 1, dtype=td, device=cuda_device)
+    buf = torch.empty(K * N + 1, dtype=td, device=card)
     buf[1:].copy_(x.reshape(-1))
     shifted = buf[1:].view(K, N)
     assert torch.equal(parity.xor_parity(shifted), p)
-    if K > 1:
-        rec = parity.reconstruct(shifted[1:], p)
-        assert torch.equal(rec, ref.to_int32(x[0]))
+    for rows in (x, shifted):
+        for miss in range(min(K, 4) if K > 1 else 0):
+            rec = parity.reconstruct(
+                [rows[i] for i in range(K) if i != miss], p)
+            assert torch.equal(rec, ref.to_int32(rows[miss])), miss

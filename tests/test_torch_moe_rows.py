@@ -11,8 +11,10 @@ dropped; the MoE layer forced onto the kernel path gives the plain path's
 bits and counts in `moe.kernel`; a CPU prefill counts neither
 `moe.kernel` nor `moe.plain`.  On the card (the `card` tests, skipped
 without one): the kernels against their plain versions and against
-`_scatter` and `_combine` at the cells' widths, and the counts of a
-prefill and a training forward.
+`_scatter` and `_combine` at the cells' widths and token counts, and a
+prefill's counts on the kernels, and on the plain functions with the
+kernels refused, for the same next token; a training step's counts and
+its finite gradients.
 """
 import types
 
@@ -27,6 +29,8 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe, registry  # noqa: E402
 from repro_torch.models.config import RunConfig  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
+from _card import (card, moe_rows_close, prefill,  # noqa: E402,F401
+                   same_answer, train_step)
 
 # (experts, top-k, tokens): chat's phi3.5-moe and Granite 4.0-H Small's
 # routing at a few tokens
@@ -34,12 +38,14 @@ ROUTINGS = {"chat": (16, 2, 64), "granite": (72, 10, 96)}
 DTYPES = [torch.bfloat16, torch.float16]
 
 
-def routing(name, seed=0, d=64, dtype=torch.bfloat16, device="cpu"):
+def routing(name, seed=0, d=64, dtype=torch.bfloat16, device="cpu", T=None):
     """A layer's inputs with the experts chosen by hand: the first 40 % of
     the tokens all pick experts 0 .. k-1, which overflow, so the last of
     them drop every slot; the last expert is picked by no token; the rest
-    pick k distinct experts at random.  Returns (cfg, x, top_p, top_e, C)."""
-    E, k, T = ROUTINGS[name]
+    pick k distinct experts at random.  T tokens (ROUTINGS' by default).
+    Returns (cfg, x, top_p, top_e, C)."""
+    E, k, T0 = ROUTINGS[name]
+    T = T or T0
     cfg = types.SimpleNamespace(n_experts=E, top_k=k, capacity_factor=1.25)
     C = moe.capacity(cfg, T)
     g = torch.Generator().manual_seed(seed)
@@ -311,24 +317,8 @@ def test_wrappers_refuse_tensors_off_the_cpu_that_route_refuses(what):
 
 # ------------------------------------------------------------- on the card
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-def _ulps(a, b):
-    """|a - b| in units in the last place of the 16-bit type, elementwise
-    (the bit patterns as ordered integers)."""
-    def ordered(t):
-        i = t.view(torch.int16).int()
-        return torch.where(i < 0, -32768 - i, i)
-    return (ordered(a) - ordered(b)).abs()
-
-
-def _held(name, dtype, seed, device, d=256):
-    cfg, x, top_p, top_e, C = routing(name, seed, d, dtype, device)
+def _held(name, dtype, seed, device, d=256, T=None):
+    cfg, x, top_p, top_e, C = routing(name, seed, d, dtype, device, T)
     E, k, _ = ROUTINGS[name]
     order, dest, _ = moe.dispatch(cfg, top_e, C)
     launches = moe_rows.LAUNCHES
@@ -343,16 +333,24 @@ def _held(name, dtype, seed, device, d=256):
         want = moe._combine(out, dest, order, top_p, k)
     torch.cuda.synchronize()
     assert moe_rows.LAUNCHES == launches + 3
-    assert torch.equal(buf, moe._scatter(x, order, dest, E, C, k, dtype))
+    moe_rows_close(buf, moe._scatter(x, order, dest, E, C, k, dtype), y,
+                   want)
     assert torch.equal(buf, buf_p) and torch.equal(slot_row, slot_p)
     assert torch.equal(y, y_p) and torch.equal(y, y2)
-    assert int(_ulps(y, want).max()) <= 1
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("name", sorted(ROUTINGS))
-def test_card_kernels_hold_to_the_plain_versions(card, name, dtype):
-    _held(name, dtype, 0, card)
+@pytest.mark.parametrize("name,dtype,T,d", [
+    (name, dtype, None, 256) for name in sorted(ROUTINGS)
+    for dtype in DTYPES]
+    # the cells' widths and prompt lengths: Granite's 72 experts top-10
+    # and chat's 16 top-2 at d = 4096
+    + [("granite", torch.bfloat16, T, 4096) for T in (2048, 4096, 6144,
+                                                       8192)]
+    + [("chat", torch.bfloat16, T, 4096) for T in (128, 512, 1024, 2048,
+                                                    4096, 8192)],
+    ids=str)
+def test_card_kernels_hold_to_the_plain_versions(card, name, dtype, T, d):
+    _held(name, dtype, 0, card, d, T)
 
 
 @pytest.mark.parametrize("d", [8, 24, 4096])
@@ -360,22 +358,48 @@ def test_card_row_widths(card, d):
     _held("granite", torch.bfloat16, 1, card, d)
 
 
-def test_card_prefill_counts_the_kernel_in_every_layer(card):
+def _smoke(card):
     cfg = get_smoke_config("phi3.5-moe")
-    rc = RunConfig(seq_len=256, global_batch=1, kind="prefill",
-                   param_dtype="bfloat16", attn_impl="ref")
     gen = torch.Generator(device=card).manual_seed(0)
     params = L.tree_init(registry.param_defs(cfg), gen, torch.bfloat16)
-    toks = torch.randint(0, cfg.vocab, (1, rc.seq_len), device=card,
+    toks = torch.randint(0, cfg.vocab, (1, 256), device=card,
                          generator=gen, dtype=torch.int32)
-    trace.reset()
-    trace.enable()
-    try:
-        steps.build_prefill_step(cfg, rc, device=card)(
-            params, {"tokens": toks})
-        got = trace.counters()
-    finally:
-        trace.disable()
-        trace.reset()
+    return cfg, params, toks
+
+
+@pytest.mark.parametrize("forced", [False, True], ids=["kernel", "plain"])
+def test_card_prefill_counts_the_kernel_in_every_layer(card, forced,
+                                                       monkeypatch):
+    """phi3.5-moe's smoke config, a bf16 prefill: `moe.kernel` once a
+    layer and two launches, no `moe.plain`; with `route` forced to
+    refuse, `moe.plain` once a layer and no launch, for the same next
+    token (`same_answer`)."""
+    cfg, params, toks = _smoke(card)
+    rc = RunConfig(seq_len=256, global_batch=1, kind="prefill",
+                   param_dtype="bfloat16", attn_impl="ref")
+    kernel = prefill(cfg, rc, params, toks, card)
+    got = kernel[2]
     assert got["moe.kernel"] == cfg.n_layers
     assert "moe.plain" not in got
+    assert got["moe_rows"] == 2 * cfg.n_layers
+    if forced:
+        monkeypatch.setattr(moe_rows, "route", lambda *a: "forced")
+        plain = prefill(cfg, rc, params, toks, card)
+        assert plain[2]["moe.plain"] == cfg.n_layers
+        assert "moe.kernel" not in plain[2] and plain[2]["moe_rows"] == 0
+        same_answer(kernel, plain)
+
+
+def test_card_training_step_keeps_the_plain_moe(card):
+    """phi3.5-moe's smoke config, a bf16 training forward and backward:
+    every MoE layer on `_scatter` and `_combine` (`moe.plain` once a
+    layer, no `moe.kernel`, no launch of the row kernels), and every
+    gradient finite."""
+    cfg, params, toks = _smoke(card)
+    rc = RunConfig(seq_len=256, global_batch=1, kind="train",
+                   param_dtype="bfloat16", compute_dtype="bfloat16",
+                   remat="none")
+    grads, got = train_step(cfg, rc, params, toks.long())
+    assert got["moe.plain"] == cfg.n_layers and "moe.kernel" not in got
+    assert got["moe_rows"] == 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

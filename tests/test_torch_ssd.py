@@ -6,8 +6,10 @@ the kernel, and a CPU prefill counts nothing in `ssd.chunked` or
 `ssd.launches`.  On the card (the `card` tests, skipped without one, no
 JAX): the kernel against `_ssd_chunked` on the same card with TF32 off, at
 zamba2-7b's widths (H = 112, P = N = 64) and Granite 4.0-H Small's (H =
-128, P = 64, N = 128), from inputs drawn as the benchmark's zamba2 draws
-its Mamba2 leaves.
+128, P = 64, N = 128) at the cells' prompt lengths, from inputs drawn as
+the benchmark's zamba2 draws its Mamba2 leaves; and a prefill that takes
+the kernel in every block, or `_ssd_chunked` with the kernel refused,
+for the same next token.
 """
 import math
 
@@ -22,18 +24,9 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import registry, zamba2  # noqa: E402
 from repro_torch.models.config import RunConfig  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
+from _card import card, prefill, same_answer, ssd_close  # noqa: E402,F401
 
 P = N = 64
-# y and the final state against `_ssd_chunked`: relative Frobenius norm
-# (the kernel sums in another order; a bf16 or tf32 rounding of an
-# operand held in float32 would be near 2^-9)
-REL_TOL = 1e-4
-# element by element, y within REL_TOL of max|y| but where an att_ij lies
-# so near a bf16 rounding boundary that the two sums of C_i . B_j round
-# it to neighbours: one bf16 step of att_ij x_jp, at most 2^-8 of max|y|,
-# in at most FLIP_SHARE of the elements
-FLIP_TOL = 2.0 ** -8
-FLIP_SHARE = 1e-3
 
 
 def inputs(B, S, H, seed, device="cpu", heads=None, n=N):
@@ -136,16 +129,6 @@ def test_cpu_prefill_counts_no_chunked_block_and_no_launch():
 
 # ------------------------------------------------------------- on the card
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    yield torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-
-
 def _held(ins, chunk):
     """The kernel's (y, state) against `_ssd_chunked`'s on the card."""
     launches = ssd.LAUNCHES
@@ -155,18 +138,10 @@ def _held(ins, chunk):
         y_r, st_r = zamba2._ssd_chunked(*ins, chunk, torch.bfloat16)
     torch.cuda.synchronize()
     assert ssd.LAUNCHES == launches + 1
-    assert y.shape == y_r.shape and st.shape == st_r.shape
-    for got, want in ((y, y_r), (st, st_r)):
-        assert bool(torch.isfinite(got).all())
-        rel = float((got - want).norm() / want.norm())
-        assert rel <= REL_TOL, rel
-    off = (y - y_r).abs()
-    top = float(y_r.abs().max())
-    assert float(off.max()) <= FLIP_TOL * top
-    assert float((off > REL_TOL * top).float().mean()) <= FLIP_SHARE
+    ssd_close((y, st), (y_r, st_r))
 
 
-@pytest.mark.parametrize("S", [256, 512, 4096])
+@pytest.mark.parametrize("S", [256, 512, 4096, 1024, 2048, 6144, 8192])
 def test_card_zamba2_shapes(card, S):
     _held(inputs(1, S, 112, S, card), 256)
 
@@ -184,14 +159,20 @@ def test_card_head_slice_as_local_map_hands_it(card):
     _held(inputs(1, 1024, 112, 11, card, heads=slice(56, 112)), 256)
 
 
-@pytest.mark.parametrize("S", [256, 4096, 8192])
+@pytest.mark.parametrize("S", [256, 4096, 8192, 2048, 6144])
 @pytest.mark.parametrize("chunk", [256, 128])
 def test_card_granite_shapes(card, S, chunk):
     """Granite 4.0-H Small's blocks: H = 128, P = 64, N = 128, B = 2."""
     _held(inputs(2, S, 128, S + chunk, card, n=128), chunk)
 
 
-def test_card_prefill_takes_the_kernel_in_every_block(card):
+@pytest.mark.parametrize("forced", [False, True], ids=["kernel", "plain"])
+def test_card_prefill_takes_the_kernel_in_every_block(card, forced,
+                                                      monkeypatch):
+    """zamba2's smoke config at the kernel's widths, a bf16 prefill: one
+    SSD launch a block and no `_ssd_chunked`; with `route` forced to
+    refuse, `_ssd_chunked` in every block and no launch, for the same
+    next token (`same_answer`)."""
     cfg = get_smoke_config("zamba2-7b")
     cfg = cfg.scaled(ssm_state=N, ssm_head_dim=P, d_inner=4 * P)
     rc = RunConfig(seq_len=512, global_batch=1, kind="prefill",
@@ -200,14 +181,13 @@ def test_card_prefill_takes_the_kernel_in_every_block(card):
     params = L.tree_init(registry.param_defs(cfg), gen, torch.bfloat16)
     toks = torch.randint(0, cfg.vocab, (1, rc.seq_len), device=card,
                          generator=gen, dtype=torch.int32)
-    trace.reset()
-    trace.enable()
-    try:
-        steps.build_prefill_step(cfg, rc, device=card)(
-            params, {"tokens": toks})
-        got = trace.counters()
-    finally:
-        trace.disable()
-        trace.reset()
+    kernel = prefill(cfg, rc, params, toks, card)
+    got = kernel[2]
     assert got["ssd.launches"] == cfg.n_layers
     assert "ssd.chunked" not in got
+    if forced:
+        monkeypatch.setattr(ssd, "route", lambda *a: "forced")
+        plain = prefill(cfg, rc, params, toks, card)
+        assert plain[2]["ssd.chunked"] == cfg.n_layers
+        assert plain[2].get("ssd.launches", 0) == 0
+        same_answer(kernel, plain)
